@@ -1,0 +1,68 @@
+"""Carry state across from the JAX package, given as numpy arrays.
+
+The JAX package's ``PuzzleSRS.points`` coordinates and its ``EpochProgram``
+tensors are already in the port's layout (int32 16-bit limbs, Montgomery
+form with the same R), so conversion is a checked copy onto the device.
+Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
+its arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from snarkos_tpu_torch.ops import _build, g1
+from snarkos_tpu_torch.ops.fieldspec import FQ, FR
+from snarkos_tpu_torch.ops.puzzle import EPOCH_STEPS, EpochProgram, PuzzleSRS
+
+
+def _limbs(arr, nlimbs: int, what: str, ndim: int = 2) -> np.ndarray:
+    arr = np.asarray(arr)
+    if arr.dtype != np.int32:
+        raise ValueError(f"{what}: expected int32, got {arr.dtype}")
+    if arr.ndim != ndim or arr.shape[-2 if ndim == 2 else 1] != nlimbs:
+        raise ValueError(f"{what}: expected {nlimbs} limbs, got shape {arr.shape}")
+    if arr.size and (arr.min() < 0 or arr.max() > 0xFFFF):
+        raise ValueError(f"{what}: limbs outside [0, 2^16)")
+    return arr
+
+
+def points(x, y, z, device=None) -> g1.JacobianPoints:
+    """(24, n) int32 Montgomery coordinates -> JacobianPoints on device."""
+    device = _build.resolve_device(device)
+    arrs = [_limbs(a, FQ.nlimbs, what) for a, what in ((x, "x"), (y, "y"), (z, "z"))]
+    if not arrs[0].shape == arrs[1].shape == arrs[2].shape:
+        raise ValueError(f"coordinate shapes differ: {[a.shape for a in arrs]}")
+    return g1.JacobianPoints(*(torch.from_numpy(np.array(a)).to(device)
+                               for a in arrs))
+
+
+def puzzle_srs(x, y, z, device=None) -> PuzzleSRS:
+    """The JAX package's ``PuzzleSRS.points`` (x, y, z) -> PuzzleSRS."""
+    pts = points(x, y, z, device)
+    return PuzzleSRS(degree=pts.x.shape[1] - 1, points=pts)
+
+
+def epoch_program(epoch_hash: bytes, perms, sels, consts, device=None) -> EpochProgram:
+    """The JAX package's ``EpochProgram`` (perms, sels, consts) ->
+    EpochProgram."""
+    device = _build.resolve_device(device)
+    perms, sels, consts = np.asarray(perms), np.asarray(sels), np.asarray(consts)
+    if perms.dtype != np.int32 or perms.ndim != 2 or perms.shape[0] != EPOCH_STEPS:
+        raise ValueError(f"perms: expected int32 ({EPOCH_STEPS}, K), got "
+                         f"{perms.dtype} {perms.shape}")
+    k = perms.shape[1]
+    if not (np.sort(perms, axis=1) == np.arange(k)).all():
+        raise ValueError("perms: every row must be a permutation of range(K)")
+    if sels.dtype != np.int32 or sels.shape != (EPOCH_STEPS, 1, k):
+        raise ValueError(f"sels: expected int32 {(EPOCH_STEPS, 1, k)}, got "
+                         f"{sels.dtype} {sels.shape}")
+    if sels.size and (sels.min() < 0 or sels.max() > 3):
+        raise ValueError("sels: selectors outside [0, 4)")
+    consts = _limbs(consts, FR.nlimbs, "consts", ndim=3)
+    if consts.shape != (EPOCH_STEPS, FR.nlimbs, k):
+        raise ValueError(f"consts: expected {(EPOCH_STEPS, FR.nlimbs, k)}, got {consts.shape}")
+    return EpochProgram.from_tensors(
+        epoch_hash, *(torch.from_numpy(np.array(a)).to(device)
+                      for a in (perms, sels, consts)))

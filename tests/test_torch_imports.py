@@ -1,0 +1,100 @@
+"""The PyTorch port stands alone: no module of snarkos_tpu_torch, nor
+chip_smoke.py, imports JAX or the JAX package; no kernel wrapper catches an
+exception around a launch (a CUDA tensor launches its kernel or raises); the
+entry points default to the card and refuse to run without one."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "snarkos_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "snarkos_tpu")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    bad = [m for m in _imported(tree) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _calls_kernel(node) -> bool:
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            f = sub.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+            if name == "launch" or name.endswith("_kernel"):
+                return True
+    return False
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_fallback_around_kernel_launch(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and node.handlers:
+            assert not any(_calls_kernel(stmt) for stmt in node.body), (
+                f"{path}:{node.lineno} catches an exception around a kernel launch")
+
+
+def test_entry_points_refuse_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from snarkos_tpu_torch import convert
+    from snarkos_tpu_torch.ops import _build
+    from snarkos_tpu_torch.ops.puzzle import Puzzle, PuzzleSRS
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Puzzle(log_degree=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PuzzleSRS.dev(log_degree=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.points(*[torch.zeros((24, 1), dtype=torch.int32).numpy()] * 3)
+    assert _build.resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    """The launchers take only what their kernels take; they never run the
+    plain version."""
+    from snarkos_tpu_torch.ops import g1, g1_kernels, msm_kernels
+    from snarkos_tpu_torch.ops import modarith as fa
+    from snarkos_tpu_torch.ops.fieldspec import FQ, FR
+
+    a = torch.zeros((16, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.mont_mul_kernel(FR, a, a)
+    with pytest.raises(ValueError, match="expected"):
+        fa.mont_mul_kernel(FQ, a, a)
+    p = g1.infinity((4,))
+    with pytest.raises(ValueError, match="CUDA"):
+        g1_kernels.add_kernel(p, p)
+    flag = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        g1_kernels.seg_combine_kernel((flag, p.x, p.y, p.z), (flag, p.x, p.y, p.z))
+    xs = torch.zeros((24, 2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm_kernels.bucket_scan_serial_kernel(xs, xs, torch.zeros((1, 2, 4), dtype=torch.int32))
+    assert fa.mont_mul_kernel.launches == 0
