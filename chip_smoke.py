@@ -6,20 +6,32 @@ Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
      and nvcc versions; build every kernel from snarkos_tpu_torch/csrc, one
-     nvcc per source, all at once.
-  2. every kernel of the main path (B1 mont_mul, B2 g1_add, B3 seg_combine,
-     B4 bucket_scan_serial) against its plain PyTorch version on the card, at
-     the main path's shapes, with edge lanes; the comparison is exact
-     (tolerance 0: the arithmetic is integer). Times: median of 7 runs of 20
-     back-to-back launches for a kernel, of 5 single calls for its plain
-     version.
-  3. the main path: Puzzle(log_degree=12).prove_batch over 8 nonces on the
-     card, checked byte for byte against tests/fixtures/torch_puzzle_k12_b8.json,
-     against C = p(tau) G and W = q(tau) G computed on the host from the
-     coefficients and the known dev tau, and against prove_batch of one
-     nonce; every kernel's launch counter must grow during that call. Then
+     nvcc per source, all at once; the dev SRS of degree 2^20 built on the
+     card (its first 2^20 points are the bases of phase 5).
+  2. every kernel (B1 mont_mul, B2 g1_add, B3 seg_combine, B4
+     bucket_scan_serial, B5 bucket_scan, B6 bucket_scan_fast, B7 jadd_scan)
+     against its plain PyTorch version on the card, at the paths' shapes and
+     on real windows of their MSMs, with edge lanes; the comparison is exact
+     (tolerance 0: the arithmetic is integer), B6's exception flags included.
+     Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
+     of 3 at the 2^20 shapes), of 5 single calls for its plain version (of 1
+     call after a warm-up at the 2^20 shapes, where one takes seconds).
+  3. Puzzle(log_degree=12).prove_batch over 8 nonces on the card, checked
+     byte for byte against tests/fixtures/torch_puzzle_k12_b8.json, against
+     C = p(tau) G and W = q(tau) G computed on the host from the coefficients
+     and the known dev tau, and against prove_batch of one nonce. Then
      solutions/s at batch 8 (median of 3 timed calls).
-  4. one JSON line with every kernel's numbers, then the result line.
+  4. prove_batch over 16 nonces (the wide-chain engine, B5): nonces 0-7 equal
+     to prove_batch(8), all 16 checked on the host as above plus solution_id
+     = sha64(C || y); solutions/s at batch 16 (median of 3 after a warm-up).
+  5. one MSM of 2^20 points through msm.msm_affine (the fast engine B6, the
+     bucket total B7): the result equals (sum k_i tau^i) G computed on the
+     host; then with base 1 := base 0 and k_1 := k_0, where B6's flag fires
+     and the complete engine (B5) reruns; points/s (median of 3 timed calls).
+  6. one JSON line with every kernel's numbers, then the result line.
+Every path runs with the launch counters set to 0 just before it and read
+just after; each must launch the kernels it is built from, and every kernel
+must launch on some path.
 
 The script imports nothing of JAX or of the JAX package (snarkos_tpu).
 Details go to chiprun_out/chip_smoke.json.
@@ -36,6 +48,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 8
+BATCH_WIDE = 16
+LOG_N = 20
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet): 3.35 TB/s of HBM and
 # 67 TFLOP/s of float32 outside the tensor cores, i.e. 33.5 T fused
@@ -91,6 +105,9 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     import torch
 
@@ -105,7 +122,7 @@ def main() -> int:
     from snarkos_tpu_torch.ops import _build, g1, g1_kernels, msm, msm_kernels
     from snarkos_tpu_torch.ops import modarith as fa
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
-    from snarkos_tpu_torch.ops.puzzle import DEV_TAU, Puzzle
+    from snarkos_tpu_torch.ops.puzzle import DEV_TAU, Puzzle, PuzzleSRS, sha64
 
     with open(os.path.join(HERE, "tests", "fixtures", "torch_puzzle_k12_b8.json")) as fh:
         fixture = json.load(fh)
@@ -134,6 +151,11 @@ def main() -> int:
             log(f"  {name}: {ln}")
     report.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
                   build_s=build_s, ptxas=regs)
+    t0 = time.perf_counter()
+    srs = PuzzleSRS.dev(LOG_N)
+    torch.cuda.synchronize()
+    report["srs20_build_s"] = time.perf_counter() - t0
+    log(f"dev SRS of degree 2^{LOG_N} built on the card in {report['srs20_build_s']:.1f} s")
 
     rng = np.random.default_rng(1234)
     prng = random.Random(1234)
@@ -180,8 +202,10 @@ def main() -> int:
 
     kernels = []
 
-    def check(name, source, replaces, cases, counter):
-        """cases: [(label, kernel_fn, plain_fn, nbytes, nops)]"""
+    def check(name, source, replaces, cases, counter, big=False, verify=None):
+        """cases: [(label, kernel_fn, plain_fn, nbytes, nops)]; ``big``: time
+        7 runs of 3 launches and one plain call after a warm-up; ``verify``
+        checks the kernel's output beyond the comparison with the plain one."""
         shapes = []
         for label, kfn, pfn, nbytes, nops in cases:
             got, want = kfn(), pfn()
@@ -189,8 +213,10 @@ def main() -> int:
             err = max_abs_err(got, want)
             if err != 0:
                 raise AssertionError(f"{name} {label}: kernel != plain (max abs err {err})")
-            ms = cuda_ms(kfn, 7, inner=20)
-            plain_ms = cuda_ms(pfn, 5)
+            if verify is not None:
+                verify(label, got)
+            ms = cuda_ms(kfn, 7, inner=3 if big else 20)
+            plain_ms = cuda_ms(pfn, 1 if big else 5)
             b_ms, b_by = bound(nbytes, nops)
             shapes.append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by})
@@ -231,24 +257,41 @@ def main() -> int:
     # a real window of the batch-8 multi-MSM: base = 4096 affine points tiled
     # 8 times, random scalars, c = 6, K = 256 chains of m = 128
     base = g1.encode_points(multiples, dev)
-    scalars = torch.from_numpy(FR.random(n, rng)).to(dev)  # canonical Fr values
     c = msm.fused_window_bits(4096)
-    K = msm._default_lanes(n)
     B = (1 << (c - 1)) + 1
-    x = base.x.repeat(1, BATCH)
-    ycat = torch.cat([base.y.repeat(1, BATCH), fa.neg(FQ, base.y).repeat(1, BATCH)], dim=-1)
-    packed = msm.signed_window_digits(scalars, c)
-    batch_off = (torch.arange(n, device=dev) // 4096) * B
-    _, xs, ys, heads = msm.chain_layout(x, ycat, packed[packed.shape[0] // 2], K, batch_off)
-    m = n // K
-    # edge cases inside chains: P == Q (doubling) and P == -Q (identity)
-    xs, ys, heads = xs.clone(), ys.clone(), heads.clone()
-    for k in range(4):
-        xs[:, 5, k], ys[:, 5, k], heads[5, k] = xs[:, 4, k], ys[:, 4, k], 0
-    for k in range(4, 8):
-        xs[:, 5, k], heads[5, k] = xs[:, 4, k], 0
-        ys[:, 5, k] = fa.neg(FQ, ys[:, 4, k:k + 1])[:, 0]
-    flags = heads.unsqueeze(0).contiguous()
+
+    def multi_window(batch, serial):
+        """Chain layout of the middle window of a batch-``batch`` multi-MSM
+        over ``base`` with random scalars, with edge steps P == Q and P == -Q
+        inside chains 0-7 (each a head, then its copy or its negation)."""
+        nn = batch * 4096
+        K = msm._default_lanes(nn)
+        x = base.x.repeat(1, batch)
+        ycat = torch.cat([base.y.repeat(1, batch), fa.neg(FQ, base.y).repeat(1, batch)], dim=-1)
+        packed = msm.signed_window_digits(torch.from_numpy(FR.random(nn, rng)).to(dev), c)
+        src = msm.chain_src(nn, K, msm_kernels.CHUNK, serial, dev)
+        batch_off = (torch.arange(nn, device=dev) // 4096) * B
+        _, xs, ys, heads = msm.chain_layout(x, ycat, packed[packed.shape[0] // 2], src, batch_off)
+        rows = 1 if serial else msm_kernels.CHUNK
+        j0, j1 = 4 * rows, 5 * rows  # steps 4 and 5 of the chains in layout row 0
+        xs, ys, heads = xs.clone(), ys.clone(), heads.clone()
+        for k in range(8):
+            xs[:, j1, k], ys[:, j1, k], heads[j0, k], heads[j1, k] = xs[:, j0, k], ys[:, j0, k], 1, 0
+            if k >= 4:
+                ys[:, j1, k] = fa.neg(FQ, ys[:, j0, k:k + 1])[:, 0]
+        return xs, ys, heads.unsqueeze(0).contiguous(), K
+
+    def scan_cost(flags, n_dbl):
+        """(bytes, multiplies) of a bucket scan: affine inputs and head flags
+        read, Jacobian outputs written; 11 Fq products a non-head step, 6
+        more for a doubling."""
+        npos = flags.numel()
+        return ((2 * 24 * 4 + 4 + 3 * 24 * 4) * npos,
+                ((npos - int(flags.sum())) * 11 + 6 * n_dbl) * FQ_MUL_OPS)
+
+    xs, ys, flags, K = multi_window(BATCH, serial=True)
+    m = xs.shape[1]
+    heads = flags[0]
 
     def seg_case(width, fl):
         pa, pb, n_dbl = point_pairs(width)
@@ -267,16 +310,116 @@ def main() -> int:
           "snarkos_tpu/ops/g1_pallas.py:98",
           [seg_case(K, chain_flags), seg_case(BATCH * B, seg_flags)], g1_kernels.seg_combine_kernel)
 
-    n_heads = int(flags.sum())
     check("bucket_scan_serial", "snarkos_tpu_torch/csrc/bucket_scan_serial.cu",
           "snarkos_tpu/ops/msm_pallas.py:251",
           [(f"(24, {m}, {K})", lambda: msm_kernels.bucket_scan_serial_kernel(xs, ys, flags),
-            lambda: msm_kernels.bucket_scan_serial_plain(xs, ys, flags),
-            (2 * 24 * 4 + 4 + 3 * 24 * 4) * m * K,
-            ((m * K - n_heads) * 11 + 6 * 4) * FQ_MUL_OPS)],
+            lambda: msm_kernels.bucket_scan_serial_plain(xs, ys, flags), *scan_cost(flags, 4))],
           msm_kernels.bucket_scan_serial_kernel)
 
-    # -- 3. the main path ---------------------------------------------------------
+    # the 2^20 single MSM's bases (the dev SRS powers, tau^i known) and scalars
+    N = 1 << LOG_N
+    bx, by = srs.points.x[:, :N].contiguous(), srs.points.y[:, :N].contiguous()
+    big_scalars = torch.from_numpy(FR.random(N, np.random.default_rng(20))).to(dev)
+    c20 = msm.fused_window_bits(N)
+    K20 = msm._default_lanes(N)
+    src20 = msm.chain_src(N, K20, msm_kernels.CHUNK, False, dev)
+    packed20 = msm.signed_window_digits(big_scalars, c20)
+    keys20, xs20, ys20, heads20 = msm.chain_layout(
+        bx, torch.cat([by, fa.neg(FQ, by)], dim=-1), packed20[packed20.shape[0] // 2], src20)
+    fl20 = heads20.unsqueeze(0).contiguous()
+    m20 = xs20.shape[1]
+
+    # B5 on a window of the batch-16 multi-MSM and on the 2^20 window
+    xs16, ys16, fl16, K16 = multi_window(BATCH_WIDE, serial=False)
+    check("bucket_scan", "snarkos_tpu_torch/csrc/bucket_scan.cu",
+          "snarkos_tpu/ops/msm_pallas.py:173",
+          [(f"(24, {xs16.shape[1]}, {K16})",
+            lambda: msm_kernels.bucket_scan_kernel(xs16, ys16, fl16, msm_kernels.CHUNK),
+            lambda: msm_kernels.bucket_scan_plain(xs16, ys16, fl16, msm_kernels.CHUNK),
+            *scan_cost(fl16, 4)),
+           (f"(24, {m20}, {K20})",
+            lambda: msm_kernels.bucket_scan_kernel(xs20, ys20, fl20, msm_kernels.CHUNK),
+            lambda: msm_kernels.bucket_scan_plain(xs20, ys20, fl20, msm_kernels.CHUNK),
+            *scan_cost(fl20, 0))],
+          msm_kernels.bucket_scan_kernel, big=True)
+
+    # B6 on the 2^20 window with edge steps (a head, then its copy or its
+    # negation): P == Q and P == -Q in live buckets, where exactly those
+    # chains must flag, and both in bucket 0 (the first ~64 sorted positions,
+    # all in chain 0), where the flag must stay clear
+    nz20 = (keys20 > 0).to(torch.int32)[src20.reshape(-1)].reshape(1, m20, K20).contiguous()
+    xs6, ys6, fl6 = xs20.clone(), ys20.clone(), fl20.clone()
+    chunk = msm_kernels.CHUNK
+    live_chains = [(r, k) for r in (0, 3, 7) for k in (100, 101, 300, 511)]
+    edges = [(r, k, 10) for r, k in live_chains] + [(0, 0, 10), (0, 0, 20)]
+    for idx, (r, k, i) in enumerate(edges):
+        j0, j1 = i * chunk + r, (i + 1) * chunk + r
+        xs6[:, j1, k], ys6[:, j1, k], fl6[0, j0, k], fl6[0, j1, k] = xs6[:, j0, k], ys6[:, j0, k], 1, 0
+        if idx % 2:
+            ys6[:, j1, k] = fa.neg(FQ, ys6[:, j0, k:k + 1])[:, 0]
+        if int(nz20[0, j1, k]) != ((r, k) in live_chains):
+            raise AssertionError(f"B6 edge step at chain ({r}, {k}) is not where it was meant")
+    want_exc = torch.zeros((1, chunk, K20), dtype=torch.int32, device=dev)
+    for r, k in live_chains:
+        want_exc[0, r, k] = 1
+
+    def exc_exact(label, got):
+        if not torch.equal(got[3], want_exc):
+            raise AssertionError(f"bucket_scan_fast {label}: exc set in chains "
+                                 f"{got[3].nonzero().tolist()}, want {live_chains}")
+        log(f"bucket_scan_fast {label}: exc set in exactly the {len(live_chains)} edge chains")
+
+    b6_bytes, b6_ops = scan_cost(fl6, 0)  # plus the nonzero flags read, exc written
+    check("bucket_scan_fast", "snarkos_tpu_torch/csrc/bucket_scan_fast.cu",
+          "snarkos_tpu/ops/msm_pallas.py:138",
+          [(f"(24, {m20}, {K20})",
+            lambda: msm_kernels.bucket_scan_fast_kernel(xs6, ys6, fl6, nz20, chunk),
+            lambda: msm_kernels.bucket_scan_fast_plain(xs6, ys6, fl6, nz20, chunk),
+            b6_bytes + 4 * m20 * K20 + 4 * chunk * K20, b6_ops)],
+          msm_kernels.bucket_scan_fast_kernel, big=True, verify=exc_exact)
+
+    # B7 at the bucket total's shape for B = 2^13 + 1: Jacobian points with
+    # identities (arbitrary X, Y), P == Q and P == -Q between steps of chains
+    Bp = msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK * 9
+    m7 = Bp // msm_kernels.JADD_LANES
+    pts7 = [rescale(multiples[prng.randrange(4096)]) for _ in range(Bp)]
+    for e in range(0, Bp, 16):
+        pts7[e] = (prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
+    kv7 = msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK
+    for t in range(1, 9):  # flat position i kv + t holds element i of chain t
+        pts7[kv7 + t] = rescale(pts7[t] if t < 5 else ref_g1.neg(pts7[t]))
+    p7 = g1.encode_points(pts7, dev)
+    x7, y7, z7 = (v.reshape(24, m7, msm_kernels.JADD_LANES) for v in (p7.x, p7.y, p7.z))
+    n_fin = sum(1 for p in pts7 if p[2])
+    check("jadd_scan", "snarkos_tpu_torch/csrc/jadd_scan.cu",
+          "snarkos_tpu/ops/msm_pallas.py:303",
+          [(f"(24, {m7}, {msm_kernels.JADD_LANES})",
+            lambda: msm_kernels.jadd_scan_kernel(x7, y7, z7, msm_kernels.JADD_CHUNK),
+            lambda: msm_kernels.jadd_scan_plain(x7, y7, z7, msm_kernels.JADD_CHUNK),
+            6 * 24 * 4 * Bp, 16 * n_fin * FQ_MUL_OPS)],
+          msm_kernels.jadd_scan_kernel)
+
+    def run_path(label, fn, required, absent=()):
+        """Drive one path with every launch counter at 0 just before it; the
+        kernels in ``required`` must launch, those in ``absent`` must not."""
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern["counter"].launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {kern["name"]: kern["counter"].launches for kern in kernels}
+        for kern in kernels:
+            kern.setdefault("launches_per_path", {})[label] = counts[kern["name"]]
+        log(f"launches in {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        missing = [k for k in required if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched in {label}: {missing}")
+        extra = [k for k in absent if counts[k] != 0]
+        if extra:
+            raise AssertionError(f"kernels launched in {label} that must not be: {extra}")
+        return out
+
+    # -- 3. the prover at batch 8 ---------------------------------------------------
     t0 = time.perf_counter()
     puzzle = Puzzle(log_degree=fixture["log_degree"])
     torch.cuda.synchronize()
@@ -287,19 +430,8 @@ def main() -> int:
     epoch = bytes.fromhex(fixture["epoch_hash"])
     address = fixture["address"]
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
-    torch.cuda.synchronize()
-
-    for kern in kernels:
-        kern["counter"].launches = 0
-    sols = puzzle.prove_batch(epoch, address, nonces)
-    torch.cuda.synchronize()
-    for kern in kernels:
-        kern["launches"] = kern.pop("counter").launches
-    log("launches in one prove_batch(8): " + ", ".join(
-        f"{k['name']} {k['launches']}" for k in kernels))
-    missing = [k["name"] for k in kernels if k["launches"] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
+                    ["mont_mul", "g1_add", "seg_combine", "bucket_scan_serial"])
 
     if len(sols) != len(nonces):
         raise AssertionError(f"{len(sols)} solutions for {len(nonces)} nonces")
@@ -310,45 +442,123 @@ def main() -> int:
             raise AssertionError(f"nonce {row['nonce']}: solution differs from the fixture")
     log("prove_batch(8) matches tests/fixtures/torch_puzzle_k12_b8.json byte for byte")
 
-    # independent check of both MSMs: C = p(tau) G and W = q(tau) G
-    coeffs = puzzle.coefficients(epoch, address, nonces)
-    r = params.FR_MODULUS
-    for i, sol in enumerate(sols):
-        cs = FR.decode_fast(coeffs[:, i, :].cpu().numpy(), mont=True)
-        p_tau = 0
-        for coef in reversed(cs):
-            p_tau = (p_tau * DEV_TAU + coef) % r
-        z = puzzle._challenge(sol.commitment)
-        y = 0
-        for coef in reversed(cs):
-            y = (y * z + coef) % r
-        q_tau = (p_tau - y) * pow(DEV_TAU - z, -1, r) % r
-        c_aff = ref_g1.affine(ref_g1.scalar_mul(p_tau, ref_g1.GENERATOR))
-        w_aff = ref_g1.affine(ref_g1.scalar_mul(q_tau, ref_g1.GENERATOR))
-        enc = lambda a: a[0].to_bytes(48, "little") + a[1].to_bytes(48, "little") + b"\x00"
-        if y != sol.eval_y or enc(c_aff) != sol.commitment or enc(w_aff) != sol.witness:
-            raise AssertionError(f"nonce {nonces[i]}: C != p(tau) G or W != q(tau) G")
-    log("C = p(tau) G and W = q(tau) G hold for all 8 nonces")
+    def host_check(batch_nonces, batch_sols):
+        """C = p(tau) G, W = q(tau) G, y = p(z) and solution_id = sha64(C || y),
+        from the coefficients on the host."""
+        coeffs = puzzle.coefficients(epoch, address, batch_nonces)
+        r = params.FR_MODULUS
+        for i, sol in enumerate(batch_sols):
+            cs = FR.decode_fast(coeffs[:, i, :].cpu().numpy(), mont=True)
+            p_tau = 0
+            for coef in reversed(cs):
+                p_tau = (p_tau * DEV_TAU + coef) % r
+            z = puzzle._challenge(sol.commitment)
+            y = 0
+            for coef in reversed(cs):
+                y = (y * z + coef) % r
+            q_tau = (p_tau - y) * pow(DEV_TAU - z, -1, r) % r
+            c_aff = ref_g1.affine(ref_g1.scalar_mul(p_tau, ref_g1.GENERATOR))
+            w_aff = ref_g1.affine(ref_g1.scalar_mul(q_tau, ref_g1.GENERATOR))
+            enc = lambda a: a[0].to_bytes(48, "little") + a[1].to_bytes(48, "little") + b"\x00"
+            if y != sol.eval_y or enc(c_aff) != sol.commitment or enc(w_aff) != sol.witness:
+                raise AssertionError(f"nonce {batch_nonces[i]}: C != p(tau) G or W != q(tau) G")
+            if sha64(sol.commitment, y.to_bytes(32, "little")) != sol.solution_id:
+                raise AssertionError(f"nonce {batch_nonces[i]}: solution_id != sha64(C || y)")
+        log(f"C = p(tau) G, W = q(tau) G and solution_id = sha64(C || y) hold for all "
+            f"{len(batch_sols)} nonces")
 
+    host_check(nonces, sols)
     one = puzzle.prove_batch(epoch, address, [nonces[5]])
     if len(one) != 1 or one[0] != sols[5]:
         raise AssertionError("prove_batch of one nonce differs from the batch of eight")
     log("prove_batch(1) == prove_batch(8)[5]")
 
+    def solutions_per_s(batch_nonces):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            puzzle.prove_batch(epoch, address, batch_nonces)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        log(f"prove_batch({len(batch_nonces)}): median {med:.3f} s of "
+            f"{[round(t, 3) for t in times]} -> {len(batch_nonces) / med:.3f} solutions/s on {smi}")
+        return times, len(batch_nonces) / med
+
+    times8, sps8 = solutions_per_s(nonces)
+    report.update(srs_build_s=srs_s, prove_batch8_s=times8, solutions_per_s=sps8)
+
+    # -- 4. the prover at batch 16: the wide-chain engine (B5) ---------------------
+    nonces16 = list(range(BATCH_WIDE))
+    if nonces16[:BATCH] != nonces:
+        raise AssertionError("the fixture's nonces are not 0-7")
+    puzzle.prove_batch(epoch, address, nonces16)  # warm-up
+    sols16 = run_path(f"prove_batch({BATCH_WIDE})",
+                      lambda: puzzle.prove_batch(epoch, address, nonces16),
+                      ["mont_mul", "g1_add", "seg_combine", "bucket_scan"],
+                      absent=["bucket_scan_serial"])
+    if len(sols16) != BATCH_WIDE or sols16[:BATCH] != sols:
+        raise AssertionError("prove_batch(16)[:8] differs from prove_batch(8) (and the fixture)")
+    log("prove_batch(16)[:8] == prove_batch(8), byte for byte equal to the fixture")
+    host_check(nonces16, sols16)
+    times16, sps16 = solutions_per_s(nonces16)
+    report.update(prove_batch16_s=times16, solutions_per_s_b16=sps16)
+
+    # -- 5. the 2^20 single MSM: fast engine (B6), bucket total (B7), rerun (B5) ------
+    r = params.FR_MODULUS
+    ks = FR.decode_fast(big_scalars.cpu().numpy())
+
+    s_tau, tau_i = 0, 1  # sum k_i tau^i, the discrete log of the MSM
+    for k in ks:
+        s_tau = (s_tau + k * tau_i) % r
+        tau_i = tau_i * DEV_TAU % r
+
+    def times_g(s):
+        return ref_g1.affine(ref_g1.scalar_mul(s % r, ref_g1.GENERATOR))
+
+    def affine_of(out):
+        return ref_g1.affine(g1.decode_points(out)[0])
+
+    got = run_path(f"msm_affine(2^{LOG_N})", lambda: msm.msm_affine(bx, by, big_scalars),
+                   ["bucket_scan_fast", "jadd_scan", "g1_add", "seg_combine"],
+                   absent=["bucket_scan", "bucket_scan_serial"])
+    if affine_of(got) != times_g(s_tau):
+        raise AssertionError(f"msm_affine(2^{LOG_N}) != (sum k_i tau^i) G")
+    log(f"msm_affine(2^{LOG_N}) == (sum k_i tau^i) G on the fast engine")
+
+    bx2, by2, sc2 = bx.clone(), by.clone(), big_scalars.clone()
+    bx2[:, 1], by2[:, 1], sc2[:, 1] = bx[:, 0], by[:, 0], big_scalars[:, 0]
+    got = run_path(f"msm_affine(2^{LOG_N}, base 1 = base 0)",
+                   lambda: msm.msm_affine(bx2, by2, sc2),
+                   ["bucket_scan_fast", "bucket_scan", "jadd_scan"])
+    # base 1 (tau G) and k_1 gave way to base 0 (G) and k_0
+    if affine_of(got) != times_g(s_tau - ks[1] * DEV_TAU + ks[0]):
+        raise AssertionError(f"msm_affine(2^{LOG_N}) with base 1 = base 0 is wrong after the rerun")
+    log(f"msm_affine(2^{LOG_N}) with base 1 = base 0: the flag fired, the complete engine "
+        "reran, and the result == (sum k_i tau^i) G")
+
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        puzzle.prove_batch(epoch, address, nonces)
+        msm.msm_affine(bx, by, big_scalars)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
-    log(f"prove_batch(8): median {med:.3f} s of {[round(t, 3) for t in times]} -> "
-        f"{BATCH / med:.3f} solutions/s on {smi}")
-    report.update(srs_build_s=srs_s, prove_batch8_s=times, solutions_per_s=BATCH / med)
+    log(f"msm_affine(2^{LOG_N}): median {med:.3f} s of {[round(t, 3) for t in times]} -> "
+        f"{N / med:.0f} points/s on {smi}")
+    report.update(msm_s=times, msm_points_per_s=N / med)
 
-    # -- 4. output ------------------------------------------------------------------
+    # -- 6. output ------------------------------------------------------------------
+    unused = [k["name"] for k in kernels if not any(k["launches_per_path"].values())]
+    if unused:
+        raise AssertionError(f"kernels launched on no path: {unused}")
+    for kern in kernels:
+        del kern["counter"]
+        kern["launches"] = sum(kern["launches_per_path"].values())
     line = {"kernels": [{k: v for k, v in kern.items() if k != "shapes"} for kern in kernels]}
     report["kernels"] = kernels
+    report["wall_s"] = time.perf_counter() - T_START
+    log(f"chip_smoke: {report['wall_s']:.1f} s in all")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -1,12 +1,17 @@
-"""Where the time of one prove_batch goes on the card (PyTorch port).
+"""Where the time of one prove_batch, or of one large MSM, goes on the card
+(PyTorch port).
 
     python3 scripts/profile_torch_prover.py [--batch 8] [--log-degree 12]
+    python3 scripts/profile_torch_prover.py --msm-log-n 20
 
-Builds the port's Puzzle on the card, warms up with one prove_batch, then
-traces one more under torch.profiler (CPU and CUDA activity) and prints:
-the wall time of the traced call, the device busy time (union of kernel
-intervals), the idle share, and device time by kernel name. The full table
-goes to chiprun_out/profile_torch_prover.txt. Needs a CUDA device.
+Builds the port's Puzzle on the card and warms up with one prove_batch, then
+traces one more under torch.profiler (CPU and CUDA activity); with
+``--msm-log-n n`` it does the same with msm.msm_affine over the first 2^n
+dev SRS powers and random scalars instead. Prints the wall time of the
+traced call, the device busy time (union of kernel intervals), the idle
+share, and device time by kernel name. The full table goes to
+chiprun_out/profile_torch_prover.txt (profile_torch_msm.txt for an MSM).
+Needs a CUDA device.
 """
 
 import argparse
@@ -25,22 +30,41 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--log-degree", type=int, default=12)
+    ap.add_argument("--msm-log-n", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_prover: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from snarkos_tpu_torch.ops import _build
-    from snarkos_tpu_torch.ops.puzzle import Puzzle
+    import numpy as np
+
+    from snarkos_tpu_torch.ops import _build, msm
+    from snarkos_tpu_torch.ops.fieldspec import FR
+    from snarkos_tpu_torch.ops.puzzle import Puzzle, PuzzleSRS
 
     _build.build()
-    puzzle = Puzzle(log_degree=args.log_degree)
-    epoch, address, nonces = b"\x01" * 32, "aleo1benchprover", list(range(args.batch))
-    puzzle.prove_batch(epoch, address, nonces)
+    if args.msm_log_n:
+        n = 1 << args.msm_log_n
+        srs = PuzzleSRS.dev(args.msm_log_n)
+        x, y = srs.points.x[:, :n].contiguous(), srs.points.y[:, :n].contiguous()
+        scalars = torch.from_numpy(FR.random(n, np.random.default_rng(20))).to(x.device)
+        what, out_name = f"msm_affine(2^{args.msm_log_n})", "profile_torch_msm.txt"
+
+        def call():
+            msm.msm_affine(x, y, scalars)
+    else:
+        puzzle = Puzzle(log_degree=args.log_degree)
+        epoch, address, nonces = b"\x01" * 32, "aleo1benchprover", list(range(args.batch))
+        what = f"prove_batch({args.batch}) at 2^{args.log_degree}"
+        out_name = "profile_torch_prover.txt"
+
+        def call():
+            puzzle.prove_batch(epoch, address, nonces)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        puzzle.prove_batch(epoch, address, nonces)
+        call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -55,9 +79,9 @@ def main() -> int:
             end = e
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_torch_prover.txt"), "w") as fh:
+    with open(os.path.join(ROOT, "chiprun_out", out_name), "w") as fh:
         fh.write(table)
-    print(f"prove_batch({args.batch}) at 2^{args.log_degree}: wall {wall * 1e3:.1f} ms, "
+    print(f"{what}: wall {wall * 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms, idle share {1 - busy / 1e6 / wall:.3f}, "
           f"{len(spans)} device activities on {torch.cuda.get_device_name(0)}")
     rows = {}

@@ -1,7 +1,8 @@
 // BLS12-377 G1 in Jacobian coordinates over Fq, one point per thread.
 //
 // The formulas are those of the JAX package's ops/g1.py (double_impl,
-// add_impl, madd_impl), field op for field op, with the same special cases:
+// add_impl, madd_impl, madd_incomplete_impl), field op for field op, with the
+// same special cases:
 // the doubling when P == Q, Z := 0 (X, Y kept) when P == -Q, and the other
 // operand passed through when one is the identity (Z == 0). Every field op
 // returns canonical values, so a kernel built from these gives the same limbs
@@ -173,6 +174,49 @@ __device__ __forceinline__ void g1_madd(Jac& o, const Jac& p, const uint32_t* qx
 #pragma unroll
         for (int k = 0; k < 12; ++k) o.z[k] = 0;
     }
+}
+
+// Incomplete mixed addition (g1.madd_incomplete_impl): the generic
+// madd-2007-bl path only, 11 Fq multiplies. Returns true where P == +-Q with P
+// finite (u2 == X1); o then holds the generic formula's value, garbage with
+// Z = 0 exactly (h = 0), as in the JAX package. o may not alias p.
+__device__ __forceinline__ bool g1_madd_incomplete(Jac& o, const Jac& p, const uint32_t* qx,
+                                                   const uint32_t* qy) {
+    if (is_zero<Fq>(p.z)) {
+        copy<Fq>(o.x, qx);
+        copy<Fq>(o.y, qy);
+#pragma unroll
+        for (int k = 0; k < 12; ++k) o.z[k] = FQ_ONE[k];
+        return false;
+    }
+    uint32_t z1z1[12], u2[12], s2[12], h[12], rr[12], hh[12], i[12], t[12];
+    sqr<Fq>(z1z1, p.z);
+    mont_mul<Fq>(u2, qx, z1z1);
+    mont_mul<Fq>(t, p.z, z1z1);
+    mont_mul<Fq>(s2, qy, t);
+    const bool exc = eq<Fq>(u2, p.x);
+    sub<Fq>(h, u2, p.x);
+    sub<Fq>(rr, s2, p.y);
+    dbl<Fq>(rr, rr);
+    sqr<Fq>(hh, h);
+    mul4<Fq>(i, hh);
+    uint32_t j[12], v[12];
+    mont_mul<Fq>(j, h, i);
+    mont_mul<Fq>(v, p.x, i);
+    sqr<Fq>(t, rr);
+    sub<Fq>(t, t, j);
+    dbl<Fq>(o.x, v);
+    sub<Fq>(o.x, t, o.x);               // x3 = rr^2 - j - 2v
+    sub<Fq>(t, v, o.x);
+    mont_mul<Fq>(t, rr, t);
+    mont_mul<Fq>(j, p.y, j);
+    dbl<Fq>(j, j);
+    sub<Fq>(o.y, t, j);                 // y3 = rr (v - x3) - 2 y j
+    add<Fq>(t, p.z, h);
+    sqr<Fq>(t, t);
+    sub<Fq>(t, t, z1z1);
+    sub<Fq>(o.z, t, hh);                // z3 = (z + h)^2 - z1z1 - hh
+    return exc;
 }
 
 }  // namespace snark

@@ -9,8 +9,9 @@ The addition laws are complete and branchless: the generic add-2007-bl /
 madd-2007-bl formulas are computed unconditionally and per-lane selects
 patch the special cases (an operand at infinity, P == Q doubling, P == -Q
 giving Z = 0 with X, Y kept). ``add``, ``madd`` and ``double`` follow the
-JAX ``add_impl``/``madd_impl``/``double_impl`` formula for formula; they are
-the plain versions of kernels B2-B4 (``csrc/g1.cuh`` computes the same
+JAX ``add_impl``/``madd_impl``/``double_impl`` formula for formula, and
+``madd_incomplete`` follows ``madd_incomplete_impl``; they are the combines
+of the plain versions of kernels B2-B7 (``csrc/g1.cuh`` computes the same
 formulas, so both give the same limbs). They run in int64 and group the
 independent multiplies of each formula level into one plain multiply, which
 changes no value.
@@ -219,6 +220,36 @@ def madd(p: JacobianPoints, qx: torch.Tensor, qy: torch.Tensor,
     out = JacobianPoints(out.x, out.y, torch.where(is_neg.unsqueeze(0), 0, out.z))
     out = select_points(p_inf, JacobianPoints(qx, qy, one), out)
     return _int32(out.x, out.y, out.z)
+
+
+def madd_incomplete(p: JacobianPoints, qx: torch.Tensor, qy: torch.Tensor,
+                    one: torch.Tensor | None = None):
+    """INCOMPLETE mixed addition: the generic madd-2007-bl path only (11 Fq
+    multiplies) plus the p-at-infinity select. P == +-Q (u2 == X1 with P
+    finite) is not patched: the lane's value is garbage (h = 0, so Z3 = 0
+    exactly) and its flag is raised. Returns (points, exc (batch,) bool).
+    The combine of kernel B6."""
+    if one is None:
+        one = fa.broadcast_const(FQ, 1, tuple(qx.shape[1:]), device=qx.device)
+    x, y, z = _long(p)
+    qx, qy, one = qx.long(), qy.long(), one.long().expand_as(qx)
+    z1z1, = _muls((z, z))
+    u2, zz1 = _muls((qx, z1z1), (z, z1z1))
+    h = _sub(u2, x)
+    s2, hh = _muls((qy, zz1), (h, h))
+    rr = _dbl(_sub(s2, y))
+    i = fa.mul_small(FQ, hh, 4)
+    zh = _add(z, h)
+    j, v, rr2, zh2 = _muls((h, i), (x, i), (rr, rr), (zh, zh))
+    x3 = _sub(_sub(rr2, j), _dbl(v))
+    z3 = _sub(_sub(zh2, z1z1), hh)
+    t, yj = _muls((rr, _sub(v, x3)), (y, j))
+    y3 = _sub(t, _dbl(yj))
+
+    p_inf = fa.is_zero(FQ, z)
+    exc = ~p_inf & fa.eq(FQ, u2, x)
+    out = select_points(p_inf, JacobianPoints(qx, qy, one), JacobianPoints(x3, y3, z3))
+    return _int32(out.x, out.y, out.z), exc
 
 
 # -- device code of the main path (B1 on the card) ---------------------------

@@ -5,10 +5,11 @@
     1. seed_i  = sha256(epoch_hash || address || nonce_i) mod r
     2. leaves  = Poseidon(seed_i, j) for j < K        counter-mode sponge (B1)
     3. coeffs  = EpochProgram(epoch_hash)(leaves)     the per-epoch relation (B1)
-    4. C_i     = KZG commit = multi-MSM over the SRS  (B2, B3, B4)
+    4. C_i     = KZG commit = multi-MSM over the SRS  (B2, B3, and B4 up to
+                                                       8 nonces at 2^12, B5 above)
     5. z_i     = Poseidon(C_i.x)                      host Fiat-Shamir challenge
     6. y_i, q_i = p_i(z_i), (p_i - y_i)/(X - z_i)     closed-form eval/quotient (B1)
-    7. W_i     = multi-MSM of the quotients           (B2, B3, B4)
+    7. W_i     = multi-MSM of the quotients           (as step 4)
     8. solution_id = sha64(C_i || y_i)
 
 All B nonces go through one device path (one Poseidon batch, one epoch

@@ -95,6 +95,14 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.seg_combine_kernel((flag, p.x, p.y, p.z), (flag, p.x, p.y, p.z))
     xs = torch.zeros((24, 2, 4), dtype=torch.int32)
+    fl = torch.zeros((1, 2, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        msm_kernels.bucket_scan_serial_kernel(xs, xs, torch.zeros((1, 2, 4), dtype=torch.int32))
+        msm_kernels.bucket_scan_serial_kernel(xs, xs, fl)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm_kernels.bucket_scan_kernel(xs, xs, fl, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm_kernels.bucket_scan_fast_kernel(xs, xs, fl, fl, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        msm_kernels.jadd_scan_kernel(xs, xs, xs, 2)
     assert fa.mont_mul_kernel.launches == 0
+    assert msm_kernels.bucket_scan_fast_kernel.launches == 0
