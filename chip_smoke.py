@@ -8,11 +8,14 @@ result line:
      and nvcc versions; build every kernel from snarkos_tpu_torch/csrc, one
      nvcc per source, all at once; the dev SRS of degree 2^20 built on the
      card (its first 2^20 points are the bases of phase 5).
-  2. every kernel (B1 mont_mul, B2 g1_add, B3 seg_combine, B4
+  2. every kernel (B1 mont_mul, B2 g1_add, B3 seg_prefix, B4
      bucket_scan_serial, B5 bucket_scan, B6 bucket_scan_fast, B7 jadd_scan)
      against its plain PyTorch version on the card, at the paths' shapes and
      on real windows of their MSMs, with edge lanes; the comparison is exact
      (tolerance 0: the arithmetic is integer), B6's exception flags included.
+     B4 adds in another order than its plain serial walk, so it is held to it
+     projectively (g1.same_points at every position; max_abs_err is then
+     over the affine normal forms), at each team size of the sweep.
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
      of 3 at the 2^20 shapes), of 5 single calls for its plain version (of 1
      call after a warm-up at the 2^20 shapes, where one takes seconds).
@@ -50,6 +53,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
 BATCH_WIDE = 16
 LOG_N = 20
+TEAM_SWEEP = (16, 32, 64, 128)  # B4's threads per chain
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet): 3.35 TB/s of HBM and
 # 67 TFLOP/s of float32 outside the tensor cores, i.e. 33.5 T fused
@@ -202,26 +206,43 @@ def main() -> int:
 
     kernels = []
 
-    def check(name, source, replaces, cases, counter, big=False, verify=None):
+    def affine_err(got, want):
+        """Projective check of two (x, y, z) outputs: every position must be
+        g1.same_points; returns the max abs error of their affine normal
+        forms (x, y, is-identity)."""
+        pg, pw = (g1.JacobianPoints(*(t.reshape(24, -1) for t in o)) for o in (got, want))
+        bad = int((~g1.same_points(pg, pw)).sum())
+        if bad:
+            raise AssertionError(f"{bad} positions are not the same point")
+        return max_abs_err(g1.to_affine(pg), g1.to_affine(pw))
+
+    def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True):
         """cases: [(label, kernel_fn, plain_fn, nbytes, nops)]; ``big``: time
         7 runs of 3 launches and one plain call after a warm-up; ``verify``
-        checks the kernel's output beyond the comparison with the plain one."""
+        checks the kernel's output beyond the comparison with the plain one;
+        ``exact=False`` compares projectively (``affine_err``). Cases that
+        share a plain_fn share its output and time."""
         shapes = []
+        plain_runs = {}
         for label, kfn, pfn, nbytes, nops in cases:
-            got, want = kfn(), pfn()
+            if pfn not in plain_runs:
+                want = pfn()
+                torch.cuda.synchronize()
+                plain_runs[pfn] = (want, cuda_ms(pfn, 1 if big else 5))
+            want, plain_ms = plain_runs[pfn]
+            got = kfn()
             torch.cuda.synchronize()
-            err = max_abs_err(got, want)
+            err = max_abs_err(got, want) if exact else affine_err(got, want)
             if err != 0:
                 raise AssertionError(f"{name} {label}: kernel != plain (max abs err {err})")
             if verify is not None:
                 verify(label, got)
             ms = cuda_ms(kfn, 7, inner=3 if big else 20)
-            plain_ms = cuda_ms(pfn, 1 if big else 5)
             b_ms, b_by = bound(nbytes, nops)
             shapes.append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by})
-            log(f"{name} {label}: exact; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {b_ms:.5f} ms ({b_by})")
+            log(f"{name} {label}: {'exact' if exact else 'same points'}; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
         main_case = shapes[0]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "counter": counter, "max_abs_err": max(s["max_abs_err"] for s in shapes),
@@ -263,7 +284,9 @@ def main() -> int:
     def multi_window(batch, serial):
         """Chain layout of the middle window of a batch-``batch`` multi-MSM
         over ``base`` with random scalars, with edge steps P == Q and P == -Q
-        inside chains 0-7 (each a head, then its copy or its negation)."""
+        inside chains 0-7 (each a head, then its copy or its negation); on
+        serial chains also across the sub-run boundaries s-1 | s of B4's
+        teams, s = 1, 2, 4, 8 (chains 8-23)."""
         nn = batch * 4096
         K = msm._default_lanes(nn)
         x = base.x.repeat(1, batch)
@@ -275,10 +298,13 @@ def main() -> int:
         rows = 1 if serial else msm_kernels.CHUNK
         j0, j1 = 4 * rows, 5 * rows  # steps 4 and 5 of the chains in layout row 0
         xs, ys, heads = xs.clone(), ys.clone(), heads.clone()
-        for k in range(8):
-            xs[:, j1, k], ys[:, j1, k], heads[j0, k], heads[j1, k] = xs[:, j0, k], ys[:, j0, k], 1, 0
-            if k >= 4:
-                ys[:, j1, k] = fa.neg(FQ, ys[:, j0, k:k + 1])[:, 0]
+        edges = [(k, j0, j1) for k in range(8)]
+        if serial:
+            edges += [(8 + 4 * i + r, s - 1, s) for i, s in enumerate((1, 2, 4, 8)) for r in range(4)]
+        for k, a, b in edges:
+            xs[:, b, k], ys[:, b, k], heads[a, k], heads[b, k] = xs[:, a, k], ys[:, a, k], 1, 0
+            if k % 2:
+                ys[:, b, k] = fa.neg(FQ, ys[:, a, k:k + 1])[:, 0]
         return xs, ys, heads.unsqueeze(0).contiguous(), K
 
     def scan_cost(flags, n_dbl):
@@ -289,32 +315,28 @@ def main() -> int:
         return ((2 * 24 * 4 + 4 + 3 * 24 * 4) * npos,
                 ((npos - int(flags.sum())) * 11 + 6 * n_dbl) * FQ_MUL_OPS)
 
+    # B4 on windows of the batch-8 and batch-1 multi-MSMs, each of the team
+    # sizes of the sweep at batch 8 (the path's team first); 12 doublings:
+    # the even edge chains
     xs, ys, flags, K = multi_window(BATCH, serial=True)
     m = xs.shape[1]
-    heads = flags[0]
+    xs1, ys1, fl1, K1 = multi_window(1, serial=True)
+    m1 = xs1.shape[1]
+    team = msm_kernels.SERIAL_TEAM
 
-    def seg_case(width, fl):
-        pa, pb, n_dbl = point_pairs(width)
-        fa_ = torch.from_numpy(rng.integers(0, 2, size=(1, width), dtype=np.int32)).to(dev)
-        fb_ = fl.to(torch.int32).reshape(1, width).contiguous()
-        a = (fa_, pa.x, pa.y, pa.z)
-        b = (fb_, pb.x, pb.y, pb.z)
-        n_add = int((fb_ == 0).sum())
-        return (f"(24, {width})", lambda: g1_kernels.seg_combine_kernel(a, b),
-                lambda: g1_kernels.seg_combine_plain(a, b),
-                (2 * 1 + 6 * 24 + 1 + 3 * 24) * 4 * width, (16 * n_add + 7 * n_dbl) * FQ_MUL_OPS)
+    def plain8():
+        return msm_kernels.bucket_scan_serial_plain(xs, ys, flags)
 
-    chain_flags = heads.max(0).values  # (K,) the cross-chain carry scan's flags
-    seg_flags = (torch.arange(BATCH * B, device=dev) % B == 0)  # per-batch suffix scans
-    check("seg_combine", "snarkos_tpu_torch/csrc/seg_combine.cu",
-          "snarkos_tpu/ops/g1_pallas.py:98",
-          [seg_case(K, chain_flags), seg_case(BATCH * B, seg_flags)], g1_kernels.seg_combine_kernel)
-
+    b4 = [(f"(24, {m}, {K}) T={t}",
+           lambda t=t: msm_kernels.bucket_scan_serial_kernel(xs, ys, flags, team=t),
+           plain8, *scan_cost(flags, 12))
+          for t in [team] + [t for t in TEAM_SWEEP if t != team]]
+    b4.append((f"(24, {m1}, {K1}) T={min(team, m1)}",
+               lambda: msm_kernels.bucket_scan_serial_kernel(xs1, ys1, fl1),
+               lambda: msm_kernels.bucket_scan_serial_plain(xs1, ys1, fl1), *scan_cost(fl1, 12)))
     check("bucket_scan_serial", "snarkos_tpu_torch/csrc/bucket_scan_serial.cu",
-          "snarkos_tpu/ops/msm_pallas.py:251",
-          [(f"(24, {m}, {K})", lambda: msm_kernels.bucket_scan_serial_kernel(xs, ys, flags),
-            lambda: msm_kernels.bucket_scan_serial_plain(xs, ys, flags), *scan_cost(flags, 4))],
-          msm_kernels.bucket_scan_serial_kernel)
+          "snarkos_tpu/ops/msm_pallas.py:265", b4, msm_kernels.bucket_scan_serial_kernel,
+          exact=False)
 
     # the 2^20 single MSM's bases (the dev SRS powers, tau^i known) and scalars
     N = 1 << LOG_N
@@ -329,8 +351,57 @@ def main() -> int:
     fl20 = heads20.unsqueeze(0).contiguous()
     m20 = xs20.shape[1]
 
-    # B5 on a window of the batch-16 multi-MSM and on the 2^20 window
+    # a window of the batch-16 multi-MSM (B3's widths, B5)
     xs16, ys16, fl16, K16 = multi_window(BATCH_WIDE, serial=False)
+
+    # B3 at the eight prefix widths of the paths, with their head flags: the
+    # cross-chain carries (one flag per chain: any head in it) and the
+    # bucket suffix scans (per-batch segments of B buckets, or none)
+    def chain_heads(fl, rows):
+        return fl.reshape(-1, rows, fl.shape[-1]).max(0).values.reshape(-1)
+
+    def batch_heads(batch):
+        return (torch.arange(batch * B, device=dev) % B == 0).to(torch.int32)
+
+    def prefix_case(width, fl):
+        """Random rescaled points, identities with arbitrary X, Y at every
+        16th lane, and at lanes 2-15 (and again from width / 2) the edges
+        where round 0 meets P == Q and P == -Q and round 1 (distance 2)
+        meets (A + B) + (A + B) and (A + B) + (-A - B)."""
+        pts = [rescale(multiples[prng.randrange(4096)]) for _ in range(width)]
+        heads = [int(v) for v in fl.reshape(-1).tolist()]
+        for e in range(7, width, 16):
+            pts[e] = (prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
+        for base in sorted({0, width // 2 if width >= 64 else 0}):
+            A, Bp = multiples[prng.randrange(4096)], multiples[prng.randrange(4096)]
+            block = {3: A, 4: A, 5: Bp, 6: ref_g1.neg(Bp), 8: A, 9: Bp, 10: A, 11: Bp,
+                     12: A, 13: Bp, 14: ref_g1.neg(A), 15: ref_g1.neg(Bp)}
+            for off, pt in block.items():
+                pts[base + off] = rescale(pt)
+                heads[base + off] = int(off in (3, 5, 8, 12))
+        enc = g1.encode_points(pts, dev)
+        state = (torch.tensor([heads], dtype=torch.int32, device=dev), enc.x, enc.y, enc.z)
+        n_add = sum(1 for h in heads[1:] if not h)  # a sequential scan's additions
+        return (f"(24, {width})", lambda: g1_kernels.seg_prefix_kernel(*state),
+                lambda: g1_kernels.seg_prefix_plain(state),
+                2 * (1 + 3 * 24) * 4 * width, 16 * n_add * FQ_MUL_OPS)
+
+    kv20 = msm_kernels.CHUNK * K20
+    kb = msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK
+
+    def zeros(w):
+        return torch.zeros(w, dtype=torch.int32, device=dev)
+
+    check("seg_prefix", "snarkos_tpu_torch/csrc/seg_prefix.cu",
+          "snarkos_tpu/ops/g1_pallas.py:125",
+          [prefix_case(K, chain_heads(flags, 1)), prefix_case(BATCH * B, batch_heads(BATCH)),
+           prefix_case(msm_kernels.CHUNK * K16, chain_heads(fl16, msm_kernels.CHUNK)),
+           prefix_case(BATCH_WIDE * B, batch_heads(BATCH_WIDE)),
+           prefix_case(kv20, chain_heads(fl20, msm_kernels.CHUNK)), prefix_case(kb, zeros(kb)),
+           prefix_case(K1, chain_heads(fl1, 1)), prefix_case(B, zeros(B))],
+          g1_kernels.seg_prefix_kernel)
+
+    # B5 on the batch-16 window and on the 2^20 window
     check("bucket_scan", "snarkos_tpu_torch/csrc/bucket_scan.cu",
           "snarkos_tpu/ops/msm_pallas.py:173",
           [(f"(24, {xs16.shape[1]}, {K16})",
@@ -431,7 +502,7 @@ def main() -> int:
     address = fixture["address"]
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
     sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
-                    ["mont_mul", "g1_add", "seg_combine", "bucket_scan_serial"])
+                    ["mont_mul", "g1_add", "seg_prefix", "bucket_scan_serial"])
 
     if len(sols) != len(nonces):
         raise AssertionError(f"{len(sols)} solutions for {len(nonces)} nonces")
@@ -495,7 +566,7 @@ def main() -> int:
     puzzle.prove_batch(epoch, address, nonces16)  # warm-up
     sols16 = run_path(f"prove_batch({BATCH_WIDE})",
                       lambda: puzzle.prove_batch(epoch, address, nonces16),
-                      ["mont_mul", "g1_add", "seg_combine", "bucket_scan"],
+                      ["mont_mul", "g1_add", "seg_prefix", "bucket_scan"],
                       absent=["bucket_scan_serial"])
     if len(sols16) != BATCH_WIDE or sols16[:BATCH] != sols:
         raise AssertionError("prove_batch(16)[:8] differs from prove_batch(8) (and the fixture)")
@@ -520,7 +591,7 @@ def main() -> int:
         return ref_g1.affine(g1.decode_points(out)[0])
 
     got = run_path(f"msm_affine(2^{LOG_N})", lambda: msm.msm_affine(bx, by, big_scalars),
-                   ["bucket_scan_fast", "jadd_scan", "g1_add", "seg_combine"],
+                   ["bucket_scan_fast", "jadd_scan", "g1_add", "seg_prefix"],
                    absent=["bucket_scan", "bucket_scan_serial"])
     if affine_of(got) != times_g(s_tau):
         raise AssertionError(f"msm_affine(2^{LOG_N}) != (sum k_i tau^i) G")

@@ -64,6 +64,20 @@ def select_points(mask, a: JacobianPoints, b: JacobianPoints) -> JacobianPoints:
                           z=_select(mask, a.z, b.z))
 
 
+def same_points(a: JacobianPoints, b: JacobianPoints) -> torch.Tensor:
+    """Projective equality, lane by lane: X1 Z2^2 == X2 Z1^2 and
+    Y1 Z2^3 == Y2 Z1^3, and Z == 0 on both sides or on neither (identities
+    are equal whatever their X and Y). Returns a bool tensor of batch shape.
+    Plain PyTorch on any device; kernels whose addition order differs from
+    their plain version's (B4) are held to it with this."""
+    z1z1, z2z2 = _muls((a.z, a.z), (b.z, b.z))
+    x1, x2, z1c, z2c = _muls((a.x, z2z2), (b.x, z1z1), (a.z, z1z1), (b.z, z2z2))
+    y1, y2 = _muls((a.y, z2c), (b.y, z1c))
+    inf1, inf2 = fa.is_zero(FQ, a.z), fa.is_zero(FQ, b.z)
+    finite_eq = fa.eq(FQ, x1, x2) & fa.eq(FQ, y1, y2)
+    return (inf1 & inf2) | (~inf1 & ~inf2 & finite_eq)
+
+
 # -- plain formulas (int64 inside) -------------------------------------------
 
 def _muls(*pairs):

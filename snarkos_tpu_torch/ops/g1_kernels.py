@@ -1,9 +1,14 @@
-"""Kernels B2 (complete G1 add) and B3 (segmented-scan combine), the port
-of ``snarkos_tpu/ops/g1_pallas.py``.
+"""Kernels B2 (complete G1 add) and B3 (segmented prefix scan), the port of
+``snarkos_tpu/ops/g1_pallas.py``.
 
-A CUDA tensor launches ``csrc/g1_add.cu`` / ``csrc/seg_combine.cu``; a CPU
-tensor runs the plain version: ``g1.add`` for B2, ``seg_combine_plain`` for
+A CUDA tensor launches ``csrc/g1_add.cu`` / ``csrc/seg_prefix.cu``; a CPU
+tensor runs the plain version: ``g1.add`` for B2, ``seg_prefix_plain`` for
 B3. Coordinates are (24, N) int32 Montgomery limb tensors, flags (1, N) int32.
+
+The TPU kernel B3 is the one-round operator ``seg_combine``, launched once
+per Hillis-Steele round by the MSM's prefix scans. Here B3 runs the whole
+prefix in one launch (``seg_prefix``), round for round the same function;
+``seg_combine_plain`` stays as the plain round operator.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ _L = FQ.nlimbs
 
 
 def seg_combine_plain(a, b):
-    """Plain PyTorch version of B3: a, b are (flag (1, N), x, y, z) tuples;
+    """The segmented-scan operator: a, b are (flag (1, N), x, y, z) tuples;
     the result is b where b is a segment head, else a + b; flag fa | fb."""
     fa_, ax, ay, az = a
     fb_, bx, by, bz = b
@@ -25,6 +30,29 @@ def seg_combine_plain(a, b):
     s = g1.add(g1.JacobianPoints(ax, ay, az), pb)
     out = g1.select_points(fb_[0] != 0, pb, s)
     return (fa_ | fb_, out.x, out.y, out.z)
+
+
+def prefix_steps(width: int) -> int:
+    """Hillis-Steele rounds of a width-``width`` prefix: ceil(log2(width)),
+    at least 1."""
+    return max(width - 1, 1).bit_length()
+
+
+def seg_prefix_plain(state):
+    """Plain PyTorch version of B3: the inclusive segmented prefix of a
+    (flag (1, N), x, y, z) tuple over N lanes by Hillis-Steele. In round i,
+    at distance d = 2^i, lane e >= d becomes ``seg_combine_plain(lane e - d,
+    lane e)`` of the previous round; lanes e < d keep their value."""
+    cur = tuple(state)
+    width = cur[1].shape[-1]
+    for i in range(prefix_steps(width)):
+        d = 1 << i
+        if d >= width:
+            continue
+        comb = seg_combine_plain(tuple(t[..., :width - d] for t in cur),
+                                 tuple(t[..., d:] for t in cur))
+        cur = tuple(torch.cat([t[..., :d], c], dim=-1) for t, c in zip(cur, comb))
+    return cur
 
 
 def add_kernel(pa: g1.JacobianPoints, pb: g1.JacobianPoints) -> g1.JacobianPoints:
@@ -42,19 +70,23 @@ def add_kernel(pa: g1.JacobianPoints, pb: g1.JacobianPoints) -> g1.JacobianPoint
 add_kernel.launches = 0
 
 
-def seg_combine_kernel(a, b):
-    n = a[1].shape[-1]
-    for t, what in zip(a + b, ("fa", "ax", "ay", "az", "fb", "bx", "by", "bz")):
-        _build.check(t, (1 if what[0] == "f" else _L, n), f"seg_combine {what}")
-    out = [torch.empty_like(a[0])] + [torch.empty_like(a[1]) for _ in range(3)]
+def seg_prefix_kernel(flags, x, y, z):
+    """One cooperative launch of ``csrc/seg_prefix.cu`` over (1, n) flags and
+    (24, n) coordinates; the rounds ping-pong between the outputs and a
+    scratch copy of the same size."""
+    n = x.shape[-1]
+    for t, what in zip((flags, x, y, z), ("flags", "x", "y", "z")):
+        _build.check(t, (1 if what == "flags" else _L, n), f"seg_prefix {what}")
+    out = [torch.empty_like(flags)] + [torch.empty_like(x) for _ in range(3)]
     if n:
-        fn = _build.entry("seg_combine", "seg_combine", 12, 1)
-        _build.launch(fn, (*a, *b, *out), (n,), a[1].device)
-        seg_combine_kernel.launches += 1
+        scratch = [torch.empty_like(flags)] + [torch.empty_like(x) for _ in range(3)]
+        fn = _build.entry("seg_prefix", "seg_prefix", 12, 2)
+        _build.launch(fn, (flags, x, y, z, *out, *scratch), (n, prefix_steps(n)), x.device)
+        seg_prefix_kernel.launches += 1
     return tuple(out)
 
 
-seg_combine_kernel.launches = 0
+seg_prefix_kernel.launches = 0
 
 
 def _contig(*ts):
@@ -70,11 +102,11 @@ def add(pa: g1.JacobianPoints, pb: g1.JacobianPoints) -> g1.JacobianPoints:
                       g1.JacobianPoints(*_contig(pb.x, pb.y, pb.z)))
 
 
-def seg_combine(a, b):
-    """Segmented-sum combine of (flag, x, y, z) tuples: kernel B3 on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if a[1].device.type == "cpu":
-        return seg_combine_plain(a, b)
-    n = a[1].shape[-1]
-    fa_, fb_ = (f.expand(1, n) for f in (a[0], b[0]))
-    return seg_combine_kernel(_contig(fa_, *a[1:]), _contig(fb_, *b[1:]))
+def seg_prefix(state):
+    """Inclusive segmented prefix scan of a (flag (1, N), x, y, z) tuple of
+    head flags and Jacobian points: kernel B3 on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    flags, x, y, z = state
+    if x.device.type == "cpu":
+        return seg_prefix_plain(state)
+    return seg_prefix_kernel(*_contig(flags.expand(1, x.shape[-1]), x, y, z))

@@ -10,7 +10,7 @@ Per c-bit signed window, high to low (Horner):
      serial chains, B5 on wide chains, or B6 (incomplete add and an
      exception flag) in the single MSM's fast engine
   4. cross-chain carries: Hillis-Steele segmented prefix over the chain
-     finals (kernel B3)
+     finals (kernel B3, the whole prefix in one launch)
   5. bucket sums = scan values at each bucket's last position, plus the carry
      where a bucket's run starts in an earlier chain (kernel B2)
   6. T_w = sum_b b S_b: (suffix of suffix)[1] per batch (kernel B3), or, for
@@ -48,7 +48,9 @@ class GroupOps:
     identity: Callable[[int], Any]
     add: Callable[[Any, Any], Any]  # complete, branchless
     select: Callable[[torch.Tensor, Any, Any], Any]  # mask (n,) ? a : b
-    seg_combine: Callable[[Any, Any], Any] | None = None  # fused (flag,)+elem
+    # the whole inclusive segmented prefix of a (flags, *elems) state in one
+    # call; groups without it run the Hillis-Steele round loop
+    seg_prefix: Callable[[Any], Any] | None = None
 
 
 def _default_seg_combine(group: GroupOps):
@@ -64,7 +66,7 @@ def _default_seg_combine(group: GroupOps):
 
 def g1_group(device) -> GroupOps:
     """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add) and B3
-    (seg_combine) on the card, their plain versions on the CPU."""
+    (seg_prefix) on the card, their plain versions on the CPU."""
 
     def identity(n):
         p = g1.infinity((n,), device=device)
@@ -78,7 +80,7 @@ def g1_group(device) -> GroupOps:
         return tuple(torch.where(mask.unsqueeze(0), x, y) for x, y in zip(a, b))
 
     return GroupOps(identity=identity, add=add, select=select,
-                    seg_combine=g1_kernels.seg_combine)
+                    seg_prefix=g1_kernels.seg_prefix)
 
 
 # --------------------------------------------------------------------------
@@ -141,12 +143,15 @@ def fused_window_bits(n: int) -> int:
 
 def _hillis_steele_prefix(seg, group: GroupOps, state, width: int, nelems: int):
     """Inclusive segmented PREFIX scan over the trailing axis via
-    Hillis-Steele: ceil(log2(width)) rounds of ``seg`` at full width.
+    Hillis-Steele: ceil(log2(width)) rounds of ``seg`` at full width, or one
+    call of ``group.seg_prefix`` (the same function) where the group has it.
 
     state: (flags, *pts) tuple; nelems = len(pts)."""
+    if group.seg_prefix is not None:
+        return group.seg_prefix(state)
     device = state[0].device
     lane_ids = torch.arange(width, device=device).unsqueeze(0)
-    steps = max(width - 1, 1).bit_length()
+    steps = g1_kernels.prefix_steps(width)
     pad_pts1 = group.identity(1)
     cur = tuple(state)
     for i in range(steps):
@@ -299,7 +304,7 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
             scan_fn = msm_kernels.bucket_scan_serial
         else:
             scan_fn = msm_kernels.bucket_scan_fast if fast else msm_kernels.bucket_scan
-    seg = group.seg_combine or _default_seg_combine(group)
+    seg = _default_seg_combine(group)
     bucket_ids = torch.arange(B_total, device=device)
     src = chain_src(n, K, chunk, serial, device)
 

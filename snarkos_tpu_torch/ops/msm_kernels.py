@@ -26,6 +26,9 @@ _L = FQ.nlimbs
 # Largest MSM (points x batch) that runs on the serial-chain engine; above
 # it the wide-chain scans take over.
 SERIAL_MAX_N = 1 << 15
+# threads that scan one serial chain together (B4's team; PERF.md has the
+# sweep on the card)
+SERIAL_TEAM = 64
 LANES = 512
 CHUNK = 8
 # the bucket total's Jacobian scan (B7) layout
@@ -88,15 +91,20 @@ def bucket_scan_serial_plain(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Te
     return _madd_scan_plain(xs, ys, flags, 1, _madd)[0]
 
 
-def bucket_scan_serial_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor):
+def bucket_scan_serial_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
+                              team: int = SERIAL_TEAM):
+    """One block of ``team`` threads per chain (``csrc/bucket_scan_serial.cu``);
+    the team is cut to the power of two at or above m, since a thread with no
+    rows only lengthens the carry scan."""
     L, m, K = xs.shape
     _build.check(xs, (_L, m, K), "bucket_scan_serial xs")
     _build.check(ys, (_L, m, K), "bucket_scan_serial ys")
     _build.check(flags, (1, m, K), "bucket_scan_serial flags")
     out = [torch.empty_like(xs) for _ in range(3)]
     if m and K:
-        fn = _build.entry("bucket_scan_serial", "bucket_scan_serial", 6, 2)
-        _build.launch(fn, (xs, ys, flags, *out), (m, K), xs.device)
+        team = min(team, 1 << (m - 1).bit_length())
+        fn = _build.entry("bucket_scan_serial", "bucket_scan_serial", 6, 3)
+        _build.launch(fn, (xs, ys, flags, *out), (m, K, team), xs.device)
         bucket_scan_serial_kernel.launches += 1
     return tuple(out)
 
@@ -111,8 +119,10 @@ def bucket_scan_serial(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
     xs, ys: (L, m, K) sorted affine coordinates (Montgomery limbs); flags:
     (1, m, K) int32 segment-head markers. Returns (sx, sy, sz), (L, m, K)
     Jacobian scan values. Kernel B4 on a CUDA tensor, the plain version on a
-    CPU tensor. ``lanes`` and ``chunk`` are the JAX signature's layout
-    arguments; this layout checks only K == lanes."""
+    CPU tensor; B4 associates the additions otherwise than the plain serial
+    walk, so its values are other representatives of the same points.
+    ``lanes`` and ``chunk`` are the JAX signature's layout arguments; this
+    layout checks only K == lanes."""
     if xs.shape[2] != lanes:
         raise ValueError(f"bucket_scan_serial: K = {xs.shape[2]} != lanes = {lanes}")
     if xs.device.type == "cpu":

@@ -96,7 +96,7 @@ def test_seg_combine_heads():
     a, b = g1.encode_points(P), g1.encode_points(Q_)
     fa_ = torch.tensor([[0, 1, 0, 1, 0, 0, 1, 0]], dtype=torch.int32)
     fb_ = torch.tensor([[0, 0, 1, 1, 0, 1, 0, 0]], dtype=torch.int32)
-    of, *xyz = g1_kernels.seg_combine((fa_, a.x, a.y, a.z), (fb_, b.x, b.y, b.z))
+    of, *xyz = g1_kernels.seg_combine_plain((fa_, a.x, a.y, a.z), (fb_, b.x, b.y, b.z))
     assert of.tolist() == (fa_ | fb_).tolist()
     got = g1.decode_points(g1.JacobianPoints(*xyz))
     want = [q if f else ref.add(p, q) for p, q, f in zip(P, Q_, fb_[0].tolist())]

@@ -93,7 +93,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
         g1_kernels.add_kernel(p, p)
     flag = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        g1_kernels.seg_combine_kernel((flag, p.x, p.y, p.z), (flag, p.x, p.y, p.z))
+        g1_kernels.seg_prefix_kernel(flag, p.x, p.y, p.z)
     xs = torch.zeros((24, 2, 4), dtype=torch.int32)
     fl = torch.zeros((1, 2, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -105,4 +105,5 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         msm_kernels.jadd_scan_kernel(xs, xs, xs, 2)
     assert fa.mont_mul_kernel.launches == 0
+    assert g1_kernels.seg_prefix_kernel.launches == 0
     assert msm_kernels.bucket_scan_fast_kernel.launches == 0
