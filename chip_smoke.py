@@ -8,14 +8,17 @@ result line:
      and nvcc versions; build every kernel from snarkos_tpu_torch/csrc, one
      nvcc per source, all at once; the dev SRS of degree 2^20 built on the
      card (its first 2^20 points are the bases of phase 5).
-  2. every kernel (B1 mont_mul, B2 g1_add, B3 seg_prefix, B4
-     bucket_scan_serial, B5 bucket_scan, B6 bucket_scan_fast, B7 jadd_scan)
-     against its plain PyTorch version on the card, at the paths' shapes and
-     on real windows of their MSMs, with edge lanes; the comparison is exact
-     (tolerance 0: the arithmetic is integer), B6's exception flags included.
-     B4 adds in another order than its plain serial walk, so it is held to it
-     projectively (g1.same_points at every position; max_abs_err is then
-     over the affine normal forms), at each team size of the sweep.
+  2. every kernel (B1 mont_mul; B2 g1_add and its window entry points
+     g1_horner and g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5
+     bucket_scan, B6 bucket_scan_fast, B7 jadd_scan) against its plain
+     PyTorch version on the card, at the paths' shapes and on real windows of
+     their MSMs, with edge lanes; the comparison is exact (tolerance 0: the
+     arithmetic is integer). B4 and B6 add in another order than their plain
+     serial walks, so they are held to them projectively (g1.same_points;
+     max_abs_err is then over the affine normal forms), at each team size of
+     their sweeps: B4 at every position, B6 at every position of a live
+     bucket in an unflagged chain (elsewhere its values are don't-care), and
+     B6's exception flags exactly.
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
      of 3 at the 2^20 shapes), of 5 single calls for its plain version (of 1
      call after a warm-up at the 2^20 shapes, where one takes seconds).
@@ -54,6 +57,7 @@ BATCH = 8
 BATCH_WIDE = 16
 LOG_N = 20
 TEAM_SWEEP = (16, 32, 64, 128)  # B4's threads per chain
+FAST_TEAM_SWEEP = (4, 8, 16, 32)  # B6's threads per chain
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet): 3.35 TB/s of HBM and
 # 67 TFLOP/s of float32 outside the tensor cores, i.e. 33.5 T fused
@@ -198,30 +202,45 @@ def main() -> int:
         Q[3] = ref_g1.INFINITY                                    # Q = 0
         P[4], Q[4] = ref_g1.INFINITY, ref_g1.INFINITY             # both
         P[5] = (prng.randrange(FQ.p), prng.randrange(FQ.p), 0)    # odd identity
-        n_dbl = sum(1 for p, q in zip(P, Q) if p[2] and q[2]
-                    and ref_g1.affine(p) == ref_g1.affine(q))
-        if n_dbl < 1 or ref_g1.affine(P[1]) != ref_g1.affine(ref_g1.neg(Q[1])):
+        return g1.encode_points(P, dev), g1.encode_points(Q, dev), add_ops(P, Q)
+
+    def add_ops(P, Q):
+        """Multiplies of the complete adds P + Q as g1.cuh runs them: none
+        with an identity operand, 8 + 7 Fq products for P == Q, 16 else.
+        Raises unless the lanes hold P == Q and P == -Q."""
+        fin = [(p, q) for p, q in zip(P, Q) if p[2] and q[2]]
+        n_dbl = sum(1 for p, q in fin if ref_g1.affine(p) == ref_g1.affine(q))
+        n_neg = sum(1 for p, q in fin if ref_g1.affine(p) == ref_g1.affine(ref_g1.neg(q)))
+        if n_dbl < 1 or n_neg < 1:
             raise AssertionError("edge lanes P == Q and P == -Q were not built")
-        return g1.encode_points(P, dev), g1.encode_points(Q, dev), n_dbl
+        return (16 * (len(fin) - n_dbl) + 15 * n_dbl) * FQ_MUL_OPS
 
     kernels = []
 
-    def affine_err(got, want):
-        """Projective check of two (x, y, z) outputs: every position must be
-        g1.same_points; returns the max abs error of their affine normal
-        forms (x, y, is-identity)."""
-        pg, pw = (g1.JacobianPoints(*(t.reshape(24, -1) for t in o)) for o in (got, want))
-        bad = int((~g1.same_points(pg, pw)).sum())
+    def affine_err(got, want, mask=None):
+        """Projective check of two (x, y, z) outputs: every position (where
+        ``mask``, if given) must be g1.same_points; returns the max abs error
+        of their affine normal forms (x, y, is-identity)."""
+        pg, pw = (g1.JacobianPoints(*(t.reshape(24, -1) if mask is None else
+                                      t.reshape(24, -1)[:, mask] for t in o))
+                  for o in (got, want))
+        n, step, bad = pg.x.shape[-1], 1 << 16, 0
+        for lo in range(0, n, step):  # the plain products of same_points take memory
+            part = [g1.JacobianPoints(*(t[:, lo:lo + step] for t in (p.x, p.y, p.z)))
+                    for p in (pg, pw)]
+            bad += int((~g1.same_points(*part)).sum())
         if bad:
             raise AssertionError(f"{bad} positions are not the same point")
         return max_abs_err(g1.to_affine(pg), g1.to_affine(pw))
 
-    def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True):
+    def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True,
+              compare=None):
         """cases: [(label, kernel_fn, plain_fn, nbytes, nops)]; ``big``: time
         7 runs of 3 launches and one plain call after a warm-up; ``verify``
         checks the kernel's output beyond the comparison with the plain one;
-        ``exact=False`` compares projectively (``affine_err``). Cases that
-        share a plain_fn share its output and time."""
+        ``exact=False`` compares projectively (``affine_err``), ``compare``
+        with a function (got, want) -> max abs error that raises on a
+        mismatch. Cases that share a plain_fn share its output and time."""
         shapes = []
         plain_runs = {}
         for label, kfn, pfn, nbytes, nops in cases:
@@ -232,7 +251,10 @@ def main() -> int:
             want, plain_ms = plain_runs[pfn]
             got = kfn()
             torch.cuda.synchronize()
-            err = max_abs_err(got, want) if exact else affine_err(got, want)
+            if compare is not None:
+                err = compare(got, want)
+            else:
+                err = max_abs_err(got, want) if exact else affine_err(got, want)
             if err != 0:
                 raise AssertionError(f"{name} {label}: kernel != plain (max abs err {err})")
             if verify is not None:
@@ -241,7 +263,8 @@ def main() -> int:
             b_ms, b_by = bound(nbytes, nops)
             shapes.append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by})
-            log(f"{name} {label}: {'exact' if exact else 'same points'}; kernel {ms:.4f} ms, "
+            how = "exact" if exact and compare is None else "same points"
+            log(f"{name} {label}: {how}; kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
         main_case = shapes[0]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -265,15 +288,83 @@ def main() -> int:
     def coords(p):
         return (p.x, p.y, p.z)
 
+    # B2's add at the 2^20 bucket total's width (its only caller on the main
+    # paths now) and at the windows' widths where the window loop called it
     b2 = []
-    for width in (264, 8):
-        pa, pb, n_dbl = point_pairs(width)
+    for width in (msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK * 9, 264, 8):
+        pa, pb, ops = point_pairs(width)
         b2.append((f"(24, {width})",
                    lambda pa=pa, pb=pb: coords(g1_kernels.add_kernel(pa, pb)),
-                   lambda pa=pa, pb=pb: coords(g1.add(pa, pb)),
-                   9 * 24 * 4 * width, (16 * width + 7 * n_dbl) * FQ_MUL_OPS))
-    check("g1_add", "snarkos_tpu_torch/csrc/g1_add.cu", "snarkos_tpu/ops/g1_pallas.py:67",
+                   lambda pa=pa, pb=pb: coords(g1.add(pa, pb)), 9 * 24 * 4 * width, ops))
+    check("g1_add", "snarkos_tpu_torch/csrc/g1_add.cu", "snarkos_tpu/ops/g1_pallas.py:75",
           b2, g1_kernels.add_kernel)
+
+    # B2's Horner step acc = 2^c acc + t at the windows' widths: acc an
+    # identity with arbitrary X, Y in lane 0 (every MSM starts from one), and
+    # 2^c acc == t, 2^c acc == -t in lanes 1, 2 (the add meets P == Q, P == -Q)
+    def horner_case(width, c, identity_lane=True):
+        acc = [rescale(multiples[prng.randrange(4096)]) for _ in range(width)]
+        t = [rescale(multiples[prng.randrange(4096)]) for _ in range(width)]
+        if identity_lane:
+            acc[0] = (prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
+        for lane, sign in ((1, 1), (2, -1)):
+            if lane < width:
+                dbl = ref_g1.scalar_mul(1 << c, acc[lane])
+                t[lane] = rescale(dbl if sign > 0 else ref_g1.neg(dbl))
+        pa, pt = g1.encode_points(acc, dev), g1.encode_points(t, dev)
+        doubled = [ref_g1.scalar_mul(1 << c, p) for p in acc]
+        ops = 7 * c * sum(1 for p in acc if p[2]) * FQ_MUL_OPS
+        if width >= 3:
+            ops += add_ops(doubled, t)
+        else:
+            ops += sum(16 * FQ_MUL_OPS for p, q in zip(doubled, t) if p[2] and q[2])
+        label = f"(24, {width}) c={c}" + ("" if identity_lane or width > 1 else ", acc finite")
+        return (label, lambda: coords(g1_kernels.horner_kernel(pa, pt, c)),
+                lambda: coords(g1_kernels.horner_plain(pa, pt, c)), 9 * 24 * 4 * width, ops)
+
+    check("g1_horner", "snarkos_tpu_torch/csrc/g1_add.cu", "snarkos_tpu/ops/g1_pallas.py:75",
+          [horner_case(8, 6), horner_case(16, 6), horner_case(1, 14, identity_lane=False),
+           horner_case(1, 14)], g1_kernels.horner_kernel)
+
+    # B2's bucket fixup at the three paths' widths: B_total buckets over the
+    # scan outputs of m K positions and the carries of KV chains (b8: serial
+    # chains, 2^15 positions, 256 chains; b16: 2^16, 2048; 2^20: 2^20, 4096).
+    # The values come from a pool of rescaled points, their rescaled copies
+    # and negations, and identities with arbitrary X, Y; every fourth bucket
+    # that takes a carry meets P == Q or P == -Q.
+    pool_pts = [rescale(multiples[prng.randrange(4096)]) for _ in range(1024)]
+    pool_pts[7::64] = [(prng.randrange(FQ.p), prng.randrange(FQ.p), 0)] * len(pool_pts[7::64])
+    pool_pts += [rescale(p) for p in pool_pts[:1024]] + [rescale(ref_g1.neg(p))
+                                                         for p in pool_pts[:1024]]
+    pool = g1.encode_points(pool_pts, dev)
+
+    def fixup_case(nb, ns, nc):
+        g = torch.Generator().manual_seed(nb)
+        tail_src = torch.randint(0, 1024, (ns,), generator=g)
+        carry_src = torch.randint(0, 3072, (nc,), generator=g)
+        flat = torch.randint(0, ns, (nb,), generator=g)
+        chain_of = torch.randint(0, nc, (nb,), generator=g)
+        needs = torch.rand(nb, generator=g) < 0.3
+        live = (torch.rand(nb, generator=g) < 0.95) & (torch.arange(nb) > 0)
+        takers = (needs & live).nonzero().reshape(-1)[::4]
+        for i, b in enumerate(takers.tolist()):  # P == Q, P == -Q
+            carry_src[chain_of[b]] = tail_src[flat[b]] + (1024 if i % 2 == 0 else 2048)
+        scan = tuple(t[:, tail_src.to(dev)].contiguous() for t in coords(pool))
+        carry = tuple(t[:, carry_src.to(dev)].contiguous() for t in coords(pool))
+        args = (scan, flat.to(dev), carry, chain_of.to(dev), needs.to(dev), live.to(dev))
+        tails = [pool_pts[int(tail_src[f])] for f in flat.tolist()]
+        carries = [pool_pts[int(carry_src[k])] for k in chain_of.tolist()]
+        adds = [(p, q) for p, q, a in zip(tails, carries, (needs & live).tolist()) if a]
+        nbytes = (3 * 24 * 4 * (int(live.sum()) + len(adds) + nb) + 18 * nb)
+        return (f"(24, {nb}) of ({ns}, {nc})",
+                lambda: coords(g1_kernels.bucket_fixup_kernel(*args)),
+                lambda: coords(g1_kernels.bucket_fixup_plain(*args)), nbytes,
+                add_ops([p for p, _ in adds], [q for _, q in adds]))
+
+    check("g1_bucket_fixup", "snarkos_tpu_torch/csrc/g1_add.cu",
+          "snarkos_tpu/ops/g1_pallas.py:75",
+          [fixup_case(BATCH * 33, BATCH * 4096, 256), fixup_case(BATCH_WIDE * 33, 1 << 16, 2048),
+           fixup_case((1 << 13) + 1, 1 << LOG_N, 4096)], g1_kernels.bucket_fixup_kernel)
 
     # a real window of the batch-8 multi-MSM: base = 4096 affine points tiled
     # 8 times, random scalars, c = 6, K = 256 chains of m = 128
@@ -414,25 +505,38 @@ def main() -> int:
             *scan_cost(fl20, 0))],
           msm_kernels.bucket_scan_kernel, big=True)
 
-    # B6 on the 2^20 window with edge steps (a head, then its copy or its
-    # negation): P == Q and P == -Q in live buckets, where exactly those
-    # chains must flag, and both in bucket 0 (the first ~64 sorted positions,
-    # all in chain 0), where the flag must stay clear
+    # B6 on the 2^20 window with edge steps (element i a head, i + 1 its copy
+    # or its negation): P == Q and P == -Q in live buckets, where exactly those
+    # chains must flag, and in bucket 0 (the first ~64 sorted positions, all
+    # in chain 0), where the flag must stay clear. The live edges sit mid-
+    # chain (10 | 11), on both sides of every sub-run boundary of the team
+    # sweep (s - 2 | s - 1: the last step of member 0 exceptional; s - 1 | s:
+    # the first step of member 1, from its carry) and at the chain start
+    # (element 0 no head, element 1 its copy or negation).
     nz20 = (keys20 > 0).to(torch.int32)[src20.reshape(-1)].reshape(1, m20, K20).contiguous()
     xs6, ys6, fl6 = xs20.clone(), ys20.clone(), fl20.clone()
     chunk = msm_kernels.CHUNK
-    live_chains = [(r, k) for r in (0, 3, 7) for k in (100, 101, 300, 511)]
-    edges = [(r, k, 10) for r, k in live_chains] + [(0, 0, 10), (0, 0, 20)]
+    mv20 = m20 // chunk
+    steps = [10, 0] + sorted({s + d for t in FAST_TEAM_SWEEP for s in [-(-mv20 // t)]
+                              for d in (-2, -1)})
+    live_chains = [((0, 3, 7)[i % 3], 100 + 3 * i) for i in range(2 * len(steps))]
+    edges = [(r, k, steps[idx // 2]) for idx, (r, k) in enumerate(live_chains)]
+    edges += [(0, 0, 10), (0, 0, 20), (0, 0, 15), (0, 0, 31)]
     for idx, (r, k, i) in enumerate(edges):
         j0, j1 = i * chunk + r, (i + 1) * chunk + r
         xs6[:, j1, k], ys6[:, j1, k], fl6[0, j0, k], fl6[0, j1, k] = xs6[:, j0, k], ys6[:, j0, k], 1, 0
+        if i == 0:
+            fl6[0, j0, k] = 0  # the chain starts mid-segment
         if idx % 2:
             ys6[:, j1, k] = fa.neg(FQ, ys6[:, j0, k:k + 1])[:, 0]
-        if int(nz20[0, j1, k]) != ((r, k) in live_chains):
+        live = (r, k) in live_chains
+        if int(nz20[0, j0, k]) != live or int(nz20[0, j1, k]) != live:
             raise AssertionError(f"B6 edge step at chain ({r}, {k}) is not where it was meant")
     want_exc = torch.zeros((1, chunk, K20), dtype=torch.int32, device=dev)
     for r, k in live_chains:
         want_exc[0, r, k] = 1
+    log(f"B6 edge steps at elements {steps} (live, {len(live_chains)} chains) and "
+        "10, 20, 15, 31 (bucket 0)")
 
     def exc_exact(label, got):
         if not torch.equal(got[3], want_exc):
@@ -440,14 +544,27 @@ def main() -> int:
                                  f"{got[3].nonzero().tolist()}, want {live_chains}")
         log(f"bucket_scan_fast {label}: exc set in exactly the {len(live_chains)} edge chains")
 
+    def b6_compare(got, want):
+        """exc exactly; the same points at every position of a live bucket
+        in an unflagged chain (chain of flat position e: e % KV)."""
+        if not torch.equal(got[3], want[3]):
+            raise AssertionError("bucket_scan_fast: exc differs from the plain version's")
+        flagged = want[3].reshape(-1)[torch.arange(m20 * K20, device=dev) % (chunk * K20)]
+        mask = (nz20.reshape(-1) != 0) & (flagged == 0)
+        return affine_err(got[:3], want[:3], mask)
+
+    def plain6():
+        return msm_kernels.bucket_scan_fast_plain(xs6, ys6, fl6, nz20, chunk)
+
     b6_bytes, b6_ops = scan_cost(fl6, 0)  # plus the nonzero flags read, exc written
+    team6 = msm_kernels.FAST_TEAM
     check("bucket_scan_fast", "snarkos_tpu_torch/csrc/bucket_scan_fast.cu",
           "snarkos_tpu/ops/msm_pallas.py:138",
-          [(f"(24, {m20}, {K20})",
-            lambda: msm_kernels.bucket_scan_fast_kernel(xs6, ys6, fl6, nz20, chunk),
-            lambda: msm_kernels.bucket_scan_fast_plain(xs6, ys6, fl6, nz20, chunk),
-            b6_bytes + 4 * m20 * K20 + 4 * chunk * K20, b6_ops)],
-          msm_kernels.bucket_scan_fast_kernel, big=True, verify=exc_exact)
+          [(f"(24, {m20}, {K20}) T={t}",
+            lambda t=t: msm_kernels.bucket_scan_fast_kernel(xs6, ys6, fl6, nz20, chunk, team=t),
+            plain6, b6_bytes + 4 * m20 * K20 + 4 * chunk * K20, b6_ops)
+           for t in [team6] + [t for t in FAST_TEAM_SWEEP if t != team6]],
+          msm_kernels.bucket_scan_fast_kernel, big=True, verify=exc_exact, compare=b6_compare)
 
     # B7 at the bucket total's shape for B = 2^13 + 1: Jacobian points with
     # identities (arbitrary X, Y), P == Q and P == -Q between steps of chains
@@ -481,7 +598,8 @@ def main() -> int:
         counts = {kern["name"]: kern["counter"].launches for kern in kernels}
         for kern in kernels:
             kern.setdefault("launches_per_path", {})[label] = counts[kern["name"]]
-        log(f"launches in {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        log(f"launches in {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + f"; B2 in all {sum(counts[k] for k in ('g1_add', 'g1_horner', 'g1_bucket_fixup'))}")
         missing = [k for k in required if counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched in {label}: {missing}")
@@ -502,7 +620,8 @@ def main() -> int:
     address = fixture["address"]
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
     sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
-                    ["mont_mul", "g1_add", "seg_prefix", "bucket_scan_serial"])
+                    ["mont_mul", "g1_horner", "g1_bucket_fixup", "seg_prefix",
+                     "bucket_scan_serial"], absent=["g1_add"])
 
     if len(sols) != len(nonces):
         raise AssertionError(f"{len(sols)} solutions for {len(nonces)} nonces")
@@ -566,8 +685,8 @@ def main() -> int:
     puzzle.prove_batch(epoch, address, nonces16)  # warm-up
     sols16 = run_path(f"prove_batch({BATCH_WIDE})",
                       lambda: puzzle.prove_batch(epoch, address, nonces16),
-                      ["mont_mul", "g1_add", "seg_prefix", "bucket_scan"],
-                      absent=["bucket_scan_serial"])
+                      ["mont_mul", "g1_horner", "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
+                      absent=["bucket_scan_serial", "g1_add"])
     if len(sols16) != BATCH_WIDE or sols16[:BATCH] != sols:
         raise AssertionError("prove_batch(16)[:8] differs from prove_batch(8) (and the fixture)")
     log("prove_batch(16)[:8] == prove_batch(8), byte for byte equal to the fixture")
@@ -591,7 +710,8 @@ def main() -> int:
         return ref_g1.affine(g1.decode_points(out)[0])
 
     got = run_path(f"msm_affine(2^{LOG_N})", lambda: msm.msm_affine(bx, by, big_scalars),
-                   ["bucket_scan_fast", "jadd_scan", "g1_add", "seg_prefix"],
+                   ["bucket_scan_fast", "jadd_scan", "g1_add", "g1_horner", "g1_bucket_fixup",
+                    "seg_prefix"],
                    absent=["bucket_scan", "bucket_scan_serial"])
     if affine_of(got) != times_g(s_tau):
         raise AssertionError(f"msm_affine(2^{LOG_N}) != (sum k_i tau^i) G")
@@ -601,7 +721,8 @@ def main() -> int:
     bx2[:, 1], by2[:, 1], sc2[:, 1] = bx[:, 0], by[:, 0], big_scalars[:, 0]
     got = run_path(f"msm_affine(2^{LOG_N}, base 1 = base 0)",
                    lambda: msm.msm_affine(bx2, by2, sc2),
-                   ["bucket_scan_fast", "bucket_scan", "jadd_scan"])
+                   ["bucket_scan_fast", "bucket_scan", "jadd_scan", "g1_horner",
+                    "g1_bucket_fixup"])
     # base 1 (tau G) and k_1 gave way to base 0 (G) and k_0
     if affine_of(got) != times_g(s_tau - ks[1] * DEV_TAU + ks[0]):
         raise AssertionError(f"msm_affine(2^{LOG_N}) with base 1 = base 0 is wrong after the rerun")

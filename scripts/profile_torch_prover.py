@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_prover.py [--batch 8] [--log-degree 12]
     python3 scripts/profile_torch_prover.py --msm-log-n 20
+    python3 scripts/profile_torch_prover.py --batch 8 --reps 5 --root DIR
 
 Builds the port's Puzzle on the card and warms up with one prove_batch, then
 traces one more under torch.profiler (CPU and CUDA activity); with
@@ -11,11 +12,20 @@ dev SRS powers and random scalars instead. Prints the wall time of the
 traced call, the device busy time (union of kernel intervals), the idle
 share, and device time by kernel name. The full table goes to
 chiprun_out/profile_torch_prover.txt (profile_torch_msm.txt for an MSM).
-Needs a CUDA device.
+
+``--reps N`` first times N untraced calls after the warm-up, each ended by a
+device sync (host clock), and prints one JSON line with the times, their
+median and the rate (solutions/s or points/s), the card's name and power
+limit. ``--root DIR`` imports the port from the checkout at DIR instead of
+this one: point it at two checkouts in turns (parent, change, change,
+parent) on one card to compare them. Needs a CUDA device.
 """
 
 import argparse
+import json
 import os
+import statistics
+import subprocess
 import sys
 import time
 
@@ -31,11 +41,13 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--log-degree", type=int, default=12)
     ap.add_argument("--msm-log-n", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=0)
+    ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_prover: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
 
     from snarkos_tpu_torch.ops import _build, msm
@@ -49,6 +61,7 @@ def main() -> int:
         x, y = srs.points.x[:, :n].contiguous(), srs.points.y[:, :n].contiguous()
         scalars = torch.from_numpy(FR.random(n, np.random.default_rng(20))).to(x.device)
         what, out_name = f"msm_affine(2^{args.msm_log_n})", "profile_torch_msm.txt"
+        work = n
 
         def call():
             msm.msm_affine(x, y, scalars)
@@ -57,11 +70,25 @@ def main() -> int:
         epoch, address, nonces = b"\x01" * 32, "aleo1benchprover", list(range(args.batch))
         what = f"prove_batch({args.batch}) at 2^{args.log_degree}"
         out_name = "profile_torch_prover.txt"
+        work = args.batch
 
         def call():
             puzzle.prove_batch(epoch, address, nonces)
     call()
     torch.cuda.synchronize()
+    if args.reps:
+        times = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        med = statistics.median(times)
+        print(json.dumps({"root": args.root, "path": what, "card": card, "s": times,
+                          "median_s": med, "per_s": work / med}), flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         call()

@@ -129,13 +129,13 @@ def launch(fn, tensors, sizes, device: torch.device) -> None:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
 
 
-def check(t: torch.Tensor, shape: tuple, what: str) -> None:
-    """Raise unless ``t`` is what a kernel takes: a contiguous int32 CUDA
-    tensor of exactly ``shape``."""
+def check(t: torch.Tensor, shape: tuple, what: str, dtype=torch.int32) -> None:
+    """Raise unless ``t`` is what a kernel takes: a contiguous CUDA tensor of
+    ``dtype`` (int32 unless said otherwise) and exactly ``shape``."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{what}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -12,11 +12,12 @@ Per c-bit signed window, high to low (Horner):
   4. cross-chain carries: Hillis-Steele segmented prefix over the chain
      finals (kernel B3, the whole prefix in one launch)
   5. bucket sums = scan values at each bucket's last position, plus the carry
-     where a bucket's run starts in an earlier chain (kernel B2)
+     where a bucket's run starts in an earlier chain (kernel B2's
+     ``bucket_fixup``, one launch)
   6. T_w = sum_b b S_b: (suffix of suffix)[1] per batch (kernel B3), or, for
      a single MSM with B >= 2^11 buckets, two chunked Jacobian scans
-     (kernel B7, ``_weighted_bucket_total``)
-  7. acc = 2^c acc + T_w (kernel B2)
+     (kernel B7, ``_weighted_bucket_total``, and two B2 adds)
+  7. acc = 2^c acc + T_w (kernel B2's ``horner``, one launch)
 
 ``msm_affine`` runs the fast engine above SERIAL_MAX_N and reruns the
 complete one when its exception flag is set. The group and the scans are
@@ -51,6 +52,12 @@ class GroupOps:
     # the whole inclusive segmented prefix of a (flags, *elems) state in one
     # call; groups without it run the Hillis-Steele round loop
     seg_prefix: Callable[[Any], Any] | None = None
+    # (acc, t, c) -> 2^c acc + t in one call; groups without it run c + 1 adds
+    horner: Callable[[Any, Any, int], Any] | None = None
+    # (scan, flat, carry_in, chain_of, needs_carry, live) -> a window's bucket
+    # sums in one call (``_bucket_sums``); groups without it gather, add and
+    # select
+    bucket_fixup: Callable[..., Any] | None = None
 
 
 def _default_seg_combine(group: GroupOps):
@@ -65,22 +72,30 @@ def _default_seg_combine(group: GroupOps):
 
 
 def g1_group(device) -> GroupOps:
-    """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add) and B3
-    (seg_prefix) on the card, their plain versions on the CPU."""
+    """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add, horner,
+    bucket_fixup) and B3 (seg_prefix) on the card, their plain versions on
+    the CPU."""
 
-    def identity(n):
-        p = g1.infinity((n,), device=device)
+    def coords(p):
         return (p.x, p.y, p.z)
 
+    def identity(n):
+        return coords(g1.infinity((n,), device=device))
+
     def add(a, b):
-        out = g1_kernels.add(g1.JacobianPoints(*a), g1.JacobianPoints(*b))
-        return (out.x, out.y, out.z)
+        return coords(g1_kernels.add(g1.JacobianPoints(*a), g1.JacobianPoints(*b)))
 
     def select(mask, a, b):
         return tuple(torch.where(mask.unsqueeze(0), x, y) for x, y in zip(a, b))
 
+    def horner(acc, t, c):
+        return coords(g1_kernels.horner(g1.JacobianPoints(*acc), g1.JacobianPoints(*t), c))
+
+    def bucket_fixup(*args):
+        return coords(g1_kernels.bucket_fixup(*args))
+
     return GroupOps(identity=identity, add=add, select=select,
-                    seg_prefix=g1_kernels.seg_prefix)
+                    seg_prefix=g1_kernels.seg_prefix, horner=horner, bucket_fixup=bucket_fixup)
 
 
 # --------------------------------------------------------------------------
@@ -164,6 +179,30 @@ def _hillis_steele_prefix(seg, group: GroupOps, state, width: int, nelems: int):
         combined = seg((shifted_flag,) + shifted_pts, cur)
         cur = tuple(torch.where(pad_lane, old, new) for old, new in zip(cur, combined))
     return cur
+
+
+def _horner(group: GroupOps, acc, t, c: int):
+    """acc = 2^c acc + t: one ``group.horner`` call, or c doublings as
+    ``group.add(acc, acc)`` and one add."""
+    if group.horner is not None:
+        return group.horner(acc, t, c)
+    for _ in range(c):
+        acc = group.add(acc, acc)
+    return group.add(acc, t)
+
+
+def _bucket_sums(group: GroupOps, scan, flat, carry_in, chain_of, needs_carry, live):
+    """A window's bucket sums: the scan values at the buckets' last
+    positions ``flat`` (scan: the (x, y, z) scan outputs), plus the carry
+    into chain ``chain_of`` where ``needs_carry``, the identity where not
+    ``live``. One ``group.bucket_fixup`` call, or gathers, an add and
+    selects."""
+    if group.bucket_fixup is not None:
+        return group.bucket_fixup(scan, flat, carry_in, chain_of, needs_carry, live)
+    tails = tuple(t.reshape(t.shape[0], -1)[:, flat] for t in scan)
+    carry_at = tuple(t[:, chain_of] for t in carry_in)
+    sums = group.select(needs_carry, group.add(tails, carry_at), tails)
+    return group.select(live, sums, group.identity(flat.shape[0]))
 
 
 def chain_src(n: int, lanes: int, chunk: int, serial: bool, device=None) -> torch.Tensor:
@@ -346,13 +385,9 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
         i_of = posc % mv
         flat = (i_of * rows + chain_of // K) * K + chain_of % K
         cum_heads = heads_chain.cumsum(0).reshape(-1)  # heads so far within the chain
-        tails = tuple(t.reshape(L, m * K)[:, flat] for t in (sx, sy, sz))
         needs_carry = cum_heads[flat] == 0
-        carry_at = tuple(t[:, chain_of] for t in carry_in)
-        added = group.add(tails, carry_at)
-        sums = group.select(needs_carry, added, tails)
         live = nonempty & ((bucket_ids % B > 0) if nbatch > 1 else (bucket_ids > 0))
-        sums = group.select(live, sums, group.identity(B_total))
+        sums = _bucket_sums(group, (sx, sy, sz), flat, carry_in, chain_of, needs_carry, live)
 
         # T_w = sum_{b>=1} b S_b. The chunked scans (B7) do ~2B adds against
         # the double Hillis-Steele's 2 B log B, but carry a fixed cross-chain
@@ -369,9 +404,7 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
             else:
                 t_w = tuple(t[..., 1:2] for t in suffix2)
 
-        for _ in range(c):
-            acc = group.add(acc, acc)
-        acc = group.add(acc, t_w)
+        acc = _horner(group, acc, t_w, c)
     if fast:
         return acc, exc_acc
     return acc

@@ -29,6 +29,8 @@ SERIAL_MAX_N = 1 << 15
 # threads that scan one serial chain together (B4's team; PERF.md has the
 # sweep on the card)
 SERIAL_TEAM = 64
+# threads that scan one wide chain together in B6 (PERF.md has the sweep)
+FAST_TEAM = 8
 LANES = 512
 CHUNK = 8
 # the bucket total's Jacobian scan (B7) layout
@@ -51,6 +53,13 @@ def _zeros(n: int, device) -> g1.JacobianPoints:
     """The scans' initial running sums: all-zero limbs, the identity (Z = 0)."""
     return g1.JacobianPoints(*(torch.zeros((_L, n), dtype=torch.int32, device=device)
                                for _ in range(3)))
+
+
+def team_size(team: int, steps: int) -> int:
+    """A scan team (B4, B6) cut to the power of two at or above a chain's
+    ``steps`` elements: a thread with no elements only lengthens the carry
+    scan."""
+    return min(team, 1 << max(steps - 1, 0).bit_length())
 
 
 def _stack(rows, shape):
@@ -93,18 +102,16 @@ def bucket_scan_serial_plain(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Te
 
 def bucket_scan_serial_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
                               team: int = SERIAL_TEAM):
-    """One block of ``team`` threads per chain (``csrc/bucket_scan_serial.cu``);
-    the team is cut to the power of two at or above m, since a thread with no
-    rows only lengthens the carry scan."""
+    """One block of ``team`` threads per chain (``csrc/bucket_scan_serial.cu``),
+    the team cut by ``team_size``."""
     L, m, K = xs.shape
     _build.check(xs, (_L, m, K), "bucket_scan_serial xs")
     _build.check(ys, (_L, m, K), "bucket_scan_serial ys")
     _build.check(flags, (1, m, K), "bucket_scan_serial flags")
     out = [torch.empty_like(xs) for _ in range(3)]
     if m and K:
-        team = min(team, 1 << (m - 1).bit_length())
         fn = _build.entry("bucket_scan_serial", "bucket_scan_serial", 6, 3)
-        _build.launch(fn, (xs, ys, flags, *out), (m, K, team), xs.device)
+        _build.launch(fn, (xs, ys, flags, *out), (m, K, team_size(team, m)), xs.device)
         bucket_scan_serial_kernel.launches += 1
     return tuple(out)
 
@@ -184,7 +191,10 @@ def bucket_scan_fast_plain(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tens
 
 
 def bucket_scan_fast_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
-                            nonzero: torch.Tensor, chunk: int):
+                            nonzero: torch.Tensor, chunk: int, team: int = FAST_TEAM):
+    """A team of ``team`` threads per chain (``csrc/bucket_scan_fast.cu``,
+    ``team_size``). Its values are other Jacobian representatives than the
+    plain serial walk's; exc is the same bit for bit."""
     L, m, K = xs.shape
     _build.check(xs, (_L, m, K), "bucket_scan_fast xs")
     _build.check(ys, (_L, m, K), "bucket_scan_fast ys")
@@ -193,8 +203,9 @@ def bucket_scan_fast_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Ten
     out = [torch.empty_like(xs) for _ in range(3)]
     exc = torch.zeros((1, chunk, K), dtype=torch.int32, device=xs.device)
     if m and K:
-        fn = _build.entry("bucket_scan_fast", "bucket_scan_fast", 8, 3)
-        _build.launch(fn, (xs, ys, flags, nonzero, *out, exc), (m, K, chunk), xs.device)
+        fn = _build.entry("bucket_scan_fast", "bucket_scan_fast", 8, 4)
+        _build.launch(fn, (xs, ys, flags, nonzero, *out, exc),
+                      (m, K, chunk, team_size(team, m // chunk)), xs.device)
         bucket_scan_fast_kernel.launches += 1
     return tuple(out) + (exc,)
 
@@ -209,7 +220,10 @@ def bucket_scan_fast(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
     and a fourth output exc, (1, chunk, K) int32, nonzero in the chains that
     hit P == +-Q in a live bucket (their values are garbage: the caller
     reruns the complete engine). Kernel B6 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor; B6 associates the additions otherwise than the
+    plain serial walk, so at the positions of live buckets in unflagged
+    chains its values are other representatives of the same points, and
+    elsewhere they are don't-care. exc is the same."""
     _check_layout("bucket_scan_fast", xs, lanes, chunk)
     if xs.device.type == "cpu":
         return bucket_scan_fast_plain(xs, ys, flags, nonzero, chunk)

@@ -91,6 +91,12 @@ def test_kernel_wrappers_reject_cpu_tensors():
     p = g1.infinity((4,))
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.add_kernel(p, p)
+    with pytest.raises(ValueError, match="CUDA"):
+        g1_kernels.horner_kernel(p, p, 3)
+    idx = torch.zeros(4, dtype=torch.int64)
+    mask = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        g1_kernels.bucket_fixup_kernel((p.x, p.y, p.z), idx, (p.x, p.y, p.z), idx, mask, mask)
     flag = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.seg_prefix_kernel(flag, p.x, p.y, p.z)
@@ -106,4 +112,5 @@ def test_kernel_wrappers_reject_cpu_tensors():
         msm_kernels.jadd_scan_kernel(xs, xs, xs, 2)
     assert fa.mont_mul_kernel.launches == 0
     assert g1_kernels.seg_prefix_kernel.launches == 0
+    assert g1_kernels.horner_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
     assert msm_kernels.bucket_scan_fast_kernel.launches == 0
