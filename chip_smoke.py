@@ -8,25 +8,32 @@ result line:
      and nvcc versions; build every kernel from snarkos_tpu_torch/csrc, one
      nvcc per source, all at once; the dev SRS of degree 2^20 built on the
      card (its first 2^20 points are the bases of phase 5).
-  2. every kernel (B1 mont_mul; B2 g1_add and its window entry points
-     g1_horner and g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5
-     bucket_scan, B6 bucket_scan_fast, B7 jadd_scan) against its plain
-     PyTorch version on the card, at the paths' shapes and on real windows of
-     their MSMs, with edge lanes; the comparison is exact (tolerance 0: the
-     arithmetic is integer). B4 and B6 add in another order than their plain
-     serial walks, so they are held to them projectively (g1.same_points;
+  2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute and
+     fr_epoch_step; B2 g1_add and its window entry points g1_horner and
+     g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
+     B6 bucket_scan_fast, B7 jadd_scan) against its plain PyTorch version on
+     the card, at the paths' shapes and on real windows of their MSMs, with
+     edge lanes; the comparison is exact (tolerance 0: the arithmetic is
+     integer). B4, B5 and B6 add in another order than their plain serial
+     walks, so they are held to them projectively (g1.same_points;
      max_abs_err is then over the affine normal forms), at each team size of
-     their sweeps: B4 at every position, B6 at every position of a live
-     bucket in an unflagged chain (elsewhere its values are don't-care), and
-     B6's exception flags exactly.
+     their sweeps: B4 and B5 at every position, B6 at every position of a
+     live bucket in an unflagged chain (elsewhere its values are don't-care),
+     and B6's exception flags exactly.
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
-     of 3 at the 2^20 shapes), of 5 single calls for its plain version (of 1
-     call after a warm-up at the 2^20 shapes, where one takes seconds).
+     of 3 at the 2^20 shapes and for the Poseidon permutation), CUDA events
+     around each run, which at small widths time the host's launch rate;
+     beside it the device time a launch, the same run captured in one CUDA
+     graph and replayed (median of 7 replays); of 5 single calls
+     for its plain version (of 1 call after a warm-up at the 2^20 shapes and
+     for the permutation, where one takes seconds).
   3. Puzzle(log_degree=12).prove_batch over 8 nonces on the card, checked
      byte for byte against tests/fixtures/torch_puzzle_k12_b8.json, against
      C = p(tau) G and W = q(tau) G computed on the host from the coefficients
      and the known dev tau, and against prove_batch of one nonce. Then
-     solutions/s at batch 8 (median of 3 timed calls).
+     solutions/s at batch 8 (median of 3 timed calls). A call must launch
+     fr_poseidon_permute once, fr_epoch_step 12 times and mont_mul at most 80
+     times (here and at batch 16).
   4. prove_batch over 16 nonces (the wide-chain engine, B5): nonces 0-7 equal
      to prove_batch(8), all 16 checked on the host as above plus solution_id
      = sha64(C || y); solutions/s at batch 16 (median of 3 after a warm-up).
@@ -57,7 +64,11 @@ BATCH = 8
 BATCH_WIDE = 16
 LOG_N = 20
 TEAM_SWEEP = (16, 32, 64, 128)  # B4's threads per chain
-FAST_TEAM_SWEEP = (4, 8, 16, 32)  # B6's threads per chain
+WIDE_TEAM_SWEEP = (4, 8, 16, 32)  # B5's and B6's threads per chain
+# B1's launches a prove_batch call (PERF.md): one permutation, the epoch
+# program's 12 steps, at most 80 single multiplies (KZG eval, conversions)
+PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_step": 12}
+MONT_MUL_MAX = 80
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet): 3.35 TB/s of HBM and
 # 67 TFLOP/s of float32 outside the tensor cores, i.e. 33.5 T fused
@@ -82,7 +93,8 @@ def bound(nbytes: float, nops: float):
 
 def cuda_ms(fn, reps, inner=1):
     """Median over ``reps`` runs of the device time of ``inner`` back-to-back
-    calls, divided by ``inner`` (CUDA events around the whole run)."""
+    calls, divided by ``inner`` (CUDA events around the whole run). At small
+    widths this is the rate at which the host launches them."""
     import torch
 
     fn()
@@ -97,6 +109,34 @@ def cuda_ms(fn, reps, inner=1):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps, inner):
+    """The card's own time a call: ``inner`` calls captured in one CUDA
+    graph, then the median over ``reps`` replays (CUDA events around each)
+    divided by ``inner``. A replay launches them back to back, so the card
+    never waits for the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
     return statistics.median(times)
 
 
@@ -127,8 +167,9 @@ def main() -> int:
 
     from snarkos_tpu_torch.crypto import params
     from snarkos_tpu_torch.crypto.ref import g1 as ref_g1
-    from snarkos_tpu_torch.ops import _build, g1, g1_kernels, msm, msm_kernels
+    from snarkos_tpu_torch.ops import _build, g1, g1_kernels, msm, msm_kernels, poseidon
     from snarkos_tpu_torch.ops import modarith as fa
+    from snarkos_tpu_torch.ops import puzzle as puzzle_mod
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
     from snarkos_tpu_torch.ops.puzzle import DEV_TAU, Puzzle, PuzzleSRS, sha64
 
@@ -236,7 +277,9 @@ def main() -> int:
     def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True,
               compare=None):
         """cases: [(label, kernel_fn, plain_fn, nbytes, nops)]; ``big``: time
-        7 runs of 3 launches and one plain call after a warm-up; ``verify``
+        7 runs of 3 launches and one plain call after a warm-up (else 7 runs of
+        20 and 5 plain calls), and the device time over as many launches as a
+        run; ``verify``
         checks the kernel's output beyond the comparison with the plain one;
         ``exact=False`` compares projectively (``affine_err``), ``compare``
         with a function (got, want) -> max abs error that raises on a
@@ -259,31 +302,77 @@ def main() -> int:
                 raise AssertionError(f"{name} {label}: kernel != plain (max abs err {err})")
             if verify is not None:
                 verify(label, got)
-            ms = cuda_ms(kfn, 7, inner=3 if big else 20)
+            inner = 3 if big else 20
+            ms = cuda_ms(kfn, 7, inner=inner)
+            dev_ms = graph_ms(kfn, 7, inner)
             b_ms, b_by = bound(nbytes, nops)
-            shapes.append({"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": b_ms, "bound_by": b_by})
+            shapes.append({"shape": label, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
             how = "exact" if exact and compare is None else "same points"
-            log(f"{name} {label}: {how}; kernel {ms:.4f} ms, "
+            log(f"{name} {label}: {how}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
                 f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
         main_case = shapes[0]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "counter": counter, "max_abs_err": max(s["max_abs_err"] for s in shapes),
-                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                        "ms": main_case["ms"], "device_ms": main_case["device_ms"],
+                        "plain_ms": main_case["plain_ms"],
                         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
                         "library_ms": None, "shapes": shapes})
 
     # -- 2. kernels against their plain versions at the path's shapes ----------
     n = BATCH * 4096
     b1 = []
-    for spec, ops in ((FR, FR_MUL_OPS), (FQ, FQ_MUL_OPS)):
-        a, b = field_operands(spec, n)
-        b1.append((f"{spec.name} ({spec.nlimbs}, {n})",
+    for spec, ops, width in ((FR, FR_MUL_OPS, n), (FQ, FQ_MUL_OPS, n), (FQ, FQ_MUL_OPS, 1 << 20)):
+        a, b = field_operands(spec, width)
+        b1.append((f"{spec.name} ({spec.nlimbs}, {width})",
                    lambda a=a, b=b, s=spec: fa.mont_mul_kernel(s, a, b),
                    lambda a=a, b=b, s=spec: fa.mont_mul_plain(s, a, b),
-                   3 * spec.nlimbs * 4 * n, ops * n))
+                   3 * spec.nlimbs * 4 * width, ops * width))
     check("mont_mul", "snarkos_tpu_torch/csrc/mont_mul.cu",
           "snarkos_tpu/ops/modarith.py:171", b1, fa.mont_mul_kernel)
+
+    # B1's Fr passes. The permutation at the leaves' shape of both prove_batch
+    # paths (B x 4096 lanes, rate 2) and at rate 4, with the edge states
+    # (0, 1, p - 1 in every slot) in lanes 0-2
+    def permute_case(rate, lanes):
+        t = rate + 1
+        st = torch.from_numpy(np.ascontiguousarray(
+            FR.random(t * lanes, rng).reshape(FR.nlimbs, t, lanes).transpose(1, 0, 2))).to(dev)
+        for lane, v in enumerate((0, 1, FR.p - 1)):
+            st[:, :, lane] = torch.from_numpy(FR.encode_fast([v], mont=True)[:, 0]).to(dev)
+        full, half = poseidon.FULL_ROUNDS, poseidon.PARTIAL_ROUNDS
+        products = full * (5 * t + t * t) + half * (5 + t * t)  # s-boxes and the mix
+        return (f"({t}, 16, {lanes})", lambda: poseidon.permute_kernel(st, rate),
+                lambda: poseidon.permute_plain(st, rate),
+                2 * t * 16 * 4 * lanes + poseidon.packed_consts(rate).numel() * 4,
+                products * FR_MUL_OPS * lanes)
+
+    check("fr_poseidon_permute", "snarkos_tpu_torch/csrc/mont_mul.cu",
+          "snarkos_tpu/ops/modarith.py:171",
+          [permute_case(2, BATCH * 4096), permute_case(2, BATCH_WIDE * 4096),
+           permute_case(4, 4096)], poseidon.permute_kernel, big=True)
+
+    # one step of the epoch program of the fixture's epoch at (16, B, 4096),
+    # every selector present, edge leaves 0, 1, p - 1
+    prog = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), 4096, dev)
+
+    def epoch_case(batch, step):
+        v = torch.from_numpy(FR.random(batch * 4096, rng).reshape(FR.nlimbs, batch, 4096)).to(dev)
+        v[:, 0, :3] = torch.from_numpy(FR.encode_fast([0, 1, FR.p - 1], mont=True)).to(dev)
+        args = (v, prog.perms[step].contiguous(), prog.sels[step].reshape(-1).contiguous(),
+                prog.consts[step].contiguous())
+        counts = torch.bincount(args[2].long(), minlength=4).tolist()
+        if min(counts) == 0:
+            raise AssertionError(f"epoch step {step}: selectors {counts}, not all four present")
+        lanes = batch * 4096
+        return (f"(16, {batch}, 4096) step {step}", lambda: puzzle_mod.epoch_step_kernel(*args),
+                lambda: puzzle_mod.epoch_step_plain(*args),
+                (2 * 16 * lanes + 2 * 4096 + 16 * 4096) * 4,
+                (lanes + batch * counts[3]) * FR_MUL_OPS)
+
+    check("fr_epoch_step", "snarkos_tpu_torch/csrc/mont_mul.cu",
+          "snarkos_tpu/ops/modarith.py:171",
+          [epoch_case(BATCH, 0), epoch_case(BATCH_WIDE, 11)], puzzle_mod.epoch_step_kernel)
 
     def coords(p):
         return (p.x, p.y, p.z)
@@ -492,43 +581,46 @@ def main() -> int:
            prefix_case(K1, chain_heads(fl1, 1)), prefix_case(B, zeros(B))],
           g1_kernels.seg_prefix_kernel)
 
-    # B5 on the batch-16 window and on the 2^20 window
-    check("bucket_scan", "snarkos_tpu_torch/csrc/bucket_scan.cu",
-          "snarkos_tpu/ops/msm_pallas.py:173",
-          [(f"(24, {xs16.shape[1]}, {K16})",
-            lambda: msm_kernels.bucket_scan_kernel(xs16, ys16, fl16, msm_kernels.CHUNK),
-            lambda: msm_kernels.bucket_scan_plain(xs16, ys16, fl16, msm_kernels.CHUNK),
-            *scan_cost(fl16, 4)),
-           (f"(24, {m20}, {K20})",
-            lambda: msm_kernels.bucket_scan_kernel(xs20, ys20, fl20, msm_kernels.CHUNK),
-            lambda: msm_kernels.bucket_scan_plain(xs20, ys20, fl20, msm_kernels.CHUNK),
-            *scan_cost(fl20, 0))],
-          msm_kernels.bucket_scan_kernel, big=True)
-
-    # B6 on the 2^20 window with edge steps (element i a head, i + 1 its copy
-    # or its negation): P == Q and P == -Q in live buckets, where exactly those
-    # chains must flag, and in bucket 0 (the first ~64 sorted positions, all
-    # in chain 0), where the flag must stay clear. The live edges sit mid-
-    # chain (10 | 11), on both sides of every sub-run boundary of the team
-    # sweep (s - 2 | s - 1: the last step of member 0 exceptional; s - 1 | s:
-    # the first step of member 1, from its carry) and at the chain start
-    # (element 0 no head, element 1 its copy or negation).
-    nz20 = (keys20 > 0).to(torch.int32)[src20.reshape(-1)].reshape(1, m20, K20).contiguous()
-    xs6, ys6, fl6 = xs20.clone(), ys20.clone(), fl20.clone()
+    # Edge steps for the wide scans B5 and B6 (element i of chain (r, k) a
+    # head, i + 1 its copy or its negation): mid-chain (10 | 11), on both
+    # sides of every sub-run boundary of the team sweep (s - 2 | s - 1: the
+    # last step of member 0; s - 1 | s: the first step of member 1, from its
+    # carry) and at the chain start (element 0 no head, element 1 its copy or
+    # negation), two chains each (P == Q, P == -Q).
     chunk = msm_kernels.CHUNK
+
+    def edge_steps(mv):
+        return [10, 0] + sorted({s + d for t in WIDE_TEAM_SWEEP for s in [-(-mv // t)]
+                                 for d in (-2, -1)} & set(range(1, mv - 1)))
+
+    def edge_chains(steps):
+        return [((0, 3, 7)[i % 3], 100 + 3 * i) for i in range(2 * len(steps))]
+
+    def plant_edges(xs, ys, fl, edges):
+        """Copies of the chain layout with the edge steps (r, k, i) planted;
+        odd entries of ``edges`` negate."""
+        xs, ys, fl = xs.clone(), ys.clone(), fl.clone()
+        for idx, (r, k, i) in enumerate(edges):
+            j0, j1 = i * chunk + r, (i + 1) * chunk + r
+            xs[:, j1, k], ys[:, j1, k], fl[0, j0, k], fl[0, j1, k] = xs[:, j0, k], ys[:, j0, k], 1, 0
+            if i == 0:
+                fl[0, j0, k] = 0  # the chain starts mid-segment
+            if idx % 2:
+                ys[:, j1, k] = fa.neg(FQ, ys[:, j0, k:k + 1])[:, 0]
+        return xs, ys, fl
+
+    # B6 on the 2^20 window with the edge steps in live buckets, where
+    # exactly those chains must flag, and in bucket 0 (the first ~64 sorted
+    # positions, all in chain 0), where the flag must stay clear.
+    nz20 = (keys20 > 0).to(torch.int32)[src20.reshape(-1)].reshape(1, m20, K20).contiguous()
     mv20 = m20 // chunk
-    steps = [10, 0] + sorted({s + d for t in FAST_TEAM_SWEEP for s in [-(-mv20 // t)]
-                              for d in (-2, -1)})
-    live_chains = [((0, 3, 7)[i % 3], 100 + 3 * i) for i in range(2 * len(steps))]
+    steps = edge_steps(mv20)
+    live_chains = edge_chains(steps)
     edges = [(r, k, steps[idx // 2]) for idx, (r, k) in enumerate(live_chains)]
     edges += [(0, 0, 10), (0, 0, 20), (0, 0, 15), (0, 0, 31)]
-    for idx, (r, k, i) in enumerate(edges):
+    xs6, ys6, fl6 = plant_edges(xs20, ys20, fl20, edges)
+    for r, k, i in edges:
         j0, j1 = i * chunk + r, (i + 1) * chunk + r
-        xs6[:, j1, k], ys6[:, j1, k], fl6[0, j0, k], fl6[0, j1, k] = xs6[:, j0, k], ys6[:, j0, k], 1, 0
-        if i == 0:
-            fl6[0, j0, k] = 0  # the chain starts mid-segment
-        if idx % 2:
-            ys6[:, j1, k] = fa.neg(FQ, ys6[:, j0, k:k + 1])[:, 0]
         live = (r, k) in live_chains
         if int(nz20[0, j0, k]) != live or int(nz20[0, j1, k]) != live:
             raise AssertionError(f"B6 edge step at chain ({r}, {k}) is not where it was meant")
@@ -563,8 +655,36 @@ def main() -> int:
           [(f"(24, {m20}, {K20}) T={t}",
             lambda t=t: msm_kernels.bucket_scan_fast_kernel(xs6, ys6, fl6, nz20, chunk, team=t),
             plain6, b6_bytes + 4 * m20 * K20 + 4 * chunk * K20, b6_ops)
-           for t in [team6] + [t for t in FAST_TEAM_SWEEP if t != team6]],
+           for t in [team6] + [t for t in WIDE_TEAM_SWEEP if t != team6]],
           msm_kernels.bucket_scan_fast_kernel, big=True, verify=exc_exact, compare=b6_compare)
+
+    # B5 on the batch-16 window with the edge steps planted, and on B6's 2^20
+    # window (its edges in live buckets and in bucket 0), at each team size of
+    # the sweep (the path's first): the same points at every position
+    mv16 = xs16.shape[1] // chunk
+    steps16 = edge_steps(mv16)
+    xs5, ys5, fl5 = plant_edges(xs16, ys16, fl16, [
+        (r, k, steps16[idx // 2]) for idx, (r, k) in enumerate(edge_chains(steps16))])
+    n_dbl16 = 4 + len(steps16)  # the doublings: multi_window's 4 and one a step here
+    team5 = msm_kernels.SCAN_TEAM
+    sweep5 = [team5] + [t for t in WIDE_TEAM_SWEEP if t != team5]
+    log(f"B5 edge steps at elements {steps16} (batch 16) and {steps} (2^20)")
+
+    def plain5_16():
+        return msm_kernels.bucket_scan_plain(xs5, ys5, fl5, chunk)
+
+    def plain5_20():
+        return msm_kernels.bucket_scan_plain(xs6, ys6, fl6, chunk)
+
+    check("bucket_scan", "snarkos_tpu_torch/csrc/bucket_scan.cu",
+          "snarkos_tpu/ops/msm_pallas.py:173",
+          [(f"(24, {xs5.shape[1]}, {K16}) T={t}",
+            lambda t=t: msm_kernels.bucket_scan_kernel(xs5, ys5, fl5, chunk, team=t),
+            plain5_16, *scan_cost(fl5, n_dbl16)) for t in sweep5]
+          + [(f"(24, {m20}, {K20}) T={t}",
+              lambda t=t: msm_kernels.bucket_scan_kernel(xs6, ys6, fl6, chunk, team=t),
+              plain5_20, *scan_cost(fl6, len(steps) + 2)) for t in sweep5],
+          msm_kernels.bucket_scan_kernel, big=True, exact=False)
 
     # B7 at the bucket total's shape for B = 2^13 + 1: Jacobian points with
     # identities (arbitrary X, Y), P == Q and P == -Q between steps of chains
@@ -587,9 +707,11 @@ def main() -> int:
             6 * 24 * 4 * Bp, 16 * n_fin * FQ_MUL_OPS)],
           msm_kernels.jadd_scan_kernel)
 
-    def run_path(label, fn, required, absent=()):
+    def run_path(label, fn, required, absent=(), exact=None, at_most=None):
         """Drive one path with every launch counter at 0 just before it; the
-        kernels in ``required`` must launch, those in ``absent`` must not."""
+        kernels in ``required`` must launch, those in ``absent`` must not,
+        those in ``exact`` exactly as often as it says, those in ``at_most``
+        no more often."""
         torch.cuda.synchronize()
         for kern in kernels:
             kern["counter"].launches = 0
@@ -606,6 +728,10 @@ def main() -> int:
         extra = [k for k in absent if counts[k] != 0]
         if extra:
             raise AssertionError(f"kernels launched in {label} that must not be: {extra}")
+        off = {k: counts[k] for k, v in (exact or {}).items() if counts[k] != v}
+        off.update({k: counts[k] for k, v in (at_most or {}).items() if counts[k] > v})
+        if off:
+            raise AssertionError(f"launches in {label}: {off}, want {exact} and at most {at_most}")
         return out
 
     # -- 3. the prover at batch 8 ---------------------------------------------------
@@ -620,8 +746,9 @@ def main() -> int:
     address = fixture["address"]
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
     sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
-                    ["mont_mul", "g1_horner", "g1_bucket_fixup", "seg_prefix",
-                     "bucket_scan_serial"], absent=["g1_add"])
+                    ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner",
+                     "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"], absent=["g1_add"],
+                    exact=PATH_LAUNCHES, at_most={"mont_mul": MONT_MUL_MAX})
 
     if len(sols) != len(nonces):
         raise AssertionError(f"{len(sols)} solutions for {len(nonces)} nonces")
@@ -685,8 +812,10 @@ def main() -> int:
     puzzle.prove_batch(epoch, address, nonces16)  # warm-up
     sols16 = run_path(f"prove_batch({BATCH_WIDE})",
                       lambda: puzzle.prove_batch(epoch, address, nonces16),
-                      ["mont_mul", "g1_horner", "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
-                      absent=["bucket_scan_serial", "g1_add"])
+                      ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner",
+                       "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
+                      absent=["bucket_scan_serial", "g1_add"], exact=PATH_LAUNCHES,
+                      at_most={"mont_mul": MONT_MUL_MAX})
     if len(sols16) != BATCH_WIDE or sols16[:BATCH] != sols:
         raise AssertionError("prove_batch(16)[:8] differs from prove_batch(8) (and the fixture)")
     log("prove_batch(16)[:8] == prove_batch(8), byte for byte equal to the fixture")

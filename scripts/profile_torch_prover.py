@@ -10,7 +10,8 @@ traces one more under torch.profiler (CPU and CUDA activity); with
 ``--msm-log-n n`` it does the same with msm.msm_affine over the first 2^n
 dev SRS powers and random scalars instead. Prints the wall time of the
 traced call, the device busy time (union of kernel intervals), the idle
-share, and device time by kernel name. The full table goes to
+share, the number of device activities and of host syncs (the CUDA
+runtime's synchronize calls), and device time by kernel name. The full table goes to
 chiprun_out/profile_torch_prover.txt (profile_torch_msm.txt for an MSM).
 
 ``--reps N`` first times N untraced calls after the warm-up, each ended by a
@@ -108,9 +109,13 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", out_name), "w") as fh:
         fh.write(table)
+    # host syncs: the runtime's stream and device synchronisations (a read of
+    # a CUDA tensor's value, a copy to the host, the call's final sync)
+    syncs = sum(ev.count for ev in prof.key_averages() if "Synchronize" in ev.key)
     print(f"{what}: wall {wall * 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms, idle share {1 - busy / 1e6 / wall:.3f}, "
-          f"{len(spans)} device activities on {torch.cuda.get_device_name(0)}")
+          f"{len(spans)} device activities, {syncs} host syncs on "
+          f"{torch.cuda.get_device_name(0)}")
     rows = {}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", 0) or 0

@@ -35,15 +35,6 @@ extern "C" int bucket_scan_fast(const int32_t* xs, const int32_t* ys, const int3
                                 const int32_t* nonzero, int32_t* ox, int32_t* oy, int32_t* oz,
                                 int32_t* exc, int64_t m, int64_t K, int64_t chunk, int64_t team,
                                 void* stream) {
-    // a power of two up to 256 (48 KB of shared memory, 255 registers a thread)
-    if (team < 1 || team > 256 || (team & (team - 1)) != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int T = static_cast<int>(team);
-    const int threads = team_block_threads(T);
-    const int64_t per_block = threads / T;
-    const int64_t blocks = (chunk * K + per_block - 1) / per_block;
-    wide_scan_team_kernel<<<static_cast<unsigned>(blocks), threads, team_smem_bytes(threads, T),
-                            static_cast<cudaStream_t>(stream)>>>(xs, ys, flags, nonzero, ox, oy,
-                                                                 oz, exc, m, K, chunk, T);
-    return static_cast<int>(cudaGetLastError());
+    return launch_wide_scan_team<false>(xs, ys, flags, nonzero, ox, oy, oz, exc, m, K, chunk,
+                                        team, stream);
 }

@@ -166,41 +166,150 @@ __device__ __forceinline__ void mul8(uint32_t* r, const uint32_t* a) {
 
 // -- Montgomery multiply (B1) -------------------------------------------------
 //
-// CIOS over 32-bit words with 32x32->64 products in 64-bit accumulators:
-// after word i, t = (t + a * b_i + m p) / 2^32 with m = t_0 * (-p^-1) mod 2^32.
-// For a, b < p the result is below 2p (p < R / 4 for both fields), and one
-// conditional subtract makes it canonical. 2 N^2 + N word products: 300 for
-// Fq, 136 for Fr, each one IMAD.WIDE-class pair of 32-bit multiplies.
+// CIOS over 32-bit words with PTX carry chains. The running sum is held in
+// two N-word arrays, T = A + 2^32 B: the products a_j b_i of even j go to A
+// (low word at j, high word at j + 1, so one chain of mad.lo / madc.hi adds
+// them all with no carry fix-ups), those of odd j to B. For each word b_i:
+//   1. A += the even products of a b_i, B += the odd ones (two chains);
+//   2. m = A_0 (-p^-1) mod 2^32 (T's lowest word is A_0), and two more chains
+//      add m p, which zeroes A_0;
+//   3. T / 2^32 = (B + A_1) + 2^32 (A >> 64): B, with A_1 added to its lowest
+//      word, becomes the next word's A, and A shifted down two words its B;
+//      the shift and the carry of that add ride in the next word's odd chain
+//      (madc_rshift).
+// After the last word the arrays merge into T / 2^32 < 2p, and one
+// conditional subtract makes it canonical: the same value and limbs as the
+// JAX package's multiply. For a, b < p < 2^(32 N - 2) no chain carries out of
+// the top word of B, so nothing is lost where a chain ends without a
+// carry-out. 4 N + 4 instructions a word of b (624 for Fq, 288 for Fr), each a
+// 32-bit multiply-add with carry, against about three for each of the
+// 2 N^2 + N word products of CIOS with 64-bit accumulators.
+//
+// One PTX instruction per asm statement, all volatile: volatile asm keeps its
+// order, so each chain's carry flag passes from one statement to the next,
+// and no output can share a register with an input of its statement.
+
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t r;
+    asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+    uint32_t r;
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+    uint32_t r;
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+    uint32_t r;
+    asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+
+// acc += sum over even j < N of a[j] bi 2^(32 j), one chain started with no
+// carry; the carry out of acc[N-1] is left in the flag.
+template <int N>
+__device__ __forceinline__ void mad_even(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+    acc[0] = mad_lo_cc(a[0], bi, acc[0]);
+    acc[1] = madc_hi_cc(a[0], bi, acc[1]);
+#pragma unroll
+    for (int j = 2; j < N; j += 2) {
+        acc[j] = madc_lo_cc(a[j], bi, acc[j]);
+        acc[j + 1] = madc_hi_cc(a[j], bi, acc[j + 1]);
+    }
+}
+
+// odd = (odd >> 64) + sum over even j < N of a[j] bi 2^(32 j) + the carry
+// flag, one chain with no carry out.
+template <int N>
+__device__ __forceinline__ void madc_rshift(uint32_t* odd, const uint32_t* a, uint32_t bi) {
+#pragma unroll
+    for (int j = 0; j < N - 2; j += 2) {
+        odd[j] = madc_lo_cc(a[j], bi, odd[j + 2]);
+        odd[j + 1] = madc_hi_cc(a[j], bi, odd[j + 3]);
+    }
+    odd[N - 2] = madc_lo_cc(a[N - 2], bi, 0);
+    odd[N - 1] = madc_hi(a[N - 2], bi, 0);
+}
+
+// Step 2: add m p with m = even[0] (-p^-1) mod 2^32; even[0] becomes 0.
+template <class F>
+__device__ __forceinline__ void mont_reduce(uint32_t* even, uint32_t* odd) {
+    constexpr int N = F::N;
+    uint32_t p[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = F::p(j);
+    const uint32_t m = even[0] * F::INV;
+    mad_even<N>(odd, p + 1, m);
+    mad_even<N>(even, p, m);
+    odd[N - 1] = addc(odd[N - 1], 0);
+}
+
+// Steps 3, 1 and 2 for a word b_i after the first: on entry ``even`` holds
+// the word before's B and ``odd`` its A (A_0 == 0); on return ``even`` holds
+// the new A and ``odd`` the new B.
+template <class F>
+__device__ __forceinline__ void mont_row(uint32_t* even, uint32_t* odd, const uint32_t* a,
+                                         uint32_t bi) {
+    constexpr int N = F::N;
+    even[0] = add_cc(even[0], odd[1]);
+    madc_rshift<N>(odd, a + 1, bi);
+    mad_even<N>(even, a, bi);
+    odd[N - 1] = addc(odd[N - 1], 0);
+    mont_reduce<F>(even, odd);
+}
+
 template <class F>
 __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    constexpr int N = F::N;
-    uint32_t t[N + 2];
+    constexpr int N = F::N;  // even for both fields
+    uint32_t x[N], y[N];     // A, B of the words so far, swapping roles each word
 #pragma unroll
-    for (int i = 0; i < N + 2; ++i) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            c += static_cast<uint64_t>(a[j]) * b[i] + t[j];
-            t[j] = static_cast<uint32_t>(c);
-            c >>= 32;
-        }
-        c += t[N];
-        t[N] = static_cast<uint32_t>(c);
-        t[N + 1] = static_cast<uint32_t>(c >> 32);
-        const uint32_t m = t[0] * F::INV;
-        c = (static_cast<uint64_t>(m) * F::p(0) + t[0]) >> 32;
-#pragma unroll
-        for (int j = 1; j < N; ++j) {
-            c += static_cast<uint64_t>(m) * F::p(j) + t[j];
-            t[j - 1] = static_cast<uint32_t>(c);
-            c >>= 32;
-        }
-        c += t[N];
-        t[N - 1] = static_cast<uint32_t>(c);
-        t[N] = t[N + 1] + static_cast<uint32_t>(c >> 32);
+    for (int j = 0; j < N; j += 2) {
+        x[j] = a[j] * b[0];
+        x[j + 1] = __umulhi(a[j], b[0]);
+        y[j] = a[j + 1] * b[0];
+        y[j + 1] = __umulhi(a[j + 1], b[0]);
     }
+    mont_reduce<F>(x, y);
+#pragma unroll
+    for (int i = 1; i < N; ++i) {
+        if (i & 1) {
+            mont_row<F>(y, x, a, b[i]);
+        } else {
+            mont_row<F>(x, y, a, b[i]);
+        }
+    }
+    // N - 1 is odd: y holds A, x holds B; T / 2^32 = x + (y >> 32)
+    uint32_t t[N];
+    t[0] = add_cc(x[0], y[1]);
+#pragma unroll
+    for (int j = 1; j < N - 1; ++j) t[j] = addc_cc(x[j], y[j + 1]);
+    t[N - 1] = addc(x[N - 1], 0);
     cond_sub_p<F>(r, t);
 }
 

@@ -1,5 +1,7 @@
-// The team scan of the wide-chain bucket scan B6. Its steps are out-of-line
-// functions, so B5 can run the same body with the complete add in its rescan.
+// The team scan of the wide-chain bucket scans: B6 (bucket_scan_fast.cu,
+// the incomplete add and an exception flag) and B5 (bucket_scan.cu, the
+// complete add, no flag). The two differ only in phase 3's step, a
+// compile-time choice (kComplete).
 //
 // Layout: xs, ys are (24, m, K) limb tensors, flags (1, m, K); with
 // mv = m / chunk, chain l = r K + k (r < chunk) owns the sorted run
@@ -17,15 +19,17 @@
 //      in shared memory with the complete add; carry_t is thread t - 1's
 //      value, the identity for t = 0: the chain's running sum just before
 //      element t s, exactly;
-//   3. thread t rescans its elements from carry_t with the incomplete mixed
-//      add, raising the thread's flag where a step is exceptional in a live
-//      position, and writes every position. The chain's flag is the OR over
-//      its team.
+//   3. thread t rescans its elements from carry_t and writes every position.
+//      B6 rescans with the incomplete mixed add, raising the thread's flag
+//      where a step is exceptional in a live position; the chain's flag is
+//      the OR over its team. B5 rescans with the complete mixed add and
+//      reads no nonzero and writes no flag.
 // Phase 3 replays each step of the serial walk once, on operands that are
-// projectively the serial walk's own up to the chain's first flagged step, so
-// the flag equals the serial walk's bit for bit, and every value at a
-// position of a live bucket in an unflagged chain is the serial value as
-// another Jacobian representative (compare with g1.same_points).
+// projectively the serial walk's own (for B6 up to the chain's first flagged
+// step). So B6's flag equals the serial walk's bit for bit, and every value
+// at a position of a live bucket in an unflagged chain is the serial value
+// as another Jacobian representative; so is B5's value at every position
+// (compare with g1.same_points).
 //
 // A block holds C = blockDim / T chains' teams; thread tid is member
 // t = tid / C of chain c = tid % C, so a warp's loads of one limb row are
@@ -59,10 +63,11 @@ __device__ __forceinline__ void set_identity(Jac& p) {
 }
 
 // Scan elements [i0, i1) of chain l into acc, resetting at heads. kRescan:
-// phase 3 (incomplete add, every position written, returns whether a live
-// step was exceptional); else phase 1 (complete add, nothing written, returns
-// whether a head lies in the elements).
-template <bool kRescan>
+// phase 3, every position written, with the complete add (kComplete, returns
+// false) or with the incomplete add (returns whether a live step was
+// exceptional); else phase 1: the complete add, nothing written, returns
+// whether a head lies in the elements.
+template <bool kRescan, bool kComplete>
 __device__ __forceinline__ bool team_scan_elements(
     Jac& acc, const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
     const int32_t* __restrict__ flags, const int32_t* __restrict__ nonzero,
@@ -82,7 +87,7 @@ __device__ __forceinline__ bool team_scan_elements(
             for (int w = 0; w < 12; ++w) acc.z[w] = FQ_ONE[w];
         } else {
             Jac nxt;
-            if (kRescan) {
+            if constexpr (kRescan && !kComplete) {
                 if (team_madd_incomplete_step(nxt, acc, qx, qy) && nonzero[e] != 0) any = true;
             } else {
                 team_madd_step(nxt, acc, qx, qy);
@@ -95,7 +100,8 @@ __device__ __forceinline__ bool team_scan_elements(
 }
 
 // One launch: ceil(KV / C) blocks of C T threads. exc is KV int32, chain l's
-// flag at l; nonzero is (1, m, K).
+// flag at l; nonzero is (1, m, K). With kComplete both are unused (null).
+template <bool kComplete>
 __global__ void wide_scan_team_kernel(const int32_t* __restrict__ xs,
                                       const int32_t* __restrict__ ys,
                                       const int32_t* __restrict__ flags,
@@ -127,8 +133,9 @@ __global__ void wide_scan_team_kernel(const int32_t* __restrict__ xs,
     Jac acc;
     set_identity(acc);
     head[tid] =
-        team_scan_elements<false>(acc, xs, ys, flags, nonzero, ox, oy, oz, i0, i1, l, kv, n) ? 1
-                                                                                            : 0;
+        team_scan_elements<false, true>(acc, xs, ys, flags, nonzero, ox, oy, oz, i0, i1, l, kv, n)
+            ? 1
+            : 0;
     part[tid] = acc;
     __syncthreads();
 
@@ -158,11 +165,13 @@ __global__ void wide_scan_team_kernel(const int32_t* __restrict__ xs,
     } else {
         set_identity(acc);
     }
-    const bool hit =
-        team_scan_elements<true>(acc, xs, ys, flags, nonzero, ox, oy, oz, i0, i1, l, kv, n);
-    if (hit) chain_flag[c] = 1;
-    __syncthreads();
-    if (t == 0 && l < kv) exc[l] = chain_flag[c];
+    if (team_scan_elements<true, kComplete>(acc, xs, ys, flags, nonzero, ox, oy, oz, i0, i1, l,
+                                            kv, n))
+        chain_flag[c] = 1;
+    if constexpr (!kComplete) {
+        __syncthreads();
+        if (t == 0 && l < kv) exc[l] = chain_flag[c];
+    }
 }
 
 // Threads a block of the team scan: C T with C = max(1, 128 / T).
@@ -171,6 +180,27 @@ inline int team_block_threads(int team) { return team < 128 ? 128 : team; }
 inline size_t team_smem_bytes(int threads, int team) {
     return static_cast<size_t>(threads) * (sizeof(Jac) + sizeof(int)) +
            static_cast<size_t>(threads / team) * sizeof(int);
+}
+
+// The launch of B5 (kComplete) and B6: a team of T threads a chain, T a power
+// of two up to 256 (48 KB of shared memory, 255 registers a thread); returns
+// cudaGetLastError().
+template <bool kComplete>
+inline int launch_wide_scan_team(const int32_t* xs, const int32_t* ys, const int32_t* flags,
+                                 const int32_t* nonzero, int32_t* ox, int32_t* oy, int32_t* oz,
+                                 int32_t* exc, int64_t m, int64_t K, int64_t chunk, int64_t team,
+                                 void* stream) {
+    if (team < 1 || team > 256 || (team & (team - 1)) != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int T = static_cast<int>(team);
+    const int threads = team_block_threads(T);
+    const int64_t per_block = threads / T;
+    const int64_t blocks = (chunk * K + per_block - 1) / per_block;
+    wide_scan_team_kernel<kComplete>
+        <<<static_cast<unsigned>(blocks), threads, team_smem_bytes(threads, T),
+           static_cast<cudaStream_t>(stream)>>>(xs, ys, flags, nonzero, ox, oy, oz, exc, m, K,
+                                                chunk, T);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace snark

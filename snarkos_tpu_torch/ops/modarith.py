@@ -23,7 +23,8 @@ computes that m in one product so that it runs as a few whole-tensor ops
 instead of L dependent steps. Carries resolve the same way: a few parallel
 carry passes, then one carry-lookahead step (``_normalize``).
 
-Field add, sub and neg are plain PyTorch on every device.
+Field add, sub and neg are plain PyTorch on every device, with no host
+synchronisation on the card (``_ripple``).
 """
 
 from __future__ import annotations
@@ -105,10 +106,20 @@ def _normalize(cols: torch.Tensor, nout: int, bits: int) -> torch.Tensor:
 def _ripple(x: torch.Tensor) -> torch.Tensor:
     """Limbs in [0, 2^16] -> canonical limbs. A limb equal to 2^16 generates
     a carry, 0xFFFF propagates one, anything else stops it: the carry into
-    limb k is set iff the last non-propagating limb below k generates."""
+    limb k is set iff the last non-propagating limb below k generates.
+
+    On a CPU tensor, limbs with no generating limb return at once; on the
+    card that test would wait for the device (``bool`` of a CUDA tensor), so
+    the card always takes the carry-lookahead, which leaves such limbs as
+    they are."""
     gen = x == (1 << LIMB_BITS)
-    if not bool(gen.any()):
+    if x.device.type == "cpu" and not bool(gen.any()):
         return x
+    return _lookahead(x, gen)
+
+
+def _lookahead(x: torch.Tensor, gen: torch.Tensor) -> torch.Tensor:
+    """``_ripple``'s carry-lookahead, with no early-out (``gen``: x == 2^16)."""
     stop = gen | (x != LIMB_MASK)
     idx = _col(torch.arange(x.shape[0], device=x.device), x.dim())
     last = torch.where(stop, idx, -1).cummax(0).values[:-1]

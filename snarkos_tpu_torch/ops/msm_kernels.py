@@ -31,6 +31,8 @@ SERIAL_MAX_N = 1 << 15
 SERIAL_TEAM = 64
 # threads that scan one wide chain together in B6 (PERF.md has the sweep)
 FAST_TEAM = 8
+# threads that scan one wide chain together in B5 (PERF.md has the sweep)
+SCAN_TEAM = 16
 LANES = 512
 CHUNK = 8
 # the bucket total's Jacobian scan (B7) layout
@@ -56,7 +58,7 @@ def _zeros(n: int, device) -> g1.JacobianPoints:
 
 
 def team_size(team: int, steps: int) -> int:
-    """A scan team (B4, B6) cut to the power of two at or above a chain's
+    """A scan team (B4-B6) cut to the power of two at or above a chain's
     ``steps`` elements: a thread with no elements only lengthens the carry
     scan."""
     return min(team, 1 << max(steps - 1, 0).bit_length())
@@ -145,15 +147,20 @@ def bucket_scan_plain(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor, c
     return _madd_scan_plain(xs, ys, flags, chunk, _madd)[0]
 
 
-def bucket_scan_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor, chunk: int):
+def bucket_scan_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor, chunk: int,
+                       team: int = SCAN_TEAM):
+    """A team of ``team`` threads per chain (``csrc/bucket_scan.cu``, B6's
+    team body with the complete add, ``team_size``). Its values are other
+    Jacobian representatives of the plain serial walk's points."""
     L, m, K = xs.shape
     _build.check(xs, (_L, m, K), "bucket_scan xs")
     _build.check(ys, (_L, m, K), "bucket_scan ys")
     _build.check(flags, (1, m, K), "bucket_scan flags")
     out = [torch.empty_like(xs) for _ in range(3)]
     if m and K:
-        fn = _build.entry("bucket_scan", "bucket_scan", 6, 3)
-        _build.launch(fn, (xs, ys, flags, *out), (m, K, chunk), xs.device)
+        fn = _build.entry("bucket_scan", "bucket_scan", 6, 4)
+        _build.launch(fn, (xs, ys, flags, *out), (m, K, chunk, team_size(team, m // chunk)),
+                      xs.device)
         bucket_scan_kernel.launches += 1
     return tuple(out)
 
@@ -167,7 +174,9 @@ def bucket_scan(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
     virtual chains (module docstring). xs, ys: (L, m, K) Montgomery limbs;
     flags: (1, m, K) int32 segment heads; m % chunk == 0. Returns (sx, sy,
     sz), (L, m, K) Jacobian scan values. Kernel B5 on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor; B5 associates the additions otherwise
+    than the plain serial walk, so its values are other representatives of
+    the same points, at every position."""
     _check_layout("bucket_scan", xs, lanes, chunk)
     if xs.device.type == "cpu":
         return bucket_scan_plain(xs, ys, flags, chunk)

@@ -3,8 +3,10 @@
 
   prove_batch(epoch_hash, address, nonces):
     1. seed_i  = sha256(epoch_hash || address || nonce_i) mod r
-    2. leaves  = Poseidon(seed_i, j) for j < K        counter-mode sponge (B1)
-    3. coeffs  = EpochProgram(epoch_hash)(leaves)     the per-epoch relation (B1)
+    2. leaves  = Poseidon(seed_i, j) for j < K        counter-mode sponge (B1's
+                                                       fr_poseidon_permute)
+    3. coeffs  = EpochProgram(epoch_hash)(leaves)     the per-epoch relation (B1's
+                                                       fr_epoch_step, 12 launches)
     4. C_i     = KZG commit = multi-MSM over the SRS  (B2, B3, and B4 up to
                                                        8 nonces at 2^12, B5 above)
     5. z_i     = Poseidon(C_i.x)                      host Fiat-Shamir challenge
@@ -84,6 +86,56 @@ class PuzzleSRS:
         return cls(degree=degree, points=g1.JacobianPoints(x, y, one))
 
 
+def epoch_step_plain(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
+                     const: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of one epoch-program step, on any device: v
+    (L, B, K) Montgomery, perm and sel (K,) int32, const (L, K) Montgomery.
+    Lane (b, k) pairs v with u = v[:, b, perm[k]] and takes, by sel[k], v u
+    + c, v^2 + u, v c - u or v^2 - u^2 + c."""
+    u = v[..., perm.long()]
+    cb = const.unsqueeze(1)  # broadcast over the nonce batch
+    sb = sel.reshape(1, 1, -1)
+    prod_vu = fa.mont_mul_plain(FR, v, u)
+    v2 = fa.mont_mul_plain(FR, v, v)
+    u2 = fa.mont_mul_plain(FR, u, u)
+    prod_vc = fa.mont_mul_plain(FR, v, cb)
+    cand0 = fa.add(FR, prod_vu, cb)
+    cand1 = fa.add(FR, v2, u)
+    cand2 = fa.sub(FR, prod_vc, u)
+    cand3 = fa.add(FR, fa.sub(FR, v2, u2), cb)
+    return torch.where(sb == 0, cand0, torch.where(
+        sb == 1, cand1, torch.where(sb == 2, cand2, cand3)))
+
+
+def epoch_step_kernel(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
+                      const: torch.Tensor) -> torch.Tensor:
+    """Launch ``fr_epoch_step`` (``csrc/mont_mul.cu``, kernel B1's Fr pass)
+    on int32 CUDA tensors; writes a new (L, B, K) tensor."""
+    L, B, K = v.shape if v.dim() == 3 else (None, None, None)
+    _build.check(v, (FR.nlimbs, B, K), "epoch_step v")
+    _build.check(perm, (K,), "epoch_step perm")
+    _build.check(sel, (K,), "epoch_step sel")
+    _build.check(const, (FR.nlimbs, K), "epoch_step const")
+    out = torch.empty_like(v)
+    if B and K:
+        fn = _build.entry("mont_mul", "fr_epoch_step", 5, 2)
+        _build.launch(fn, (v, perm, sel, const, out), (B, K), v.device)
+        epoch_step_kernel.launches += 1
+    return out
+
+
+epoch_step_kernel.launches = 0
+
+
+def epoch_step(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
+               const: torch.Tensor) -> torch.Tensor:
+    """One step of the epoch program (``epoch_step_plain``): the kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    if v.device.type == "cpu":
+        return epoch_step_plain(v, perm, sel, const)
+    return epoch_step_kernel(*(t.to(torch.int32).contiguous() for t in (v, perm, sel, const)))
+
+
 class EpochProgram:
     """Per-epoch tensors derived from the epoch hash: wiring permutations
     (EPOCH_STEPS, K), op selectors (EPOCH_STEPS, 1, K) and Montgomery
@@ -112,22 +164,10 @@ class EpochProgram:
     def apply(self, leaves: torch.Tensor) -> torch.Tensor:
         """(L, B, K) Montgomery leaves -> (L, B, K) coefficients: per step a
         partner vector by the wiring permutation and one of four forms per
-        lane (v u + c, v^2 + u, v c - u, v^2 - u^2 + c)."""
+        lane (v u + c, v^2 + u, v c - u, v^2 - u^2 + c), ``epoch_step``."""
         v = leaves
         for s in range(EPOCH_STEPS):
-            u = v[..., self.perms[s].long()]
-            cb = self.consts[s].unsqueeze(1)  # broadcast over the nonce batch
-            sb = self.sels[s].unsqueeze(0)  # (1, 1, K)
-            prod_vu = fa.mont_mul(FR, v, u)
-            v2 = fa.mont_sqr(FR, v)
-            u2 = fa.mont_sqr(FR, u)
-            prod_vc = fa.mont_mul(FR, v, cb)
-            cand0 = fa.add(FR, prod_vu, cb)
-            cand1 = fa.add(FR, v2, u)
-            cand2 = fa.sub(FR, prod_vc, u)
-            cand3 = fa.add(FR, fa.sub(FR, v2, u2), cb)
-            v = torch.where(sb == 0, cand0, torch.where(
-                sb == 1, cand1, torch.where(sb == 2, cand2, cand3)))
+            v = epoch_step(v, self.perms[s], self.sels[s].reshape(-1), self.consts[s])
         return v
 
     def apply_host(self, leaves: list[int]) -> list[int]:

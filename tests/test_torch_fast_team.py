@@ -1,12 +1,13 @@
-"""Kernel B6 of the port as redesigned for the card, on the CPU: a model of
-its three-phase team scan (``csrc/wide_scan_team.cuh``) written over the
-wide chain layout, held against the serial walk of
-``bucket_scan_fast_plain``. The exception flag must agree bit for bit, and
-the values at every position of a live bucket in an unflagged chain must be
-the same points. The model runs on a cheap exact group (integers mod a prime,
-with an incomplete add that flags P == +-Q and returns garbage with Z = 0, as
-``g1.madd_incomplete`` does) for team sizes 1 to 16, and once on G1's plain
-additions."""
+"""Kernels B6 and B5 of the port as redesigned for the card, on the CPU: a
+model of their three-phase team scan (``csrc/wide_scan_team.cuh``) written
+over the wide chain layout, held against the serial walks of
+``bucket_scan_fast_plain`` and ``bucket_scan_plain``. For B6 the exception
+flag must agree bit for bit, and the values at every position of a live
+bucket in an unflagged chain must be the same points; for B5 (the complete
+add in the rescan, no flag) the values at every position. The model runs on
+a cheap exact group (integers mod a prime, with an incomplete add that flags
+P == +-Q and returns garbage with Z = 0, as ``g1.madd_incomplete`` does) for
+team sizes 1 to 16, and on G1's plain additions."""
 
 import random
 
@@ -109,15 +110,16 @@ def _gather(p, idx):
     return tuple(t[:, idx] for t in p)
 
 
-def _team_model(ops, xs, ys, flags, nonzero, chunk, T):
+def _team_model(ops, xs, ys, flags, nonzero, chunk, T, complete=False):
     """B6's three phases as the kernel runs them, vectorised over the T KV
     threads (member t of chain l is lane t KV + l; how the kernel packs the
     teams into blocks changes no value): sub-run scans from the identity with
     the complete madd, an inclusive segmented Hillis-Steele scan of the
     sub-run sums over t with the complete add, and the rescan from member
     t - 1's value with the incomplete madd, flagging exceptional steps that
-    are neither heads nor in bucket 0. Returns (values (L, m, K), exc
-    (1, chunk, K) int32)."""
+    are neither heads nor in bucket 0. ``complete``: B5, the rescan with the
+    complete madd and no flag (``nonzero`` unread). Returns (values
+    (L, m, K), exc (1, chunk, K) int32, all 0 for B5)."""
     L, m, K = xs.shape
     mv, kv = m // chunk, chunk * K
     s = -(-mv // T)
@@ -125,7 +127,7 @@ def _team_model(ops, xs, ys, flags, nonzero, chunk, T):
     t_of = torch.arange(T).repeat_interleave(kv)
     l_of = torch.arange(kv).repeat(T)
     xv, yv = xs.reshape(L, -1), ys.reshape(L, -1)  # element i of chain l at i KV + l
-    head_at, live_at = flags.reshape(-1) != 0, nonzero.reshape(-1) != 0
+    head_at = flags.reshape(-1) != 0
 
     def scan(acc, rescan):
         seen = torch.zeros(lanes, dtype=torch.bool)
@@ -136,9 +138,11 @@ def _team_model(ops, xs, ys, flags, nonzero, chunk, T):
             e = elem.clamp(max=mv - 1) * kv + l_of
             qx, qy = xv[:, e], yv[:, e]
             reset = valid & head_at[e]
-            if rescan:
+            if rescan and not complete:
                 step, exc = ops.madd_incomplete(acc, qx, qy)
-                seen |= valid & ~reset & exc & live_at[e]
+                seen |= valid & ~reset & exc & (nonzero.reshape(-1)[e] != 0)
+            elif rescan:
+                step = ops.madd(acc, qx, qy)
             else:
                 step = ops.madd(acc, qx, qy)
                 seen |= reset
@@ -162,21 +166,25 @@ def _team_model(ops, xs, ys, flags, nonzero, chunk, T):
     return tuple(v.reshape(v.shape[0], m, K) for v in out), exc
 
 
-def _serial(ops, xs, ys, flags, nonzero, chunk):
+def _serial(ops, xs, ys, flags, nonzero, chunk, complete=False):
     """The serial walk of ``bucket_scan_fast_plain`` in the ops of a group:
     every chain from the identity, reset at heads, the incomplete madd, the
-    flag the OR of exc & ~head & nonzero."""
+    flag the OR of exc & ~head & nonzero; ``complete``: that of
+    ``bucket_scan_plain``, the complete madd and no flag."""
     L, m, K = xs.shape
     mv, kv = m // chunk, chunk * K
     xv, yv = xs.reshape(L, mv, kv), ys.reshape(L, mv, kv)
-    heads, live = flags.reshape(mv, kv) != 0, nonzero.reshape(mv, kv) != 0
+    heads = flags.reshape(mv, kv) != 0
     acc = ops.identity(kv)
     flag = torch.zeros(kv, dtype=torch.bool)
     rows = []
     for i in range(mv):
         qx, qy = xv[:, i], yv[:, i]
-        step, exc = ops.madd_incomplete(acc, qx, qy)
-        flag |= exc & ~heads[i] & live[i]
+        if complete:
+            step = ops.madd(acc, qx, qy)
+        else:
+            step, exc = ops.madd_incomplete(acc, qx, qy)
+            flag |= exc & ~heads[i] & (nonzero.reshape(mv, kv)[i] != 0)
         acc = _select(heads[i], ops.from_affine(qx, qy), step)
         rows.append(acc)
     vals = tuple(torch.stack([r[c] for r in rows], dim=1).reshape(L, m, K)
@@ -318,8 +326,45 @@ def test_team_model_g1_against_bucket_scan_fast_plain(T):
     assert exc.reshape(-1).tolist() == FLAGGED
 
 
+def _check_complete(ops, xs, ys, flags, chunk, T, want):
+    """B5's model against the serial complete walk's values ``want``: the
+    same points at every position, bucket 0 and heads included."""
+    got, exc = _team_model(ops, xs, ys, flags, None, chunk, T, complete=True)
+    assert not exc.any()
+    same = ops.same(tuple(v.reshape(v.shape[0], -1) for v in got),
+                    tuple(v.reshape(v.shape[0], -1) for v in want))
+    assert bool(same.all()), (~same).nonzero().reshape(-1).tolist()
+
+
+@pytest.mark.parametrize("mv", [12, 5])
+@pytest.mark.parametrize("T", [1, 2, 4, 8, 16])
+def test_team_model_complete_mod_group(T, mv):
+    """B5's team body (the complete madd in the rescan, no flag) over
+    ``_structure``'s chains, whose planted P == +-Q steps sit at chain
+    starts, on both sides of the sub-run boundaries, in bucket 0 and after
+    heads: equal to the serial complete scan at every position."""
+    chunk, K = 2, 4
+    xs, ys, flags, _ = _mod_case(mv, chunk, K, T, seed=100 * T + mv)
+    want, _ = _serial(ModOps, xs, ys, flags, None, chunk, complete=True)
+    _check_complete(ModOps, xs, ys, flags, chunk, T, want)
+
+
+def test_team_model_complete_g1_against_bucket_scan_plain():
+    """One small real-G1 case for B5 (8 chains of 4 elements, T = 4): the
+    model against ``bucket_scan_plain`` itself, which the generic serial walk
+    reproduces limb for limb."""
+    chunk, K, mv, T = 2, 4, 4, 4
+    xs, ys, flags, _ = _g1_case(mv, chunk, K, T, seed=21)
+    vals = msm_kernels.bucket_scan_plain(xs, ys, flags, chunk)
+    serial_vals, _ = _serial(G1Ops, xs, ys, flags, None, chunk, complete=True)
+    for a, b in zip(serial_vals, vals):
+        assert torch.equal(a, b)
+    _check_complete(G1Ops, xs, ys, flags, chunk, T, vals)
+
+
 def test_team_size():
     assert msm_kernels.team_size(16, 256) == 16
     assert msm_kernels.team_size(64, 5) == 8
     assert msm_kernels.team_size(16, 1) == 1
     assert msm_kernels.team_size(msm_kernels.FAST_TEAM, 8) == min(msm_kernels.FAST_TEAM, 8)
+    assert msm_kernels.team_size(msm_kernels.SCAN_TEAM, 32) == msm_kernels.SCAN_TEAM

@@ -79,7 +79,7 @@ def test_entry_points_refuse_without_card():
 def test_kernel_wrappers_reject_cpu_tensors():
     """The launchers take only what their kernels take; they never run the
     plain version."""
-    from snarkos_tpu_torch.ops import g1, g1_kernels, msm_kernels
+    from snarkos_tpu_torch.ops import g1, g1_kernels, msm_kernels, poseidon, puzzle
     from snarkos_tpu_torch.ops import modarith as fa
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
 
@@ -88,6 +88,15 @@ def test_kernel_wrappers_reject_cpu_tensors():
         fa.mont_mul_kernel(FR, a, a)
     with pytest.raises(ValueError, match="expected"):
         fa.mont_mul_kernel(FQ, a, a)
+    state = torch.zeros((3, 16, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        poseidon.permute_kernel(state, 2)
+    with pytest.raises(ValueError, match="expected"):
+        poseidon.permute_kernel(state, 4)
+    v = torch.zeros((16, 2, 4), dtype=torch.int32)
+    perm = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        puzzle.epoch_step_kernel(v, perm, perm, a)
     p = g1.infinity((4,))
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.add_kernel(p, p)
@@ -111,6 +120,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         msm_kernels.jadd_scan_kernel(xs, xs, xs, 2)
     assert fa.mont_mul_kernel.launches == 0
+    assert poseidon.permute_kernel.launches == puzzle.epoch_step_kernel.launches == 0
     assert g1_kernels.seg_prefix_kernel.launches == 0
     assert g1_kernels.horner_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
     assert msm_kernels.bucket_scan_fast_kernel.launches == 0
