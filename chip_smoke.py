@@ -11,15 +11,15 @@ result line:
   2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute and
      fr_epoch_step; B2 g1_add and its window entry points g1_horner and
      g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
-     B6 bucket_scan_fast, B7 jadd_scan) against its plain PyTorch version on
-     the card, at the paths' shapes and on real windows of their MSMs, with
-     edge lanes; the comparison is exact (tolerance 0: the arithmetic is
-     integer). B4, B5 and B6 add in another order than their plain serial
-     walks, so they are held to them projectively (g1.same_points;
-     max_abs_err is then over the affine normal forms), at each team size of
+     B6 bucket_scan_fast, B7 jadd_bucket_total) against its plain PyTorch
+     version on the card, at the paths' shapes and on real windows of their
+     MSMs, with edge lanes; the comparison is exact (tolerance 0: the
+     arithmetic is integer). B4-B7 add in another order than their plain
+     versions, so they are held to them projectively (g1.same_points;
+     max_abs_err is then over the affine normal forms), at each setting of
      their sweeps: B4 and B5 at every position, B6 at every position of a
-     live bucket in an unflagged chain (elsewhere its values are don't-care),
-     and B6's exception flags exactly.
+     live bucket in an unflagged chain (elsewhere its values are don't-care)
+     and its exception flags exactly, B7 at the total and at every suffix.
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
      of 3 at the 2^20 shapes and for the Poseidon permutation), CUDA events
      around each run, which at small widths time the host's launch rate;
@@ -41,10 +41,12 @@ result line:
      bucket total B7): the result equals (sum k_i tau^i) G computed on the
      host; then with base 1 := base 0 and k_1 := k_0, where B6's flag fires
      and the complete engine (B5) reruns; points/s (median of 3 timed calls).
+     A call launches B7 and B3 once a window and B2's g1_add never (twice
+     a window each on the rerun).
   6. one JSON line with every kernel's numbers, then the result line.
 Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
-must launch on some path.
+must launch on some path, but those of NO_PATH_YET, which must not.
 
 The script imports nothing of JAX or of the JAX package (snarkos_tpu).
 Details go to chiprun_out/chip_smoke.json.
@@ -65,6 +67,14 @@ BATCH_WIDE = 16
 LOG_N = 20
 TEAM_SWEEP = (16, 32, 64, 128)  # B4's threads per chain
 WIDE_TEAM_SWEEP = (4, 8, 16, 32)  # B5's and B6's threads per chain
+# B7's (threads a block, buckets a thread) at the 2^20 MSM's B = 2^13 + 1,
+# and the few also run at the c = 16 MSM's B = 2^15 + 1
+TOTAL_SWEEP = tuple((t, s) for t in (32, 64, 128, 256) for s in (1, 2, 4))
+TOTAL_SWEEP_WIDE = ((64, 1), (128, 1), (256, 1), (256, 2))
+# kernels that no path launches yet, with their next caller: held against
+# their plain versions, exempt from the "launched on no path" check, and a
+# failure if a path does launch them
+NO_PATH_YET = {"g1_add": "A2, the generic engine (msm_generic, non-affine bases)"}
 # B1's launches a prove_batch call (PERF.md): one permutation, the epoch
 # program's 12 steps, at most 80 single multiplies (KZG eval, conversions)
 PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_step": 12}
@@ -377,10 +387,10 @@ def main() -> int:
     def coords(p):
         return (p.x, p.y, p.z)
 
-    # B2's add at the 2^20 bucket total's width (its only caller on the main
-    # paths now) and at the windows' widths where the window loop called it
+    # B2's add (no path calls it now: NO_PATH_YET) at the widths where it ran:
+    # the old 2^20 bucket total's fold and the windows' widths
     b2 = []
-    for width in (msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK * 9, 264, 8):
+    for width in (9216, 264, 8):
         pa, pb, ops = point_pairs(width)
         b2.append((f"(24, {width})",
                    lambda pa=pa, pb=pb: coords(g1_kernels.add_kernel(pa, pb)),
@@ -534,7 +544,7 @@ def main() -> int:
     # a window of the batch-16 multi-MSM (B3's widths, B5)
     xs16, ys16, fl16, K16 = multi_window(BATCH_WIDE, serial=False)
 
-    # B3 at the eight prefix widths of the paths, with their head flags: the
+    # B3 at the seven prefix widths of the paths, with their head flags: the
     # cross-chain carries (one flag per chain: any head in it) and the
     # bucket suffix scans (per-batch segments of B buckets, or none)
     def chain_heads(fl, rows):
@@ -567,7 +577,6 @@ def main() -> int:
                 2 * (1 + 3 * 24) * 4 * width, 16 * n_add * FQ_MUL_OPS)
 
     kv20 = msm_kernels.CHUNK * K20
-    kb = msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK
 
     def zeros(w):
         return torch.zeros(w, dtype=torch.int32, device=dev)
@@ -577,7 +586,7 @@ def main() -> int:
           [prefix_case(K, chain_heads(flags, 1)), prefix_case(BATCH * B, batch_heads(BATCH)),
            prefix_case(msm_kernels.CHUNK * K16, chain_heads(fl16, msm_kernels.CHUNK)),
            prefix_case(BATCH_WIDE * B, batch_heads(BATCH_WIDE)),
-           prefix_case(kv20, chain_heads(fl20, msm_kernels.CHUNK)), prefix_case(kb, zeros(kb)),
+           prefix_case(kv20, chain_heads(fl20, msm_kernels.CHUNK)),
            prefix_case(K1, chain_heads(fl1, 1)), prefix_case(B, zeros(B))],
           g1_kernels.seg_prefix_kernel)
 
@@ -686,26 +695,80 @@ def main() -> int:
               plain5_20, *scan_cost(fl6, len(steps) + 2)) for t in sweep5],
           msm_kernels.bucket_scan_kernel, big=True, exact=False)
 
-    # B7 at the bucket total's shape for B = 2^13 + 1: Jacobian points with
-    # identities (arbitrary X, Y), P == Q and P == -Q between steps of chains
-    Bp = msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK * 9
-    m7 = Bp // msm_kernels.JADD_LANES
-    pts7 = [rescale(multiples[prng.randrange(4096)]) for _ in range(Bp)]
-    for e in range(0, Bp, 16):
-        pts7[e] = (prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
-    kv7 = msm_kernels.JADD_LANES * msm_kernels.JADD_CHUNK
-    for t in range(1, 9):  # flat position i kv + t holds element i of chain t
-        pts7[kv7 + t] = rescale(pts7[t] if t < 5 else ref_g1.neg(pts7[t]))
-    p7 = g1.encode_points(pts7, dev)
-    x7, y7, z7 = (v.reshape(24, m7, msm_kernels.JADD_LANES) for v in (p7.x, p7.y, p7.z))
-    n_fin = sum(1 for p in pts7 if p[2])
-    check("jadd_scan", "snarkos_tpu_torch/csrc/jadd_scan.cu",
-          "snarkos_tpu/ops/msm_pallas.py:303",
-          [(f"(24, {m7}, {msm_kernels.JADD_LANES})",
-            lambda: msm_kernels.jadd_scan_kernel(x7, y7, z7, msm_kernels.JADD_CHUNK),
-            lambda: msm_kernels.jadd_scan_plain(x7, y7, z7, msm_kernels.JADD_CHUNK),
-            6 * 24 * 4 * Bp, 16 * n_fin * FQ_MUL_OPS)],
-          msm_kernels.jadd_scan_kernel)
+    # B7, the weighted bucket total of a window, at the 2^20 MSM's B = 2^13 +
+    # 1 (the path's setting first, without the suffixes, as the path calls
+    # it; then the sweep, each with every suffix) and at the c = 16 MSM's B =
+    # 2^15 + 1. The kernel reads the live buckets in reverse, element r =
+    # bucket B - 1 - r; at the thread and block boundaries of every setting
+    # (r = k s, r = k T s) the planted pairs give P == Q and P == -Q across the
+    # boundary, and identities (arbitrary X, Y) sit on both sides of another;
+    # elements 0 and 1 cancel (a suffix is the identity). Then an
+    # all-identity input (T_w is the identity).
+    def total_case(B, sweep):
+        pts = [rescale(multiples[prng.randrange(4096)]) for _ in range(B)]
+
+        def at(r):
+            return B - 1 - r
+
+        def pair(r, neg):
+            if 0 < r < B - 1:
+                q = pts[at(r - 1)]
+                pts[at(r)] = rescale(ref_g1.neg(q) if neg else q) if q[2] else q
+
+        for T, s_ in sweep:
+            for k, bound in enumerate((s_, 2 * s_, T * s_, 2 * T * s_)):
+                pair(bound, k % 2 == 1)
+            for bound in (3 * s_, 3 * T * s_):
+                for r in (bound - 1, bound):
+                    if r < B - 1:
+                        pts[at(r)] = (prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
+        pts[at(1)] = rescale(ref_g1.neg(pts[at(0)]))
+        p = g1.encode_points(pts, dev)
+        n_fin = sum(1 for q in pts[1:] if q[2])
+        return (p.x, p.y, p.z), n_fin
+
+    def total_bound(B, n_fin, suffixes):
+        """Buckets read once, T_w (and the suffixes) written once; the 2 n_fin
+        complete adds of a serial scan and total (16 Fq products each)."""
+        return 3 * 24 * 4 * (B + 1 + (B if suffixes else 0)), 2 * n_fin * 16 * FQ_MUL_OPS
+
+    def b7_compare(got, want):
+        """T_w the same point; with the suffixes (a kernel run with scan_out),
+        every suffix the same point too."""
+        if len(got) == 2:
+            return max(affine_err(got[0], want[0]), affine_err(got[1], want[1]))
+        return affine_err(got, want[0])
+
+    b7 = []
+    for B7, sweep in (((1 << 13) + 1, TOTAL_SWEEP), ((1 << 15) + 1, TOTAL_SWEEP_WIDE)):
+        sums7, n_fin7 = total_case(B7, sweep)
+
+        def plain7(sums7=sums7):
+            return msm_kernels.bucket_total_plain(*sums7)
+
+        if B7 == (1 << 13) + 1:
+            b7.append((f"(24, {B7}) T={msm_kernels.BUCKET_THREADS} "
+                       f"s={msm_kernels.BUCKET_PER_THREAD}, path",
+                       lambda sums7=sums7: msm_kernels.bucket_total_kernel(*sums7), plain7,
+                       *total_bound(B7, n_fin7, False)))
+        b7 += [(f"(24, {B7}) T={t} s={s_}, suffixes",
+                lambda sums7=sums7, t=t, s_=s_: msm_kernels.bucket_total_kernel(
+                    *sums7, threads=t, per_thread=s_, scan_out=True),
+                plain7, *total_bound(B7, n_fin7, True)) for t, s_ in sweep]
+    ids7 = g1.encode_points([(prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
+                             for _ in range((1 << 13) + 1)], dev)
+    ids7 = (ids7.x, ids7.y, ids7.z)
+
+    def no_total(label, got):
+        if "identities" in label and int(got[0][2].abs().sum()) != 0:
+            raise AssertionError(f"jadd_bucket_total {label}: T_w is not the identity")
+
+    b7.append((f"(24, {(1 << 13) + 1}) all identities, suffixes",
+               lambda: msm_kernels.bucket_total_kernel(*ids7, scan_out=True),
+               lambda: msm_kernels.bucket_total_plain(*ids7), *total_bound((1 << 13) + 1, 0, True)))
+    check("jadd_bucket_total", "snarkos_tpu_torch/csrc/jadd_scan.cu",
+          "snarkos_tpu/ops/msm_pallas.py:303", b7, msm_kernels.bucket_total_kernel,
+          compare=b7_compare, verify=no_total)
 
     def run_path(label, fn, required, absent=(), exact=None, at_most=None):
         """Drive one path with every launch counter at 0 just before it; the
@@ -747,7 +810,8 @@ def main() -> int:
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
     sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
                     ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner",
-                     "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"], absent=["g1_add"],
+                     "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
+                    absent=["g1_add", "jadd_bucket_total"],
                     exact=PATH_LAUNCHES, at_most={"mont_mul": MONT_MUL_MAX})
 
     if len(sols) != len(nonces):
@@ -814,7 +878,8 @@ def main() -> int:
                       lambda: puzzle.prove_batch(epoch, address, nonces16),
                       ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner",
                        "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
-                      absent=["bucket_scan_serial", "g1_add"], exact=PATH_LAUNCHES,
+                      absent=["bucket_scan_serial", "g1_add", "jadd_bucket_total"],
+                      exact=PATH_LAUNCHES,
                       at_most={"mont_mul": MONT_MUL_MAX})
     if len(sols16) != BATCH_WIDE or sols16[:BATCH] != sols:
         raise AssertionError("prove_batch(16)[:8] differs from prove_batch(8) (and the fixture)")
@@ -838,10 +903,12 @@ def main() -> int:
     def affine_of(out):
         return ref_g1.affine(g1.decode_points(out)[0])
 
+    W20 = packed20.shape[0]
     got = run_path(f"msm_affine(2^{LOG_N})", lambda: msm.msm_affine(bx, by, big_scalars),
-                   ["bucket_scan_fast", "jadd_scan", "g1_add", "g1_horner", "g1_bucket_fixup",
+                   ["bucket_scan_fast", "jadd_bucket_total", "g1_horner", "g1_bucket_fixup",
                     "seg_prefix"],
-                   absent=["bucket_scan", "bucket_scan_serial"])
+                   absent=["bucket_scan", "bucket_scan_serial"],
+                   exact={"jadd_bucket_total": W20, "seg_prefix": W20, "g1_add": 0})
     if affine_of(got) != times_g(s_tau):
         raise AssertionError(f"msm_affine(2^{LOG_N}) != (sum k_i tau^i) G")
     log(f"msm_affine(2^{LOG_N}) == (sum k_i tau^i) G on the fast engine")
@@ -850,8 +917,9 @@ def main() -> int:
     bx2[:, 1], by2[:, 1], sc2[:, 1] = bx[:, 0], by[:, 0], big_scalars[:, 0]
     got = run_path(f"msm_affine(2^{LOG_N}, base 1 = base 0)",
                    lambda: msm.msm_affine(bx2, by2, sc2),
-                   ["bucket_scan_fast", "bucket_scan", "jadd_scan", "g1_horner",
-                    "g1_bucket_fixup"])
+                   ["bucket_scan_fast", "bucket_scan", "jadd_bucket_total", "g1_horner",
+                    "g1_bucket_fixup"],
+                   exact={"jadd_bucket_total": 2 * W20, "seg_prefix": 2 * W20, "g1_add": 0})
     # base 1 (tau G) and k_1 gave way to base 0 (G) and k_0
     if affine_of(got) != times_g(s_tau - ks[1] * DEV_TAU + ks[0]):
         raise AssertionError(f"msm_affine(2^{LOG_N}) with base 1 = base 0 is wrong after the rerun")
@@ -870,9 +938,15 @@ def main() -> int:
     report.update(msm_s=times, msm_points_per_s=N / med)
 
     # -- 6. output ------------------------------------------------------------------
-    unused = [k["name"] for k in kernels if not any(k["launches_per_path"].values())]
+    launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
+    unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:
         raise AssertionError(f"kernels launched on no path: {unused}")
+    found = [k for k in NO_PATH_YET if launched[k]]
+    if found:
+        raise AssertionError(f"kernels of NO_PATH_YET launched on a path: {found}")
+    for k, caller in NO_PATH_YET.items():
+        log(f"{k}: launched on no path yet (next caller: {caller})")
     for kern in kernels:
         del kern["counter"]
         kern["launches"] = sum(kern["launches_per_path"].values())

@@ -123,8 +123,10 @@ def entry(lib_name: str, symbol: str, n_ptrs: int, n_ints: int):
 
 
 def launch(fn, tensors, sizes, device: torch.device) -> None:
+    """Call ``fn`` on the tensors' device pointers (None passes a null
+    pointer), the sizes and the current stream; raise on a CUDA error."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*[t.data_ptr() for t in tensors], *sizes, stream)
+    err = fn(*[None if t is None else t.data_ptr() for t in tensors], *sizes, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
 

@@ -15,13 +15,13 @@ Per c-bit signed window, high to low (Horner):
      where a bucket's run starts in an earlier chain (kernel B2's
      ``bucket_fixup``, one launch)
   6. T_w = sum_b b S_b: (suffix of suffix)[1] per batch (kernel B3), or, for
-     a single MSM with B >= 2^11 buckets, two chunked Jacobian scans
-     (kernel B7, ``_weighted_bucket_total``, and two B2 adds)
+     a single MSM with B >= 2^11 buckets, kernel B7 (``_weighted_bucket_total``:
+     the suffix scan and its total in one launch)
   7. acc = 2^c acc + T_w (kernel B2's ``horner``, one launch)
 
 ``msm_affine`` runs the fast engine above SERIAL_MAX_N and reruns the
 complete one when its exception flag is set. The group and the scans are
-injectable (``group``/``scan_fn``/``jadd_scan``) so the combinatorics are
+injectable (``group``/``scan_fn``) so the combinatorics are
 testable with a cheap mock group on the CPU; the G1 group runs the kernels on
 the card and their plain versions on the CPU.
 
@@ -58,6 +58,9 @@ class GroupOps:
     # sums in one call (``_bucket_sums``); groups without it gather, add and
     # select
     bucket_fixup: Callable[..., Any] | None = None
+    # a window's bucket sums -> T_w = sum_{b>=1} b S_b, width 1, in one call
+    # (``_weighted_bucket_total``); groups without it scan and sum
+    bucket_total: Callable[[Any], Any] | None = None
 
 
 def _default_seg_combine(group: GroupOps):
@@ -73,8 +76,8 @@ def _default_seg_combine(group: GroupOps):
 
 def g1_group(device) -> GroupOps:
     """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add, horner,
-    bucket_fixup) and B3 (seg_prefix) on the card, their plain versions on
-    the CPU."""
+    bucket_fixup), B3 (seg_prefix) and B7 (bucket_total) on the card, their
+    plain versions on the CPU."""
 
     def coords(p):
         return (p.x, p.y, p.z)
@@ -94,8 +97,12 @@ def g1_group(device) -> GroupOps:
     def bucket_fixup(*args):
         return coords(g1_kernels.bucket_fixup(*args))
 
+    def bucket_total(sums):
+        return msm_kernels.bucket_total(*sums)
+
     return GroupOps(identity=identity, add=add, select=select,
-                    seg_prefix=g1_kernels.seg_prefix, horner=horner, bucket_fixup=bucket_fixup)
+                    seg_prefix=g1_kernels.seg_prefix, horner=horner, bucket_fixup=bucket_fixup,
+                    bucket_total=bucket_total)
 
 
 # --------------------------------------------------------------------------
@@ -245,59 +252,19 @@ def chain_layout(x, ycat, packed, src, batch_off=None):
     return keys, xs, ys, head[src_flat].reshape(m, K)
 
 
-def _weighted_bucket_total(sums, group: GroupOps, seg, B: int, jadd_scan=None):
-    """T_w = sum_{b>=1} b S_b over Jacobian bucket sums (3 x (L, B)) by two
-    chunked inclusive scans (kernel B7) and a masked total: ~2B group adds
-    instead of the 2 B log B of the double Hillis-Steele suffix scans.
-
-    T_w = sum_{b>=1} suffix_b with suffix_b = sum_{i>=b} S_i. Scan 1 gives
-    every suffix_b (a scan of the reversed sums); scan 2 totals suffix_1 ..
-    suffix_{B-1} (bucket 0 and the padding masked to the identity). The
-    positions are laid out as B7's virtual chains (chain l owns [l mv,
-    (l+1) mv)); the cross-chain carries come from a Hillis-Steele pass over
-    the KV chain finals and are folded in with one full-width add.
-    ``jadd_scan`` replaces B7 (the tests pass a mock)."""
-    if jadd_scan is None:
-        jadd_scan = msm_kernels.jadd_scan
-    Kb, Cb = msm_kernels.JADD_LANES, msm_kernels.JADD_CHUNK
-    KV = Kb * Cb
-    mv = -(-B // KV)
-    Bp = KV * mv
-    m = mv * Cb
-    device = sums[0].device
-    identB = group.identity(Bp)
-    pad = tuple(torch.cat([t.flip(-1), identB[i][..., :Bp - B]], dim=-1)
-                for i, t in enumerate(sums))  # reversed, identity padding
-
-    pos = torch.arange(Bp, device=device)
-    # flat (j, k) with j = i Cb + r holds chain (r, k)'s element i
-    j_grid, k_grid = pos // Kb, pos % Kb
-    src = ((j_grid % Cb) * Kb + k_grid) * mv + j_grid // Cb
-    inv = torch.empty_like(src)
-    inv[src] = pos
-    chain_idx = (j_grid % Cb) * Kb + k_grid  # position (j, k) lies in chain (j % Cb) Kb + k
-    zero_flag = torch.zeros((1, KV), dtype=torch.int32, device=device)
-    ident1 = group.identity(1)
-
-    def chunked_scan_total(vals):
-        """-> (inclusive scan values (.., Bp) in the original position
-        order, grand total (.., 1))."""
-        s = jadd_scan(*(t[:, src].reshape(t.shape[0], m, Kb) for t in vals), Kb, Cb)
-        finals = tuple(t[:, -Cb:, :].reshape(t.shape[0], KV) for t in s)
-        summ = _hillis_steele_prefix(seg, group, (zero_flag,) + finals, KV, 3)
-        carry = tuple(torch.cat([ident1[i], summ[1 + i][..., :-1]], dim=-1)
-                      for i in range(3))  # carry INTO chain l
-        flat = tuple(t.reshape(t.shape[0], m * Kb) for t in s)
-        fixed = group.add(flat, tuple(t[:, chain_idx] for t in carry))
-        total = tuple(t[..., -1:] for t in summ[1:])
-        return tuple(t[:, inv] for t in fixed), total
-
-    suffix_rev, _ = chunked_scan_total(pad)
-    # suffix_rev[p] = suffix_{B-1-p} for p < B: mask p >= B-1 (bucket 0 and
-    # the padding) to the identity, then total the rest
-    live = pos < (B - 1)
-    _, total = chunked_scan_total(group.select(live, suffix_rev, identB))
-    return total
+def _weighted_bucket_total(sums, group: GroupOps, seg, B: int):
+    """T_w = sum_{b>=1} b S_b over a window's bucket sums (3 x (L, B)) as the
+    total of the suffixes suffix_b = sum_{i>=b} S_i, b >= 1: one
+    ``group.bucket_total`` call (G1: kernel B7, one launch), or, for groups
+    without it, the same steps as B7's plain version: the inclusive
+    Hillis-Steele scan of the live buckets B-1..1 reversed (``seg``, no
+    heads), then a tree sum of the suffixes."""
+    if group.bucket_total is not None:
+        return group.bucket_total(sums)
+    rev = tuple(t[..., 1:B].flip(-1) for t in sums)
+    flags = torch.zeros((1, B - 1), dtype=torch.int32, device=sums[0].device)
+    suffix = _hillis_steele_prefix(seg, group, (flags,) + rev, B - 1, len(sums))[1:]
+    return msm_kernels.tree_sum(suffix, group.add, group.identity)
 
 
 def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
@@ -389,9 +356,9 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
         live = nonempty & ((bucket_ids % B > 0) if nbatch > 1 else (bucket_ids > 0))
         sums = _bucket_sums(group, (sx, sy, sz), flat, carry_in, chain_of, needs_carry, live)
 
-        # T_w = sum_{b>=1} b S_b. The chunked scans (B7) do ~2B adds against
-        # the double Hillis-Steele's 2 B log B, but carry a fixed cross-chain
-        # cost of ~2 log(KV) KV adds: a loss below B ~ 2^11.
+        # T_w = sum_{b>=1} b S_b: B7 in one launch (~2B adds) for the single
+        # MSM's wide windows, the double Hillis-Steele (2 B log B adds, per
+        # batch) below B = 2^11 and for multi-MSMs.
         if weighted_total:
             t_w = _weighted_bucket_total(sums, group, seg, B)
         else:

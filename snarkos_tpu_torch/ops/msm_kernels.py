@@ -1,9 +1,10 @@
 """The MSM's scan kernels, the port of ``snarkos_tpu/ops/msm_pallas.py``:
 B4 the serial-chain bucket scan, B5 the wide-chain bucket scan, B6 its fast
-variant with the incomplete add and an exception flag, B7 the Jacobian scan
-of the bucket total.
+variant with the incomplete add and an exception flag, B7 the weighted
+bucket total of a window (the Jacobian scans of the TPU design and their
+glue in one kernel).
 
-Wide-chain layout (B5-B7): a (L, m, K) tensor holds KV = chunk * K
+Wide-chain layout (B5, B6): a (L, m, K) tensor holds KV = chunk * K
 independent virtual chains of mv = m / chunk elements; chain l = r * K + k
 (r < chunk) owns the contiguous sorted run [l * mv, (l + 1) * mv), and its
 element i sits at row j = i * chunk + r, column k. Each plain version walks
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from snarkos_tpu_torch.ops import _build, g1
+from snarkos_tpu_torch.ops import _build, g1, g1_kernels
 from snarkos_tpu_torch.ops import modarith as fa
 from snarkos_tpu_torch.ops.fieldspec import FQ
 
@@ -35,9 +36,9 @@ FAST_TEAM = 8
 SCAN_TEAM = 16
 LANES = 512
 CHUNK = 8
-# the bucket total's Jacobian scan (B7) layout
-JADD_LANES = 128
-JADD_CHUNK = 8
+# B7's threads a block and buckets a thread (PERF.md has the sweep)
+BUCKET_THREADS = 128
+BUCKET_PER_THREAD = 1
 
 
 def _check_layout(name, xs, lanes, chunk):
@@ -239,44 +240,75 @@ def bucket_scan_fast(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
     return bucket_scan_fast_kernel(*_contig(xs, ys, flags, nonzero), chunk)
 
 
-# -- B7: wide chains, complete Jacobian add, no segments ----------------------------
+# -- B7: the weighted bucket total of a window ---------------------------------------
 
-def jadd_scan_plain(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, chunk: int):
-    """Plain PyTorch version of B7: inclusive scan of Jacobian points over
-    chunk * K virtual chains with the complete add, from the identity."""
-    L, m, K = xs.shape
-    mv, kv = m // chunk, chunk * K
-    pts = [t.reshape(L, mv, kv) for t in (xs, ys, zs)]
-    acc = _zeros(kv, xs.device)
-    rows = []
-    for i in range(mv):
-        acc = g1.add(acc, g1.JacobianPoints(*(t[:, i] for t in pts)))
-        rows.append(acc)
-    return _stack(rows, (L, m, K))
-
-
-def jadd_scan_kernel(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, chunk: int):
-    L, m, K = xs.shape
-    for t, what in zip((xs, ys, zs), "xyz"):
-        _build.check(t, (_L, m, K), f"jadd_scan {what}s")
-    out = [torch.empty_like(xs) for _ in range(3)]
-    if m and K:
-        fn = _build.entry("jadd_scan", "jadd_scan", 6, 3)
-        _build.launch(fn, (xs, ys, zs, *out), (m, K, chunk), xs.device)
-        jadd_scan_kernel.launches += 1
-    return tuple(out)
+def tree_sum(vals, add, identity):
+    """The sum over the trailing axis of a tuple of (.., w) tensors: the
+    identity pads w to a power of two, then ceil(log2 w) rounds of ``add``
+    halve it (``add`` and ``identity(n)`` a group's, on such tuples)."""
+    w = vals[0].shape[-1]
+    width = 1 << max(w - 1, 0).bit_length()
+    cur = tuple(torch.cat([t, p], dim=-1) for t, p in zip(vals, identity(width - w)))
+    while width > 1:
+        width //= 2
+        cur = add(tuple(t[..., :width] for t in cur), tuple(t[..., width:] for t in cur))
+    return tuple(cur)
 
 
-jadd_scan_kernel.launches = 0
+def _g1_add(a, b):
+    out = g1.add(g1.JacobianPoints(*a), g1.JacobianPoints(*b))
+    return (out.x, out.y, out.z)
 
 
-def jadd_scan(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor,
-              lanes: int = JADD_LANES, chunk: int = JADD_CHUNK):
-    """Inclusive scan of (L, m, K) Jacobian points over chunk * K virtual
-    chains (``bucket_scan``'s layout). Returns the per-position scan values,
-    three (L, m, K) tensors. Kernel B7 on a CUDA tensor, the plain version on
-    a CPU tensor."""
-    _check_layout("jadd_scan", xs, lanes, chunk)
-    if xs.device.type == "cpu":
-        return jadd_scan_plain(xs, ys, zs, chunk)
-    return jadd_scan_kernel(*_contig(xs, ys, zs), chunk)
+def bucket_total_plain(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
+    """Plain PyTorch version of B7 over (L, B) bucket sums S_0..S_{B-1}:
+    the live buckets B-1..1 reversed, their inclusive Hillis-Steele scan at
+    full width (``seg_prefix_plain`` with no heads) gives the suffixes
+    suffix_b = sum_{i>=b} S_i, and a tree sum of those gives T_w =
+    sum_{b>=1} b S_b. Returns (T_w, three (L, 1); suffixes, three (L, B),
+    the identity at position 0)."""
+    L, B = x.shape
+    rev = tuple(t[:, 1:].flip(-1) for t in (x, y, z))
+    flags = torch.zeros((1, B - 1), dtype=torch.int32, device=x.device)
+    scan = g1_kernels.seg_prefix_plain((flags,) + rev)[1:]
+    suffix = tuple(torch.cat([torch.zeros((L, 1), dtype=t.dtype, device=t.device), t.flip(-1)],
+                             dim=-1) for t in scan)
+    return tree_sum(suffix, _g1_add, lambda n: tuple(
+        torch.zeros((L, n), dtype=torch.int32, device=x.device) for _ in range(3))), suffix
+
+
+def bucket_total_kernel(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                        threads: int = BUCKET_THREADS, per_thread: int = BUCKET_PER_THREAD,
+                        scan_out: bool = False):
+    """One cooperative launch of ``csrc/jadd_scan.cu`` (blocks of
+    ``threads``, ``per_thread`` buckets a thread, more where the co-resident
+    blocks need it). Returns T_w, three (L, 1); with ``scan_out`` also the
+    suffixes, three (L, B), as ``bucket_total_plain``. Its values are other
+    Jacobian representatives of the plain version's points."""
+    B = x.shape[-1]
+    for t, what in zip((x, y, z), "xyz"):
+        _build.check(t, (_L, B), f"bucket_total {what}")
+    out = tuple(torch.empty((_L, 1), dtype=torch.int32, device=x.device) for _ in range(3))
+    suffix = tuple(torch.empty_like(x) for _ in range(3)) if scan_out else (None,) * 3
+    blocks = -(-(B - 1) // (threads * per_thread))
+    scratch = torch.empty(2 * 36 * blocks, dtype=torch.int32, device=x.device)
+    fn = _build.entry("jadd_scan", "jadd_bucket_total", 10, 3)
+    _build.launch(fn, (x, y, z, *out, *suffix, scratch), (B, threads, per_thread), x.device)
+    bucket_total_kernel.launches += 1
+    return (out, suffix) if scan_out else out
+
+
+bucket_total_kernel.launches = 0
+
+
+def bucket_total(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
+    """T_w = sum_{b>=1} b S_b of a window's bucket sums x, y, z ((L, B)
+    Jacobian Montgomery limbs; identities anywhere). Returns three (L, 1)
+    tensors: kernel B7 on a CUDA tensor, the plain version on a CPU tensor
+    (other Jacobian representatives of the same point)."""
+    if x.dim() != 2 or not x.shape == y.shape == z.shape:
+        raise ValueError(f"bucket_total: shapes {tuple(x.shape)}, {tuple(y.shape)}, "
+                         f"{tuple(z.shape)}; want three (L, B)")
+    if x.device.type == "cpu":
+        return bucket_total_plain(x, y, z)[0]
+    return bucket_total_kernel(*_contig(x, y, z))

@@ -304,11 +304,15 @@ _PUZZLE: Puzzle | None = None
 
 
 def global_puzzle(log_degree: int | None = None, device=None) -> Puzzle:
-    """Process-wide puzzle instance (SRS built once)."""
+    """Process-wide puzzle instance (SRS built once), kept for one (log
+    degree, device) at a time: a call for another log degree or another
+    device builds a new one. ``log_degree`` None takes the cached one's, else
+    SNARKOS_TPU_PUZZLE_LOG_DEGREE; ``device`` None means the card."""
     global _PUZZLE
+    dev = _build.resolve_device(device)
     want = log_degree if log_degree is not None else (
         _PUZZLE.log_degree if _PUZZLE else int(os.environ.get(
             "SNARKOS_TPU_PUZZLE_LOG_DEGREE", DEFAULT_LOG_DEGREE)))
-    if _PUZZLE is None or _PUZZLE.log_degree != want:
-        _PUZZLE = Puzzle(want, device)
+    if _PUZZLE is None or (_PUZZLE.log_degree, _PUZZLE.device) != (want, dev):
+        _PUZZLE = Puzzle(want, dev)
     return _PUZZLE

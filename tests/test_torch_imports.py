@@ -76,6 +76,25 @@ def test_entry_points_refuse_without_card():
     assert _build.resolve_device("cpu").type == "cpu"
 
 
+def test_global_puzzle_keys_the_device(monkeypatch):
+    """The cached puzzle is handed out only for its own log degree and
+    device: a CPU instance never answers a call for the card."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import types
+
+    from snarkos_tpu_torch.ops import puzzle
+
+    stub = types.SimpleNamespace(log_degree=3, device=torch.device("cpu"))
+    monkeypatch.setattr(puzzle, "_PUZZLE", stub)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        puzzle.global_puzzle(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        puzzle.global_puzzle()
+    assert puzzle.global_puzzle(3, "cpu") is stub
+    assert puzzle.global_puzzle(device="cpu") is stub
+
+
 def test_kernel_wrappers_reject_cpu_tensors():
     """The launchers take only what their kernels take; they never run the
     plain version."""
@@ -118,9 +137,10 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         msm_kernels.bucket_scan_fast_kernel(xs, xs, fl, fl, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        msm_kernels.jadd_scan_kernel(xs, xs, xs, 2)
+        msm_kernels.bucket_total_kernel(p.x, p.y, p.z)
     assert fa.mont_mul_kernel.launches == 0
     assert poseidon.permute_kernel.launches == puzzle.epoch_step_kernel.launches == 0
     assert g1_kernels.seg_prefix_kernel.launches == 0
     assert g1_kernels.horner_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
     assert msm_kernels.bucket_scan_fast_kernel.launches == 0
+    assert msm_kernels.bucket_total_kernel.launches == 0

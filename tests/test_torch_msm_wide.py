@@ -1,10 +1,11 @@
 """The port's wide-chain MSM engine on the CPU: the plain versions of kernels
-B5 (bucket_scan), B6 (bucket_scan_fast) and B7 (jadd_scan) and
-g1.madd_incomplete against the host reference, the chunked bucket total
-against the JAX package's under a mock scan, and the fast single MSM with
-and without an exception. The slow tier holds the plain versions limb for
-limb against the JAX kernels (Pallas interpret mode)."""
+B5 (bucket_scan), B6 (bucket_scan_fast) and B7 (bucket_total, the weighted
+bucket total) and g1.madd_incomplete against the host reference, the
+bucket total of a group without B7 against the JAX package's under a mock
+scan, and the fast single MSM with and without an exception. The slow tier
+holds the plain versions against the JAX kernels' bodies."""
 
+import dataclasses
 import random
 
 import jax.numpy as jnp
@@ -132,30 +133,33 @@ def test_madd_incomplete_matches_reference():
 
 
 def test_jadd_scan_plain_matches_reference():
-    """Jacobian inputs with identities (Z = 0, arbitrary X and Y), P == Q and
-    P == -Q inside chains, at (24, 6, 3) with chunk 2."""
+    """Kernel B7 (the TPU's ``jadd_scan`` row, now the whole weighted bucket
+    total) through its CPU route ``bucket_total``: Jacobian bucket sums with
+    identities (Z = 0, arbitrary X and Y), S_b == S_{b+1} and S_b == -S_{b+1},
+    at B = 6: T_w == sum_b b S_b, and every suffix of the plain version."""
     rng = random.Random(8)
-    pts = [[ref.from_affine(_point(rng)) for _ in range(MV)] for _ in range(KV)]
-    pts[0][1] = pts[0][0]
-    pts[1][1] = ref.neg(pts[1][0])
-    pts[2][0] = ref.INFINITY
-    pts[3][1] = (rng.randrange(Q), rng.randrange(Q), 0)
-    pts[4] = [ref.INFINITY] * MV
-    grid = [[None] * K_ for _ in range(M)]
-    for l in range(KV):
-        for i in range(MV):
-            j, k = _pos(i, l, CHUNK, K_)
-            lam = rng.randrange(1, Q)  # another representative of the same point
-            x, y, z = pts[l][i]
-            grid[j][k] = (x * lam * lam % Q, y * lam ** 3 % Q, z * lam % Q)
-    coords = [_layout([[grid[j][k][c] for k in range(K_)] for j in range(M)], M, K_)
-              for c in range(3)]
-    out = msm_kernels.jadd_scan(*coords, lanes=K_, chunk=CHUNK)
-    for l in range(KV):
-        acc = ref.INFINITY
-        for i in range(MV):
-            acc = ref.add(acc, pts[l][i])
-            assert ref.affine(_value(out, *_pos(i, l, CHUNK, K_))) == ref.affine(acc), (l, i)
+    pts = [ref.from_affine(_point(rng)) for _ in range(6)]
+    pts[2] = pts[3]
+    pts[4] = ref.neg(pts[5])
+    pts[1] = (rng.randrange(Q), rng.randrange(Q), 0)
+    pts[0] = ref.INFINITY
+    reps = []
+    for x, y, z in pts:
+        lam = rng.randrange(1, Q)  # another representative of the same point
+        reps.append((x * lam * lam % Q, y * lam ** 3 % Q, z * lam % Q))
+    enc = g1.encode_points(reps)
+    total = msm_kernels.bucket_total(enc.x, enc.y, enc.z)
+    want = ref.INFINITY
+    for b, p in enumerate(pts):
+        want = ref.add(want, ref.scalar_mul(b, p)) if p[2] else want
+    assert ref.affine(g1.decode_points(g1.JacobianPoints(*total))[0]) == ref.affine(want)
+    _, suffix = msm_kernels.bucket_total_plain(enc.x, enc.y, enc.z)
+    got = g1.decode_points(g1.JacobianPoints(*suffix))
+    acc = ref.INFINITY
+    for b in range(5, 0, -1):
+        acc = ref.add(acc, pts[b])
+        assert ref.affine(got[b]) == ref.affine(acc), b
+    assert got[0][2] == 0
 
 
 def test_scan_wrappers_check_the_layout():
@@ -165,11 +169,13 @@ def test_scan_wrappers_check_the_layout():
         msm_kernels.bucket_scan(xs, xs, fl, lanes=4, chunk=2)
     with pytest.raises(ValueError, match="chunk"):
         msm_kernels.bucket_scan_fast(xs, xs, fl, fl, lanes=3, chunk=4)
-    with pytest.raises(ValueError, match="chunk"):
-        msm_kernels.jadd_scan(xs, xs, xs, lanes=3, chunk=4)
+    with pytest.raises(ValueError, match="shapes"):
+        msm_kernels.bucket_total(xs, xs, xs)
+    with pytest.raises(ValueError, match="shapes"):
+        msm_kernels.bucket_total(xs[:, 0], xs[:, 0], xs[:, 1, :2])
 
 
-# -- the chunked bucket total (B7's caller) ------------------------------------------
+# -- the weighted bucket total (B7's caller) ------------------------------------------
 
 
 def _mock3_group():
@@ -185,24 +191,9 @@ def _mock3_group():
     return msm.GroupOps(identity=identity, add=add, select=select)
 
 
-def _mock_jadd_scan(xs, ys, zs, lanes, chunk):
-    L, m, K = xs.shape
-    mv = m // chunk
-    outs = []
-    for v in (xs, ys, zs):
-        vv = v.reshape(L, mv, chunk, K).long()
-        carry = torch.zeros((L, chunk, K), dtype=torch.int64)
-        rows = []
-        for i in range(mv):
-            carry = (carry + vv[:, i]) % MOCK_MOD
-            rows.append(carry)
-        outs.append(torch.stack(rows, dim=1).reshape(L, m, K).to(torch.int32))
-    return tuple(outs)
-
-
 def _jax_mock_jadd_scan(xs, ys, zs, lanes, chunk):
-    """The same mock scan in jnp (int32: a sum of two residues stays below
-    2^31)."""
+    """A mock of the JAX package's B7 (its per-chain scan) in jnp (int32: a
+    sum of two residues stays below 2^31)."""
     L, m, K = xs.shape
     mv = m // chunk
     outs = []
@@ -235,25 +226,35 @@ def _jax_mock3_group():
 
 @pytest.mark.parametrize("B", [(1 << 11) + 1, 37])
 def test_weighted_bucket_total_mock_matches_jax(B, monkeypatch):
-    """The virtual-chain src/inv permutations, the carries and the masked
-    second total, at the production threshold shape (B = 2^11 + 1, three
-    chains' worth of padding) and at one partial chain row, under a mock
-    jadd_scan: equal to sum_b b S_b and to the JAX package's result."""
+    """The port's bucket total for a group without B7 (the suffix scan of
+    the live buckets and its tree sum over the group's own add) against the
+    JAX package's chunked scans under a mock jadd_scan, at the production
+    threshold shape (B = 2^11 + 1) and at B = 37: both equal sum_b b S_b."""
     from snarkos_tpu.ops import msm_pallas
 
     rng = random.Random(B)
     comps = [[rng.randrange(MOCK_MOD) for _ in range(B)] for _ in range(3)]
     group = _mock3_group()
     sums = tuple(torch.tensor(c, dtype=torch.int32).reshape(1, B) for c in comps)
-    total = msm._weighted_bucket_total(sums, group, msm._default_seg_combine(group), B,
-                                       jadd_scan=_mock_jadd_scan)
+    total = msm._weighted_bucket_total(sums, group, msm._default_seg_combine(group), B)
     monkeypatch.setattr(msm_pallas, "jadd_scan", _jax_mock_jadd_scan)
     jgroup = _jax_mock3_group()
     want = jmsm._weighted_bucket_total(tuple(jnp.asarray(t.numpy()) for t in sums), jgroup,
                                        jmsm._default_seg_combine(jgroup), B)
     for i in range(3):
         expect = sum(b * v for b, v in enumerate(comps[i]) if b >= 1) % MOCK_MOD
+        assert tuple(total[i].shape) == (1, 1)
         assert int(total[i][0, 0]) == expect == int(np.asarray(want[i])[0, 0]), i
+
+
+def test_weighted_bucket_total_routes_to_bucket_total():
+    """The G1 group hands the window's sums to B7's route in one call."""
+    seen = []
+    group = dataclasses.replace(msm.g1_group("cpu"),
+                                bucket_total=lambda sums: seen.append(sums) or 7)
+    sums = tuple(torch.zeros((24, 5), dtype=torch.int32) for _ in range(3))
+    assert msm._weighted_bucket_total(sums, group, None, 5) == 7 and seen == [sums]
+    assert msm.g1_group("cpu").bucket_total is not None
 
 
 # -- the fast single MSM ------------------------------------------------------------
@@ -398,25 +399,11 @@ def test_scans_limb_exact_against_jax():
     for g, w in zip(got[:3], want):
         np.testing.assert_array_equal(g.numpy(), w)
 
-    # B7 on B6's outputs (Jacobian, one identity input); add_impl's
-    # pass-through of an identity carry is the kernel's (no head flags)
-    zs = got[2].clone()
-    zs[:, 1, 1] = 0
-    jx, jy, jz = (jnp.asarray(t.numpy()).reshape(24, 2, 8) for t in (got[0], got[1], zs))
-    carry = jg1.JacobianPoints(*(jnp.zeros((24, 8), jnp.int32) for _ in range(3)))
-    rows = []
-    for i in range(2):
-        carry = jg1.add(carry, jg1.JacobianPoints(jx[:, i], jy[:, i], jz[:, i]))
-        rows.append(carry)
-    got7 = msm_kernels.jadd_scan(got[0], got[1], zs, lanes=4, chunk=2)
-    for g, c in zip(got7, "xyz"):
-        w = np.stack([np.asarray(getattr(r, c)) for r in rows], axis=1).reshape(24, 4, 4)
-        np.testing.assert_array_equal(g.numpy(), w)
-
     # g1.madd_incomplete on P == Q, P == -Q and Jacobian P lanes
     p = g1.JacobianPoints(xs[:, 0, :].clone(), ys[:, 0, :].clone(),
                           fa.broadcast_const(FQ, 1, (4,)).clone())
-    p.x[:, 2:], p.y[:, 2:], p.z[:, 2:] = got7[0][:, 3, 2:], got7[1][:, 3, 2:], got7[2][:, 3, 2:]
+    jac = g1.add(*(g1.JacobianPoints(*(t[:, row, :] for t in got[:3])) for row in (0, 1)))
+    p.x[:, 2:], p.y[:, 2:], p.z[:, 2:] = jac.x[:, 2:], jac.y[:, 2:], jac.z[:, 2:]
     qx, qy = xs[:, 2, :], ys[:, 2, :]
     out, exc = g1.madd_incomplete(p, qx, qy)
     wp, wexc = madd_incomplete(jg1.JacobianPoints(*(jnp.asarray(t.numpy()) for t in (
@@ -425,3 +412,44 @@ def test_scans_limb_exact_against_jax():
     np.testing.assert_array_equal(exc.numpy(), np.asarray(wexc))
     for c in "xyz":
         np.testing.assert_array_equal(getattr(out, c).numpy(), np.asarray(getattr(wp, c)))
+
+
+@pytest.mark.slow
+def test_bucket_total_same_points_as_jax(monkeypatch):
+    """B7's plain version against the JAX package's ``_weighted_bucket_total``
+    with its G1 group at B = 37, identities and P == +-Q planted; the JAX
+    chunked scan runs as its kernel's body (jitted ``add_impl`` per grid
+    step), since Pallas interpret mode does not fit here. XLA:CPU compiles
+    the G1 add at width 1024."""
+    import jax
+
+    from snarkos_tpu.ops import g1 as jg1
+    from snarkos_tpu.ops import msm_pallas
+
+    add_impl = jax.jit(jg1.add_impl)
+
+    def jadd_scan_body(xs, ys, zs, lanes, chunk):
+        L, m, K = xs.shape
+        mv = m // chunk
+        v = [t.reshape(L, mv, chunk * K) for t in (xs, ys, zs)]
+        carry = jg1.JacobianPoints(*(jnp.zeros((L, chunk * K), jnp.int32) for _ in range(3)))
+        rows = []
+        for i in range(mv):
+            carry = add_impl(carry, jg1.JacobianPoints(*(t[:, i] for t in v)))
+            rows.append(carry)
+        return tuple(jnp.stack([getattr(r, c) for r in rows], axis=1).reshape(L, m, K)
+                     for c in "xyz")
+
+    rng = random.Random(37)
+    B = 37
+    pts = [ref.from_affine(_point(rng)) for _ in range(B)]
+    pts[3], pts[5], pts[0] = pts[4], ref.neg(pts[6]), ref.INFINITY
+    pts[20] = (rng.randrange(Q), rng.randrange(Q), 0)
+    enc = g1.encode_points(pts)
+    got, _ = msm_kernels.bucket_total_plain(enc.x, enc.y, enc.z)
+    monkeypatch.setattr(msm_pallas, "jadd_scan", jadd_scan_body)
+    jgroup = jmsm._g1_group(use_pallas=False)
+    want = jmsm._weighted_bucket_total(tuple(jnp.asarray(t.numpy()) for t in (enc.x, enc.y, enc.z)),
+                                       jgroup, jmsm._default_seg_combine(jgroup), B)
+    want = g1.JacobianPoints(*(torch.from_numpy(np.asarray(t)) for t in want))
+    assert bool(g1.same_points(g1.JacobianPoints(*got), want).all())
