@@ -43,10 +43,29 @@ result line:
      and the complete engine (B5) reruns; points/s (median of 3 timed calls).
      A call launches B7 and B3 once a window and B2's g1_add never (twice
      a window each on the rerun).
-  6. one JSON line with every kernel's numbers, then the result line.
+  6. the generic engine: msm.msm over the first 2^16 dev SRS powers, each
+     rescaled to a random z, every 64th the identity, every 97th scalar 0:
+     the result equals (sum k_i tau^i) G over the non-identity lanes, and a
+     call launches B2's g1_add 2 m W times (m = 16 steps a lane, W = 20
+     windows), B3, B7 and g1_horner W times each, and no B4-B6; points/s
+     (median of 3).
+  7. the verifier: check_binding's B1 launches; Puzzle.verify_batch over the
+     first 4 solutions of phase 3 and verify of each accept, eval_y + 1 and
+     swapped witnesses reject, check_structural refuses x >= q;
+     kzg.batch_verify over their openings runs on the fused engine (B4, no
+     g1_add), with a constant polynomial's opening (W the identity) on the
+     generic one (g1_add, no B4), both accept, and reject once that
+     opening's y changes. Times: verify_batch(4), its check_bindings,
+     batch_verify and the host pairing_check apart (medians of 3).
+  8. the SRS artifact: the degree-2^12 dev SRS saved with save_srs and
+     loaded by PuzzleSRS.from_artifact (the consistency check's MSMs on B4)
+     gives the same device points and tau H; a copy with one power changed
+     fails the consistency check.
+  9. one JSON line with every kernel's numbers, then the result line.
 Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
-must launch on some path, but those of NO_PATH_YET, which must not.
+must launch on some path, but those of NO_PATH_YET (none now), which must
+not.
 
 The script imports nothing of JAX or of the JAX package (snarkos_tpu).
 Details go to chiprun_out/chip_smoke.json.
@@ -74,7 +93,14 @@ TOTAL_SWEEP_WIDE = ((64, 1), (128, 1), (256, 1), (256, 2))
 # kernels that no path launches yet, with their next caller: held against
 # their plain versions, exempt from the "launched on no path" check, and a
 # failure if a path does launch them
-NO_PATH_YET = {"g1_add": "A2, the generic engine (msm_generic, non-affine bases)"}
+NO_PATH_YET = {}
+# the generic engine's MSM (phase 6): 2^16 Jacobian bases, c = 13, K = 4096
+# lanes of m = 16 steps, W = 20 windows
+LOG_GENERIC = 16
+GENERIC_C = 13
+GENERIC_K = 4096
+# the verifier (phase 7): a block's solutions, MAX_SOLUTIONS_PER_BLOCK
+VERIFY_BATCH = 4
 # B1's launches a prove_batch call (PERF.md): one permutation, the epoch
 # program's 12 steps, at most 80 single multiplies (KZG eval, conversions)
 PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_step": 12}
@@ -175,9 +201,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from snarkos_tpu_torch.crypto import params
-    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1
-    from snarkos_tpu_torch.ops import _build, g1, g1_kernels, msm, msm_kernels, poseidon
+    from snarkos_tpu_torch.crypto import params, srs_artifact
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg, pairing
+    from snarkos_tpu_torch.ops import _build, g1, g1_kernels, kzg, msm, msm_kernels, poseidon
     from snarkos_tpu_torch.ops import modarith as fa
     from snarkos_tpu_torch.ops import puzzle as puzzle_mod
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
@@ -387,10 +413,10 @@ def main() -> int:
     def coords(p):
         return (p.x, p.y, p.z)
 
-    # B2's add (no path calls it now: NO_PATH_YET) at the widths where it ran:
-    # the old 2^20 bucket total's fold and the windows' widths
+    # B2's add at the generic engine's widths: K = 4096 lanes (2^16 bases),
+    # and 16 and 8 (batch_verify's padded MSMs with an identity base)
     b2 = []
-    for width in (9216, 264, 8):
+    for width in (GENERIC_K, 16, 8):
         pa, pb, ops = point_pairs(width)
         b2.append((f"(24, {width})",
                    lambda pa=pa, pb=pb: coords(g1_kernels.add_kernel(pa, pb)),
@@ -587,7 +613,10 @@ def main() -> int:
            prefix_case(msm_kernels.CHUNK * K16, chain_heads(fl16, msm_kernels.CHUNK)),
            prefix_case(BATCH_WIDE * B, batch_heads(BATCH_WIDE)),
            prefix_case(kv20, chain_heads(fl20, msm_kernels.CHUNK)),
-           prefix_case(K1, chain_heads(fl1, 1)), prefix_case(B, zeros(B))],
+           prefix_case(K1, chain_heads(fl1, 1)), prefix_case(B, zeros(B)),
+           prefix_case(GENERIC_K, torch.from_numpy((rng.random(GENERIC_K) < 0.05)
+                                                   .astype(np.int32)).to(dev)),
+           prefix_case(16, zeros(16))],
           g1_kernels.seg_prefix_kernel)
 
     # Edge steps for the wide scans B5 and B6 (element i of chain (r, k) a
@@ -755,6 +784,13 @@ def main() -> int:
                 lambda sums7=sums7, t=t, s_=s_: msm_kernels.bucket_total_kernel(
                     *sums7, threads=t, per_thread=s_, scan_out=True),
                 plain7, *total_bound(B7, n_fin7, True)) for t, s_ in sweep]
+    # the generic engine's B = 2^c: bucket 0 holds a point the total ignores
+    for B7 in (1 << GENERIC_C, 16):
+        sums7, n_fin7 = total_case(B7, ((msm_kernels.BUCKET_THREADS, 1),))
+        b7.append((f"(24, {B7}) generic",
+                   lambda sums7=sums7: msm_kernels.bucket_total_kernel(*sums7),
+                   lambda sums7=sums7: msm_kernels.bucket_total_plain(*sums7),
+                   *total_bound(B7, n_fin7, False)))
     ids7 = g1.encode_points([(prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
                              for _ in range((1 << 13) + 1)], dev)
     ids7 = (ids7.x, ids7.y, ids7.z)
@@ -937,7 +973,160 @@ def main() -> int:
         f"{N / med:.0f} points/s on {smi}")
     report.update(msm_s=times, msm_points_per_s=N / med)
 
-    # -- 6. output ------------------------------------------------------------------
+    # -- 6. the generic engine: 2^16 Jacobian bases (B2's add, B3, B7, B2's horner) ---
+    NG = 1 << LOG_GENERIC
+    gen_pts = [rescale(p) for p in srs.srs_ref.powers_g1[:NG]]  # z != 1
+    for i in range(0, NG, 64):  # every 64th an identity
+        gen_pts[i] = ref_g1.INFINITY
+    gen_scalars = FR.random(NG, np.random.default_rng(16))
+    gen_scalars[:, ::97] = 0
+    gen_base = g1.encode_points(gen_pts, dev)
+    gen_k = torch.from_numpy(gen_scalars).to(dev)
+    ks_g = FR.decode_fast(gen_scalars)
+    s_gen, tau_i = 0, 1  # sum over the non-identity lanes of k_i tau^i
+    for i, k in enumerate(ks_g):
+        if gen_pts[i][2]:
+            s_gen = (s_gen + k * tau_i) % r
+        tau_i = tau_i * DEV_TAU % r
+    if msm.default_window_bits(NG) != GENERIC_C:
+        raise AssertionError(f"default_window_bits(2^{LOG_GENERIC}) != {GENERIC_C}")
+    W_g = -(-msm.SCALAR_BITS // GENERIC_C)
+    m_g = NG // GENERIC_K
+    # a window: 2 passes of m steps of B2's add at width K, one B3 prefix of
+    # the lane aggregates, one B7 total of the 2^c buckets, one Horner step
+    got = run_path(f"msm(2^{LOG_GENERIC}, Jacobian bases)", lambda: msm.msm(gen_base, gen_k),
+                   ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
+                   absent=["bucket_scan_serial", "bucket_scan", "bucket_scan_fast"],
+                   exact={"g1_add": 2 * m_g * W_g, "seg_prefix": W_g,
+                          "jadd_bucket_total": W_g, "g1_horner": W_g, "g1_bucket_fixup": 0})
+    if affine_of(got) != times_g(s_gen):
+        raise AssertionError(f"msm(2^{LOG_GENERIC}) on Jacobian bases != "
+                             "(sum k_i tau^i) G over the non-identity lanes")
+    log(f"msm(2^{LOG_GENERIC}) on Jacobian bases (z != 1, every 64th an identity, every 97th "
+        f"scalar 0) == (sum k_i tau^i) G: generic engine, W = {W_g}, m = {m_g}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        msm.msm(gen_base, gen_k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"msm(2^{LOG_GENERIC}) generic: median {med:.3f} s of {[round(t, 3) for t in times]} "
+        f"-> {NG / med:.0f} points/s on {smi}")
+    report.update(generic_msm_s=times, generic_points_per_s=NG / med)
+
+    # -- 7. the verifier: a block's solutions ---------------------------------------
+    items = [(epoch, address, n, sol.commitment, sol.eval_y, sol.witness, 1)
+             for n, sol in zip(nonces[:VERIFY_BATCH], sols[:VERIFY_BATCH])]
+    b1_per_binding = dict(PATH_LAUNCHES)
+    ok = run_path("check_binding", lambda: puzzle.check_binding(*items[0][:5]),
+                  ["fr_poseidon_permute", "fr_epoch_step", "mont_mul"],
+                  absent=["g1_add", "bucket_scan_serial", "seg_prefix"],
+                  exact=b1_per_binding, at_most={"mont_mul": MONT_MUL_MAX})
+    if not ok:
+        raise AssertionError("check_binding rejected a solution of prove_batch")
+    ok = run_path(f"verify_batch({VERIFY_BATCH})", lambda: puzzle.verify_batch(items),
+                  ["fr_poseidon_permute", "fr_epoch_step", "bucket_scan_serial", "seg_prefix",
+                   "g1_bucket_fixup", "g1_horner"],
+                  absent=["g1_add", "bucket_scan", "bucket_scan_fast", "jadd_bucket_total"],
+                  exact={k: VERIFY_BATCH * v for k, v in b1_per_binding.items()})
+    if not ok:
+        raise AssertionError(f"verify_batch({VERIFY_BATCH}) rejected prove_batch's solutions")
+    for item in items:
+        if not puzzle.verify(*item):
+            raise AssertionError(f"verify rejected the solution of nonce {item[2]}")
+    log(f"verify_batch({VERIFY_BATCH}) and verify of each accept prove_batch's solutions")
+    bumped = items[:2] + [items[2][:4] + ((items[2][4] + 1) % r,) + items[2][5:]] + items[3:]
+    swapped = [items[0][:5] + (items[1][5], 1), items[1][:5] + (items[0][5], 1)] + items[2:]
+    if puzzle.verify_batch(bumped) or puzzle.verify_batch(swapped):
+        raise AssertionError("verify_batch accepted eval_y + 1 or swapped witnesses")
+    q = params.FQ_MODULUS
+    if puzzle.check_structural(q.to_bytes(48, "little") + items[0][3][48:], *items[0][4:7]) \
+            is not None:
+        raise AssertionError("check_structural accepted an x >= q encoding")
+    log("verify_batch rejects eval_y + 1 and swapped witnesses; check_structural rejects x >= q")
+
+    openings = [puzzle.check_structural(*it[3:7]) for it in items]
+    k_const = prng.randrange(1, r)
+    const = (ref_g1.scalar_mul(k_const, ref_g1.GENERATOR), prng.randrange(1, r), k_const,
+             ref_g1.INFINITY)  # p(X) = k: C = k G, W = the identity
+    srs_ref = puzzle.srs.srs_ref
+    fused_ok = run_path(f"batch_verify({VERIFY_BATCH} affine)",
+                        lambda: kzg.batch_verify(srs_ref, openings),
+                        ["bucket_scan_serial", "seg_prefix", "g1_horner"],
+                        absent=["g1_add", "jadd_bucket_total"])
+    gen_ok = run_path(f"batch_verify({VERIFY_BATCH} + identity witness)",
+                      lambda: kzg.batch_verify(srs_ref, openings + [const]),
+                      ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
+                      absent=["bucket_scan_serial", "g1_bucket_fixup"])
+    const_bad = (const[0], const[1], (const[2] + 1) % r, const[3])
+    if not (fused_ok and gen_ok) or kzg.batch_verify(srs_ref, openings + [const_bad]):
+        raise AssertionError("batch_verify: the fused or generic engine gave a wrong verdict")
+    log("batch_verify: the fused engine without the identity witness, the generic one with "
+        "it; both accept, and reject once the constant opening's y changes")
+
+    def med3(fn):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts), ts
+
+    gamma = pow(5, 8, r)
+    left, acc_w, g_i = ref_g1.INFINITY, ref_g1.INFINITY, 1
+    for c_pt, z, y, w_pt in openings:  # the two points batch_verify pairs
+        term = ref_g1.add(ref_g1.add(c_pt, ref_g1.neg(ref_g1.scalar_mul(y, ref_g1.GENERATOR))),
+                          ref_g1.scalar_mul(z, w_pt))
+        left = ref_g1.add(left, ref_g1.scalar_mul(g_i, term))
+        acc_w = ref_g1.add(acc_w, ref_g1.scalar_mul(g_i, w_pt))
+        g_i = g_i * gamma % r
+    pairs = [(ref_g1.affine(left), srs_ref.h), (ref_g1.affine(ref_g1.neg(acc_w)), srs_ref.tau_h)]
+    vb_s, vb_all = med3(lambda: puzzle.verify_batch(items))
+    bind_s, _ = med3(lambda: [puzzle.check_binding(*it[:5]) for it in items])
+    bv_s, _ = med3(lambda: kzg.batch_verify(srs_ref, openings))
+    pair_s, _ = med3(lambda: pairing.pairing_check(pairs))
+    log(f"verify_batch({VERIFY_BATCH}): median {vb_s:.3f} s of {[round(t, 3) for t in vb_all]} "
+        f"on {smi}; apart: {VERIFY_BATCH} check_binding {bind_s:.3f} s, batch_verify "
+        f"{bv_s:.3f} s, of which the host pairing_check {pair_s:.3f} s")
+    report.update(verify_batch4_s=vb_all, check_binding4_s=bind_s, batch_verify4_s=bv_s,
+                  pairing_check_s=pair_s)
+
+    # -- 8. the SRS artifact: save, load through the consistency check ---------------
+    art_dir = os.path.join(HERE, "build", "srs")
+    os.makedirs(art_dir, exist_ok=True)
+    art = os.path.join(art_dir, "dev12.srs")
+    digest = srs_artifact.save_srs(art, srs_ref)
+    t0 = time.perf_counter()
+    loaded = run_path("PuzzleSRS.from_artifact(2^12)",
+                      lambda: PuzzleSRS.from_artifact(art, digest, log_degree=12),
+                      ["bucket_scan_serial", "seg_prefix", "g1_horner", "g1_bucket_fixup"],
+                      absent=["g1_add", "jadd_bucket_total"])
+    art_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(
+        (loaded.points.x, loaded.points.y, loaded.points.z),
+        (puzzle.srs.points.x, puzzle.srs.points.y, puzzle.srs.points.z)))
+    if not same or loaded.srs_ref.tau_h != srs_ref.tau_h or loaded.is_dev:
+        raise AssertionError("from_artifact did not give the dev SRS's points and tau H")
+    evil = ref_kzg.SRS(powers_g1=list(srs_ref.powers_g1), h=srs_ref.h, tau_h=srs_ref.tau_h)
+    evil.powers_g1[5] = ref_g1.scalar_mul(prng.randrange(1, r), ref_g1.GENERATOR)
+    evil_path = os.path.join(art_dir, "evil12.srs")
+    srs_artifact.save_srs(evil_path, evil)
+    try:
+        PuzzleSRS.from_artifact(evil_path, log_degree=12)
+    except srs_artifact.SRSArtifactError as exc:
+        if "consistency" not in str(exc):
+            raise
+    else:
+        raise AssertionError("from_artifact accepted an artifact with power 5 changed")
+    for path in (art, evil_path):
+        os.remove(path)
+    log(f"PuzzleSRS.from_artifact(2^12) == the dev SRS (points, tau H), in {art_s:.3f} s; "
+        "an artifact with one power changed fails the consistency check")
+    report.update(from_artifact_s=art_s)
+
+    # -- 9. output ------------------------------------------------------------------
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:

@@ -4,7 +4,7 @@ The JAX package's ``PuzzleSRS.points`` coordinates and its ``EpochProgram``
 tensors are already in the port's layout (int32 16-bit limbs, Montgomery
 form with the same R), so conversion is a checked copy onto the device.
 Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
-its arrays.
+its arrays, and host values (``srs_ref.tau_h``) as Python ints.
 """
 
 from __future__ import annotations
@@ -12,9 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from snarkos_tpu_torch.crypto.ref import kzg as ref_kzg, pairing
 from snarkos_tpu_torch.ops import _build, g1
 from snarkos_tpu_torch.ops.fieldspec import FQ, FR
-from snarkos_tpu_torch.ops.puzzle import EPOCH_STEPS, EpochProgram, PuzzleSRS
+from snarkos_tpu_torch.ops.puzzle import DEV_TAU, EPOCH_STEPS, EpochProgram, PuzzleSRS
 
 
 def _limbs(arr, nlimbs: int, what: str, ndim: int = 2) -> np.ndarray:
@@ -38,10 +39,21 @@ def points(x, y, z, device=None) -> g1.JacobianPoints:
                                for a in arrs))
 
 
-def puzzle_srs(x, y, z, device=None) -> PuzzleSRS:
-    """The JAX package's ``PuzzleSRS.points`` (x, y, z) -> PuzzleSRS."""
+def puzzle_srs(x, y, z, tau_h=None, is_dev: bool = True, device=None) -> PuzzleSRS:
+    """The JAX package's ``PuzzleSRS`` -> PuzzleSRS: its ``points`` (x, y, z),
+    its ``srs_ref.tau_h`` (a pair of Fq2 int pairs; None: the dev SRS's,
+    DEV_TAU H) and ``is_dev``. The host powers are decoded from the points;
+    H is the G2 generator."""
     pts = points(x, y, z, device)
-    return PuzzleSRS(degree=pts.x.shape[1] - 1, points=pts)
+    if tau_h is None:
+        tau_h = pairing.g2_scalar_mul(DEV_TAU, pairing.G2_GENERATOR)
+    tau_h = tuple(tuple(int(v) for v in c) for c in tau_h)
+    if len(tau_h) != 2 or any(len(c) != 2 for c in tau_h) or not pairing.g2_on_curve(tau_h):
+        raise ValueError("tau_h: expected an affine G2 point ((x0, x1), (y0, y1))")
+    coords = [FQ.decode_fast(np.asarray(a), mont=True) for a in (x, y, z)]
+    powers = [(px, py, pz) for px, py, pz in zip(*coords)]
+    srs_ref = ref_kzg.SRS(powers_g1=powers, h=pairing.G2_GENERATOR, tau_h=tau_h)
+    return PuzzleSRS(degree=pts.x.shape[1] - 1, points=pts, srs_ref=srs_ref, is_dev=is_dev)
 
 
 def epoch_program(epoch_hash: bytes, perms, sels, consts, device=None) -> EpochProgram:

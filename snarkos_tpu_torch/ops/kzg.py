@@ -1,5 +1,5 @@
-"""KZG polynomial commitment, prover side (the port of the commit/open part
-of ``snarkos_tpu/ops/kzg.py``).
+"""KZG polynomial commitment on the device (the port of
+``snarkos_tpu/ops/kzg.py``).
 
 The opening uses the closed form of the synthetic-division quotient:
 
@@ -8,7 +8,9 @@ The opening uses the closed form of the synthetic-division quotient:
 so it runs as O(log n) full-width passes and one power table instead of a
 serial recurrence. The z = 0 corner (probability ~2^-253 under Fiat-Shamir)
 falls back to the trivial shift q_i = c_{i+1}. Commit and open witnesses are
-MSMs (ops/msm.py). Verification (pairings) is not ported yet.
+MSMs (ops/msm.py). ``batch_verify`` runs the point side of a random linear
+combination of openings as two device MSMs and the two pairings on the host
+(``crypto/ref/pairing.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from snarkos_tpu_torch.crypto import params
-from snarkos_tpu_torch.ops import g1, msm as msm_mod
+from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg, pairing
+from snarkos_tpu_torch.ops import _build, g1, msm as msm_mod
 from snarkos_tpu_torch.ops import modarith as fa
 from snarkos_tpu_torch.ops.fieldspec import FR
 from snarkos_tpu_torch.ops.ntt import geometric_powers
@@ -105,3 +108,49 @@ def open_at(points: g1.JacobianPoints, coeffs_mont: torch.Tensor, z: int):
     witness = commit((p - y) / (X - z))."""
     y, q = eval_and_quotient(coeffs_mont, z)
     return y, commit(points, q)
+
+
+def verify(srs_ref: ref_kzg.SRS, commitment, z: int, y: int, witness) -> bool:
+    """Single-opening pairing check on the host (2 pairings); commitment and
+    witness are reference Jacobian tuples. e(C - yG, H) == e(W, tauH - zH)."""
+    return ref_kzg.verify(srs_ref, commitment, z, y, witness)
+
+
+def batch_verify(srs_ref: ref_kzg.SRS, openings, gamma: int | None = None,
+                 device=None) -> bool:
+    """Batch-verify [(C_i, z_i, y_i, W_i)] (reference Jacobian tuples) with
+    two pairings in all:
+        e(sum_i g^i (C_i - y_i G + z_i W_i), H) * e(-sum_i g^i W_i, tau H) == 1
+    with g = gamma (default 5^8, ``crypto/ref/kzg.batch_verify``'s). The point
+    side is one device MSM over [C_0..C_b, W_0..W_b, G] with scalars [g^i,
+    g^i z_i, -sum g^i y_i] and one over the W_i with scalars g^i, each padded
+    to a power of two >= 8 with generator lanes of scalar 0. Bases with an
+    identity (a W of a constant polynomial) take the generic engine."""
+    if not openings:
+        return True
+    device = _build.resolve_device(device)
+    if gamma is None:
+        gamma = pow(5, 8, R)
+    coeffs, acc = [], 1
+    for _ in openings:
+        coeffs.append(acc)
+        acc = acc * gamma % R
+    c_pts = [o[0] for o in openings]
+    w_pts = [o[3] for o in openings]
+    zs = [o[1] % R for o in openings]
+    ys = [o[2] % R for o in openings]
+    neg_y_sum = (-sum(c * y for c, y in zip(coeffs, ys))) % R
+
+    def padded_msm(pts, scalars):
+        m = 1 << max(3, (len(pts) - 1).bit_length())
+        pts = pts + [ref_g1.GENERATOR] * (m - len(pts))
+        scalars = scalars + [0] * (m - len(scalars))
+        out = msm_mod.msm(g1.encode_points(pts, device=device),
+                          torch.from_numpy(FR.encode_fast(scalars)).to(device).contiguous())
+        return g1.decode_points(out)[0]
+
+    left = padded_msm(c_pts + w_pts + [ref_g1.GENERATOR],
+                      coeffs + [c * z % R for c, z in zip(coeffs, zs)] + [neg_y_sum])
+    acc_w = padded_msm(w_pts, list(coeffs))
+    return pairing.pairing_check([(ref_g1.affine(left), srs_ref.h),
+                                  (ref_g1.affine(ref_g1.neg(acc_w)), srs_ref.tau_h)])

@@ -25,7 +25,12 @@ injectable (``group``/``scan_fn``) so the combinatorics are
 testable with a cheap mock group on the CPU; the G1 group runs the kernels on
 the card and their plain versions on the CPU.
 
-Not ported (ROADMAP.md): the generic engine for non-affine bases.
+``msm`` sends bases with z != 1 anywhere (identities included) to the generic
+engine, ``msm_generic``: unsigned c-bit windows over 2^c buckets, and per
+window a sort, a chunked segmented scan of the sorted Jacobian points as K
+lanes of m steps (two m-step passes of the segmented combine, kernel B2's
+``g1_add`` at width K, around one B3 prefix of the lane aggregates), the
+bucket sums at the runs' tails, T_w by kernel B7 and the Horner step by B2.
 """
 
 from __future__ import annotations
@@ -377,6 +382,100 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
     return acc
 
 
+# --------------------------------------------------------------------------
+# the generic engine (any Jacobian bases)
+# --------------------------------------------------------------------------
+
+
+def default_window_bits(n: int) -> int:
+    """Window size of the generic engine: c ~ log2(n) - 4, clamped to [4, 13]."""
+    return max(4, min(13, n.bit_length() - 4))
+
+
+def _seg_scan_chunked(seg, group: GroupOps, flags: torch.Tensor, pts, K: int):
+    """Segmented inclusive scan of (flags (1, N), pts) along the trailing
+    axis, N % K == 0: lane k holds elements [k m, (k+1) m), m = N / K. Pass 1
+    folds each lane with ``seg`` in m steps at width K, one prefix over the
+    K lane aggregates (``_hillis_steele_prefix``) gives the carries, and
+    pass 2 folds again from the carries, keeping every step."""
+    n = flags.shape[-1]
+    m = n // K
+    device = flags.device
+    # step j of every lane as one contiguous (.., K) slice
+    f3 = flags.reshape(1, K, m).permute(2, 0, 1).contiguous()
+    p3 = tuple(p.reshape(p.shape[0], K, m).permute(2, 0, 1).contiguous() for p in pts)
+
+    def fold(state, keep):
+        steps = []
+        for j in range(m):
+            state = seg(state, (f3[j],) + tuple(p[j] for p in p3))
+            if keep:
+                steps.append(state[1:])
+        return state, steps
+
+    # pass 1 starts from flag 0: a lane aggregate's flag must be the OR of
+    # the lane's own heads (it decides whether a carry stops there); the
+    # identity makes the first combine give element 0 whatever its flag
+    init = (torch.zeros((1, K), dtype=torch.int32, device=device),) + tuple(group.identity(K))
+    lane_agg, _ = fold(init, False)
+    summaries = _hillis_steele_prefix(seg, group, lane_agg, K, len(pts))
+    # the carry into lane k is the inclusive prefix of lane k - 1; lane 0's
+    # carry is the identity with flag 1
+    ident1 = group.identity(1)
+    carry = (torch.cat([torch.ones((1, 1), dtype=torch.int32, device=device),
+                        summaries[0][..., :-1]], dim=-1),) + tuple(
+        torch.cat([ident1[i], summaries[1 + i][..., :-1]], dim=-1) for i in range(len(pts)))
+    _, steps = fold(carry, True)
+    return tuple(torch.stack([s[i] for s in steps], dim=-1).reshape(pts[i].shape)
+                 for i in range(len(pts)))
+
+
+def msm_generic(group: GroupOps, points, scalar_limbs: torch.Tensor, c: int,
+                chunk_lanes: int = 4096):
+    """Windowed-bucket MSM over any group elements. points: tuple of (.., N)
+    tensors; scalar_limbs: (16, N) canonical Fr limbs; N a multiple of
+    K = min(chunk_lanes, N). Per unsigned c-bit window, high to low: a
+    stable sort by digit, the chunked segmented scan of the sorted points
+    (``_seg_scan_chunked``), the bucket sums at each run's tail (bucket 0
+    weighted 0), T_w = sum_b b S_b (``_weighted_bucket_total``, B = 2^c),
+    and acc = 2^c acc + T_w. Returns a width-1 element."""
+    n = scalar_limbs.shape[-1]
+    K = min(chunk_lanes, n)
+    if n % K:
+        raise ValueError(f"msm_generic: {n} points are not a multiple of {K} lanes")
+    num_buckets = 1 << c
+    device = scalar_limbs.device
+    digits = window_digits(scalar_limbs, c)
+    seg = _default_seg_combine(group)
+    bucket_ids = torch.arange(num_buckets, device=device)
+    acc = group.identity(1)
+    for w in range(digits.shape[0] - 1, -1, -1):
+        keys, order = torch.sort(digits[w].long(), stable=True)
+        pts = tuple(t[..., order] for t in points)
+        head = torch.cat([torch.ones(1, dtype=torch.int32, device=device),
+                          (keys[1:] != keys[:-1]).to(torch.int32)]).unsqueeze(0)
+        scanned = _seg_scan_chunked(seg, group, head, pts, K)
+        # a bucket's sum sits at the last occurrence of its key
+        pos = torch.searchsorted(keys, bucket_ids, right=True) - 1
+        posc = pos.clamp(min=0)
+        live = (pos >= 0) & (keys[posc] == bucket_ids) & (bucket_ids > 0)
+        sums = group.select(live, tuple(t[..., posc] for t in scanned),
+                            group.identity(num_buckets))
+        acc = _horner(group, acc, _weighted_bucket_total(sums, group, seg, num_buckets), c)
+    return acc
+
+
+def _msm_jacobian(points: g1.JacobianPoints, scalar_limbs: torch.Tensor, c: int = 0,
+                  chunk_lanes: int = 4096) -> g1.JacobianPoints:
+    """The generic engine over BLS12-377 G1 Jacobian bases (identities and
+    any z): c = ``default_window_bits(N)`` unless given."""
+    if c == 0:
+        c = default_window_bits(scalar_limbs.shape[-1])
+    out = msm_generic(g1_group(points.x.device), (points.x, points.y, points.z), scalar_limbs,
+                      c, chunk_lanes)
+    return g1.JacobianPoints(*out)
+
+
 def _default_lanes(n: int) -> int:
     return min(msm_kernels.LANES, max(128, 1 << (n.bit_length() // 2)))
 
@@ -477,10 +576,12 @@ def msm_multi(points: g1.JacobianPoints, scalar_limbs: torch.Tensor, c: int = 0)
 
 
 def msm(points: g1.JacobianPoints, scalar_limbs: torch.Tensor) -> g1.JacobianPoints:
-    """MSM over BLS12-377 G1 for affine bases (z == Montgomery one): points
-    (L, N), scalar_limbs (16, N) canonical Fr limbs; returns a batch of 1."""
+    """MSM over BLS12-377 G1: points (L, N) Jacobian Montgomery coordinates,
+    scalar_limbs (16, N) canonical Fr limbs; returns a batch of 1. Affine
+    bases (z == Montgomery one everywhere, one host read) take the fused
+    engine ``msm_affine``; any other (identities, z != 1) the generic engine
+    ``_msm_jacobian``."""
     one = fa.broadcast_const(FQ, 1, tuple(points.z.shape[1:]), device=points.z.device)
-    if not bool((points.z == one).all()):
-        raise NotImplementedError("non-affine bases need the generic engine "
-                                  "(msm_generic), which is not ported")
-    return msm_affine(points.x, points.y, scalar_limbs)
+    if bool((points.z == one).all()):
+        return msm_affine(points.x, points.y, scalar_limbs)
+    return _msm_jacobian(points, scalar_limbs)

@@ -1,5 +1,4 @@
-"""The puzzle prover (the port of the proving half of
-``snarkos_tpu/ops/puzzle.py``).
+"""The puzzle prover and verifier (the port of ``snarkos_tpu/ops/puzzle.py``).
 
   prove_batch(epoch_hash, address, nonces):
     1. seed_i  = sha256(epoch_hash || address || nonce_i) mod r
@@ -16,8 +15,18 @@
 
 All B nonces go through one device path (one Poseidon batch, one epoch
 program pass, one commit multi-MSM, one witness multi-MSM), B = 1 included.
-The SRS is the deterministic dev setup from the known tau (not a ceremony);
-verification and the production SRS wait for a later slice.
+
+  verify(solution): decode C and W, check y < r and the target
+    (check_structural), re-derive the coefficients on the device through the
+    epoch program and check y == p(z) (check_binding), then the pairing
+    equation e(C - y G, H) == e(W, tau H - z H) on the host.
+  verify_batch(items): the same checks per item, then one random linear
+    combination of the openings (kzg.batch_verify: two device MSMs, two
+    host pairings).
+
+The SRS is the deterministic dev setup from the known tau, built on the
+device, or a ceremony artifact (``PuzzleSRS.from_artifact``,
+``crypto/srs_artifact.py``).
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from snarkos_tpu_torch.crypto import params
-from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, poseidon as ref_poseidon
+from snarkos_tpu_torch.crypto import params, srs_artifact
+from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg, pairing
+from snarkos_tpu_torch.crypto.ref import poseidon as ref_poseidon
 from snarkos_tpu_torch.ops import _build, g1, kzg, msm as msm_mod, poseidon
 from snarkos_tpu_torch.ops import modarith as fa
 from snarkos_tpu_torch.ops.fieldspec import FQ, FR
@@ -53,6 +63,24 @@ def _g1_to_bytes(p) -> bytes:
     return a[0].to_bytes(48, "little") + a[1].to_bytes(48, "little") + b"\x00"
 
 
+def _g1_from_bytes(b: bytes):
+    """97-byte affine encoding -> reference Jacobian tuple; raises ValueError
+    on a bad length, a non-canonical coordinate or a point off the curve."""
+    if len(b) != 97:
+        raise ValueError("bad G1 encoding length")
+    if b[96] == 1:
+        return ref_g1.INFINITY
+    x = int.from_bytes(b[:48], "little")
+    y = int.from_bytes(b[48:96], "little")
+    q = params.FQ_MODULUS
+    if x >= q or y >= q:
+        raise ValueError("non-canonical G1 coordinate")
+    p = (x, y, 1)
+    if not ref_g1.on_curve(p):
+        raise ValueError("point not on curve")
+    return p
+
+
 def sha64(*parts: bytes) -> int:
     h = hashlib.sha256(hashlib.sha256(b"".join(parts)).digest()).digest()
     return int.from_bytes(h[:8], "little")
@@ -61,16 +89,39 @@ def sha64(*parts: bytes) -> int:
 @dataclass
 class PuzzleSRS:
     """Device-resident SRS powers [G, tau G, ..., tau^degree G], affine with
-    z = Montgomery one, (L, degree + 1) per coordinate."""
+    z = Montgomery one, (L, degree + 1) per coordinate, and ``srs_ref``, the
+    host copy the verifier reads (its powers as reference tuples, H and
+    tau H). ``is_dev`` is True when tau is the known DEV_TAU, False for a
+    ceremony artifact."""
 
     degree: int
     points: g1.JacobianPoints
+    srs_ref: ref_kzg.SRS
+    is_dev: bool = True
+
+    @classmethod
+    def from_artifact(cls, path: str, digest: str | None = None,
+                      log_degree: int = DEFAULT_LOG_DEGREE, device=None) -> "PuzzleSRS":
+        """Load a ceremony powers-of-tau artifact (``crypto/srs_artifact.py``:
+        digest pin, on-curve and pairing consistency checks, the check's MSMs
+        on ``device``). The device gets the first 2^log_degree + 1 powers; the
+        whole artifact stays on ``srs_ref``."""
+        device = _build.resolve_device(device)
+        srs_ref = srs_artifact.load_srs(path, digest, device=device)
+        degree = 1 << log_degree
+        if len(srs_ref.powers_g1) < degree + 1:
+            raise srs_artifact.SRSArtifactError(
+                f"SRS artifact holds {len(srs_ref.powers_g1)} powers; the "
+                f"puzzle needs {degree + 1}")
+        pts = g1.encode_points(srs_ref.powers_g1[:degree + 1], device=device)
+        return cls(degree=degree, points=pts, srs_ref=srs_ref, is_dev=False)
 
     @classmethod
     def dev(cls, log_degree: int = DEFAULT_LOG_DEGREE, device=None) -> "PuzzleSRS":
         """The dev SRS from DEV_TAU, built on the device: one per-lane
         double-and-add of the generator by tau^i (kernel B2 on the card),
-        then a batched conversion to affine (Fermat inversion, B1)."""
+        then a batched conversion to affine (Fermat inversion, B1). The host
+        copy holds the decoded powers, H = the G2 generator and tau H."""
         device = _build.resolve_device(device)
         degree = 1 << log_degree
         taus, acc = [], 1
@@ -83,7 +134,12 @@ class PuzzleSRS:
                                   for t in (gen.x, gen.y, gen.z)))
         x, y, _ = g1.to_affine(g1.scalar_mul(gen, scalars))
         one = fa.broadcast_const(FQ, 1, (degree + 1,), device=device).contiguous()
-        return cls(degree=degree, points=g1.JacobianPoints(x, y, one))
+        xs = FQ.decode_fast(x.cpu().numpy(), mont=True)
+        ys = FQ.decode_fast(y.cpu().numpy(), mont=True)
+        h = pairing.G2_GENERATOR
+        srs_ref = ref_kzg.SRS(powers_g1=[(px, py, 1) for px, py in zip(xs, ys)], h=h,
+                              tau_h=pairing.g2_scalar_mul(DEV_TAU, h))
+        return cls(degree=degree, points=g1.JacobianPoints(x, y, one), srs_ref=srs_ref)
 
 
 def epoch_step_plain(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
@@ -207,7 +263,8 @@ class PuzzleSolutionData:
 
 
 class Puzzle:
-    """The puzzle prover; one instance per process (holds the SRS).
+    """The puzzle prover and verifier; one instance per process (holds the
+    SRS).
 
     ``device=None`` runs on the card and raises without one; tests pass
     ``device="cpu"`` to run the plain versions of the kernels. ``srs``
@@ -298,6 +355,72 @@ class Puzzle:
     @staticmethod
     def passes_target(solution_id: int, proof_target: int) -> bool:
         return solution_id <= (1 << 64) // max(proof_target, 1)
+
+    # -- verification --------------------------------------------------------
+    def check_binding(self, epoch_hash: bytes, address: str, nonce: int,
+                      commitment: bytes, eval_y: int) -> bool:
+        """The epoch-relation binding: re-derive the coefficients of
+        (epoch_hash, address, nonce) on the device (B1's Poseidon permutation
+        and 12 epoch steps) and check eval_y == p(z) at the Fiat-Shamir
+        challenge z(C). With the pairing check, which proves the committed
+        polynomial opens to eval_y at z, this forces the committed polynomial
+        to be the epoch-derived one whp."""
+        coeffs_mont = self.coefficients(epoch_hash, address, [nonce])[:, 0]
+        z = self._challenge(commitment)
+        return kzg.poly_eval(coeffs_mont, z) == eval_y % R
+
+    def verify(self, epoch_hash: bytes, address: str, nonce: int,
+               commitment: bytes, eval_y: int, witness: bytes,
+               proof_target: int) -> bool:
+        """One solution: structure and target, the epoch binding, then the
+        pairing equation on the host."""
+        opening = self.check_structural(commitment, eval_y, witness, proof_target)
+        if opening is None:
+            return False
+        if not self.check_binding(epoch_hash, address, nonce, commitment, eval_y):
+            return False
+        c_pt, z, y, w_pt = opening
+        return ref_kzg.verify(self.srs.srs_ref, c_pt, z, y, w_pt)
+
+    def check_structural(self, commitment: bytes, eval_y: int, witness: bytes,
+                         proof_target: int):
+        """Everything but the pairing equation and the binding: decoding,
+        canonical coordinates, y < r, the target. Returns the (C, z, y, W)
+        opening, or None if the solution is structurally invalid."""
+        try:
+            c_pt = _g1_from_bytes(commitment)
+            w_pt = _g1_from_bytes(witness)
+        except ValueError:
+            return None
+        if not (0 <= eval_y < R):
+            return None
+        solution_id = sha64(commitment, eval_y.to_bytes(32, "little"))
+        if not self.passes_target(solution_id, proof_target):
+            return None
+        z = self._challenge(commitment)
+        return (c_pt, z, eval_y, w_pt)
+
+    def verify_batch(self, items) -> bool:
+        """All-or-nothing check of many solutions with two pairings in all.
+        items: (epoch_hash, address, nonce, commitment, eval_y, witness,
+        proof_target) tuples. The structural and binding checks run per item,
+        in order, and the first failure returns False; the openings then go
+        through one ``kzg.batch_verify`` (one opening: the host ``verify``).
+        Callers fall back to ``verify`` to find an offender."""
+        openings = []
+        for epoch_hash, address, nonce, commitment, eval_y, witness, proof_target in items:
+            opening = self.check_structural(commitment, eval_y, witness, proof_target)
+            if opening is None:
+                return False
+            if not self.check_binding(epoch_hash, address, nonce, commitment, eval_y):
+                return False
+            openings.append(opening)
+        if not openings:
+            return True
+        if len(openings) == 1:
+            c_pt, z, y, w_pt = openings[0]
+            return ref_kzg.verify(self.srs.srs_ref, c_pt, z, y, w_pt)
+        return kzg.batch_verify(self.srs.srs_ref, openings, device=self.device)
 
 
 _PUZZLE: Puzzle | None = None

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of snarkos_tpu_torch, nor
-chip_smoke.py, imports JAX or the JAX package; no kernel wrapper catches an
+chip_smoke.py, imports JAX, the JAX package or its native engines
+(``native/``, loaded through ``snarkos_tpu.utils.native``); no kernel wrapper catches an
 exception around a launch (a CUDA tensor launches its kernel or raises); the
 entry points default to the card and refuse to run without one."""
 
@@ -29,7 +30,7 @@ def _imported(tree):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "snarkos_tpu")
+    return top in ("jax", "jaxlib", "snarkos_tpu", "native")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -73,6 +74,19 @@ def test_entry_points_refuse_without_card():
         PuzzleSRS.dev(log_degree=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.points(*[torch.zeros((24, 1), dtype=torch.int32).numpy()] * 3)
+    # the verifier half: the device is resolved before any file is read or
+    # any point is decoded
+    from snarkos_tpu_torch.crypto import srs_artifact
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg
+    from snarkos_tpu_torch.ops import kzg
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PuzzleSRS.from_artifact("no-such-artifact.srs")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        srs_artifact.load_srs("no-such-artifact.srs")
+    srs = ref_kzg.SRS(powers_g1=[ref_g1.GENERATOR], h=None, tau_h=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kzg.batch_verify(srs, [(ref_g1.GENERATOR, 1, 1, ref_g1.INFINITY)])
     assert _build.resolve_device("cpu").type == "cpu"
 
 

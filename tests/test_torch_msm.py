@@ -212,9 +212,36 @@ def test_engine_routing_above_serial_max_n(monkeypatch):
 
 
 def test_non_affine_bases_raise():
-    p = g1.infinity((4,))
-    with pytest.raises(NotImplementedError, match="non-affine"):
-        msm.msm(p, torch.zeros((16, 4), dtype=torch.int32))
+    """Non-affine bases go to the generic engine, which raises where N is not
+    a multiple of its K = min(4096, N) lanes (the JAX engine's reshape fails
+    there too)."""
+    p = g1.infinity((4097,))
+    with pytest.raises(ValueError, match="multiple"):
+        msm.msm(p, torch.zeros((16, 4097), dtype=torch.int32))
+
+
+def test_non_affine_bases_take_the_generic_engine(monkeypatch):
+    """Bases with z != 1, and identity bases (z = 0), go to the generic engine
+    ``_msm_jacobian`` at its defaults, never to the fused one; affine bases
+    do not. The generic engine's G1 sums are held against the host sum in
+    test_torch_msm_generic.py."""
+    rng = random.Random(21)
+    pts = [ref.affine(ref.scalar_mul(rng.randrange(1, params.FR_MODULUS), ref.GENERATOR)) + (1,)
+           for _ in range(4)]
+    lam = [rng.randrange(2, FQ.p) for _ in range(4)]
+    rescaled = [(p[0] * s * s % FQ.p, p[1] * s ** 3 % FQ.p, p[2] * s % FQ.p)
+                for p, s in zip(pts, lam)]
+    scalars = _limbs([rng.randrange(params.FR_MODULUS) for _ in range(4)])
+    calls = []
+    monkeypatch.setattr(msm, "_msm_jacobian", lambda p, k: calls.append((p, k)) or "generic")
+    monkeypatch.setattr(msm, "msm_affine", None)  # a call would raise
+    for bases in (rescaled, [pts[0], ref.INFINITY, pts[2], pts[3]], [ref.INFINITY] * 4):
+        enc = g1.encode_points(bases)
+        assert msm.msm(enc, scalars) == "generic"
+        assert calls.pop()[0] is enc
+    monkeypatch.setattr(msm, "msm_affine", lambda x, y, k: "affine")
+    assert msm.msm(g1.encode_points(pts), scalars) == "affine"
+    assert calls == []
 
 
 @pytest.mark.parametrize("c", [4, 5, 6, 13])

@@ -79,12 +79,18 @@ def test_epoch_program_matches_jax(jax_puzzle):
 
 def test_dev_srs_matches_jax(jax_puzzle):
     """The port builds the dev SRS on the device (here, the plain versions);
-    its first powers equal the JAX package's SRS limb for limb."""
+    its first powers equal the JAX package's SRS limb for limb, and its host
+    copy equals the JAX package's srs_ref."""
     srs = puzzle.PuzzleSRS.dev(log_degree=2, device="cpu")
     x, y, z = _srs_arrays(jax_puzzle)
     n = srs.degree + 1
     for got, want in zip((srs.points.x, srs.points.y, srs.points.z), (x, y, z)):
         np.testing.assert_array_equal(got.numpy(), want[:, :n])
+    # the host copy the verifier reads: the decoded powers, H and DEV_TAU H
+    want = jax_puzzle.srs.srs_ref
+    assert srs.srs_ref.h == want.h and srs.srs_ref.tau_h == want.tau_h
+    assert [tuple(p) for p in srs.srs_ref.powers_g1] == [tuple(p) for p in want.powers_g1[:n]]
+    assert srs.is_dev
 
 
 def test_coefficients_match_host_reference(jax_puzzle, port_puzzle):
