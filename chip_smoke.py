@@ -61,7 +61,23 @@ result line:
      loaded by PuzzleSRS.from_artifact (the consistency check's MSMs on B4)
      gives the same device points and tau H; a copy with one power changed
      fails the consistency check.
-  9. one JSON line with every kernel's numbers, then the result line.
+  9. the NTT over Fr and the pipeline: B1's NTT entries fr_ntt_bitrev and
+     fr_ntt_stage against their plain versions, limb for limb, at 2^12,
+     2^16, 2^20, 2^22 and (16, 8, 2^16), forward and inverse (n^-1 in the
+     gather; the inverse table in the stages), stages s = 0, log n / 2 and
+     log n - 1, every pair of 0, 1, p - 1, p - 2 as the (u, v) of a
+     butterfly; ntt at 2^22: intt(ntt(a)) == a, ntt(a) == ntt_plain(a),
+     ntt(a)[k] == poly_eval(a, omega^k) on the host at k = 0 and 4 random
+     k; ntt and intt at 2^12 and 2^16 equal to the host crypto/ref/ntt.py;
+     each row of ntt_batched over (16, 8, 2^16) equal to ntt of the row. A
+     transform of 2^k launches fr_ntt_bitrev once, fr_ntt_stage k times and
+     nothing else. ntt elems/s at 2^12-2^22 and intt at 2^22 (median of 3
+     host-clock calls, and the device time of a CUDA graph replay). The
+     pipeline of entry.entry() (Poseidon, ntt, square) at 2^10 equal limb
+     for limb to the host composition, then at 2^22 (one permutation, one
+     gather, 22 stages, one mont_mul) against the host Poseidon at 8 lanes
+     and the plain ntt and square; its wall time (median of 3).
+ 10. one JSON line with every kernel's numbers, then the result line.
 Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
 must launch on some path, but those of NO_PATH_YET (none now), which must
@@ -101,6 +117,11 @@ GENERIC_C = 13
 GENERIC_K = 4096
 # the verifier (phase 7): a block's solutions, MAX_SOLUTIONS_PER_BLOCK
 VERIFY_BATCH = 4
+# the NTT (phase 9): BASELINE config #2's single-card sizes, the batched
+# transform's (rows, log2 n), and the pipeline's log2 n
+NTT_LOGS = (12, 16, 20, 22)
+NTT_BATCH = (8, 16)
+PIPE_LOG = 22
 # B1's launches a prove_batch call (PERF.md): one permutation, the epoch
 # program's 12 steps, at most 80 single multiplies (KZG eval, conversions)
 PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_step": 12}
@@ -201,9 +222,11 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
+    from snarkos_tpu_torch import entry as entry_mod
     from snarkos_tpu_torch.crypto import params, srs_artifact
-    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg, pairing
-    from snarkos_tpu_torch.ops import _build, g1, g1_kernels, kzg, msm, msm_kernels, poseidon
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg, ntt as ref_ntt, pairing
+    from snarkos_tpu_torch.crypto.ref import poseidon as ref_poseidon
+    from snarkos_tpu_torch.ops import _build, g1, g1_kernels, kzg, msm, msm_kernels, ntt, poseidon
     from snarkos_tpu_torch.ops import modarith as fa
     from snarkos_tpu_torch.ops import puzzle as puzzle_mod
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
@@ -311,18 +334,21 @@ def main() -> int:
         return max_abs_err(g1.to_affine(pg), g1.to_affine(pw))
 
     def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True,
-              compare=None):
-        """cases: [(label, kernel_fn, plain_fn, nbytes, nops)]; ``big``: time
+              compare=None, library=None):
+        """cases: [(label, kernel_fn, plain_fn, nbytes, nops[, timed_fn])],
+        ``timed_fn`` timed in place of kernel_fn if given; ``big``: time
         7 runs of 3 launches and one plain call after a warm-up (else 7 runs of
         20 and 5 plain calls), and the device time over as many launches as a
         run; ``verify``
         checks the kernel's output beyond the comparison with the plain one;
         ``exact=False`` compares projectively (``affine_err``), ``compare``
         with a function (got, want) -> max abs error that raises on a
-        mismatch. Cases that share a plain_fn share its output and time."""
+        mismatch; ``library``, one PyTorch call that computes the first case's
+        function, is timed as its library_ms. Cases that share a plain_fn share
+        its output and time."""
         shapes = []
         plain_runs = {}
-        for label, kfn, pfn, nbytes, nops in cases:
+        for label, kfn, pfn, nbytes, nops, *timed in cases:
             if pfn not in plain_runs:
                 want = pfn()
                 torch.cuda.synchronize()
@@ -339,8 +365,9 @@ def main() -> int:
             if verify is not None:
                 verify(label, got)
             inner = 3 if big else 20
-            ms = cuda_ms(kfn, 7, inner=inner)
-            dev_ms = graph_ms(kfn, 7, inner)
+            tfn = timed[0] if timed else kfn
+            ms = cuda_ms(tfn, 7, inner=inner)
+            dev_ms = graph_ms(tfn, 7, inner)
             b_ms, b_by = bound(nbytes, nops)
             shapes.append({"shape": label, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
@@ -348,12 +375,15 @@ def main() -> int:
             log(f"{name} {label}: {how}; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
                 f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
         main_case = shapes[0]
+        library_ms = None if library is None else cuda_ms(library, 7, inner=3 if big else 20)
+        if library_ms is not None:
+            log(f"{name} {main_case['shape']}: one PyTorch call computing it {library_ms:.4f} ms")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "counter": counter, "max_abs_err": max(s["max_abs_err"] for s in shapes),
                         "ms": main_case["ms"], "device_ms": main_case["device_ms"],
                         "plain_ms": main_case["plain_ms"],
                         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-                        "library_ms": None, "shapes": shapes})
+                        "library_ms": library_ms, "shapes": shapes})
 
     # -- 2. kernels against their plain versions at the path's shapes ----------
     n = BATCH * 4096
@@ -1126,7 +1156,208 @@ def main() -> int:
         "an artifact with one power changed fails the consistency check")
     report.update(from_artifact_s=art_s)
 
-    # -- 9. output ------------------------------------------------------------------
+    # -- 9. the NTT over Fr (B1's fr_ntt_bitrev, fr_ntt_stage) and the pipeline ----
+    P = FR.p
+    edge_vals = [0, 1, P - 1, P - 2]
+
+    def fr_rows(rows, n, seed):
+        """(16, rows, n) uniform Montgomery limbs on the card."""
+        arr = FR.random(rows * n, np.random.default_rng(seed)).reshape(FR.nlimbs, rows, n)
+        return torch.from_numpy(arr).to(dev)
+
+    def plant_butterflies(x, s):
+        """A copy of x with every pair of the edge values (0, 1, p - 1, p - 2)
+        as (u, v) of the first 16 butterflies of stage s, in row 0."""
+        x = x.clone()
+        m = 1 << s
+        for e in range(16):
+            i0 = (e // m) * 2 * m + e % m
+            for i, v in ((i0, edge_vals[e // 4]), (i0 + m, edge_vals[e % 4])):
+                x[:, 0, i] = torch.from_numpy(FR.encode_fast([v], mont=True)[:, 0]).to(dev)
+        return x
+
+    ntt_inputs = {}
+    for rows, log_n in ((1, 22), (1, 20), (1, 16), (1, 12), (NTT_BATCH[0], NTT_BATCH[1])):
+        x = fr_rows(rows, 1 << log_n, 100 + log_n + rows)
+        x[:, 0, :4] = torch.from_numpy(FR.encode_fast(edge_vals, mont=True)).to(dev)
+        ntt_inputs[(rows, log_n)] = x
+    elem = FR.nlimbs * 4  # bytes an element
+
+    def shape_label(rows, log_n):
+        return f"(16, {rows}, 2^{log_n})"
+
+    bitrev_cases = []
+    for (rows, log_n), inverse in (((1, 22), False), ((1, 22), True), ((1, 20), False),
+                                   ((1, 16), False), ((1, 12), False), ((1, 12), True),
+                                   (NTT_BATCH, False), (NTT_BATCH, True)):
+        x = ntt_inputs[(rows, log_n)]
+        n = 1 << log_n
+        scale = ntt._n_inv_const(n, dev) if inverse else None
+        bitrev_cases.append((
+            shape_label(rows, log_n) + (" inverse (n^-1)" if inverse else ""),
+            lambda x=x, scale=scale: ntt.bitrev_kernel(x, scale),
+            lambda x=x, scale=scale: ntt.bitrev_plain(x, scale),
+            2 * elem * rows * n + (elem if inverse else 0),
+            FR_MUL_OPS * rows * n if inverse else 0))
+    # the forward gather is one PyTorch call, index_select (the inverse's
+    # n^-1 is not)
+    x22 = ntt_inputs[(1, 22)]
+    perm22 = torch.from_numpy(ntt._bitrev_perm(x22.shape[-1])).to(dev).long()
+    check("fr_ntt_bitrev", "snarkos_tpu_torch/csrc/ntt.cu", "snarkos_tpu/ops/modarith.py:171",
+          bitrev_cases, ntt.bitrev_kernel, library=lambda: x22.index_select(-1, perm22))
+    del x22, perm22
+
+    stage_cases = []
+    for (rows, log_n), tables in (((1, 22), (False, True)), ((1, 20), (False,)),
+                                  ((1, 16), (False,)), ((1, 12), (False, True)),
+                                  (NTT_BATCH, (False, True))):
+        n = 1 << log_n
+        for s in (log_n // 2, 0, log_n - 1):
+            x = plant_butterflies(ntt_inputs[(rows, log_n)], s)
+            work = x.clone()
+            for inverse in tables:
+                master = ntt._master_table(n, inverse, dev)
+                stage_cases.append((
+                    f"{shape_label(rows, log_n)} s={s}" + (" inverse table" if inverse else ""),
+                    lambda x=x, master=master, s=s: ntt.stage_kernel(x.clone(), master, s),
+                    lambda x=x, master=master, s=s: ntt.stage_plain(x, master, s),
+                    2 * elem * rows * n + elem * (1 << s), FR_MUL_OPS * rows * n // 2,
+                    lambda work=work, master=master, s=s: ntt.stage_kernel(work, master, s)))
+    check("fr_ntt_stage", "snarkos_tpu_torch/csrc/ntt.cu", "snarkos_tpu/ops/modarith.py:171",
+          stage_cases, ntt.stage_kernel)
+    del ntt_inputs, bitrev_cases, stage_cases
+
+    def only(counts):
+        """Exactly these launches and none of any other kernel."""
+        return {**{k["name"]: 0 for k in kernels}, **counts}
+
+    def ntt_counts(log_n):
+        return only({"fr_ntt_bitrev": 1, "fr_ntt_stage": log_n})
+
+    # ntt at 2^22: the round trip, the plain stage loop, and the host's
+    # poly_eval at k = 0 and 4 random k (on the raw limbs, a R-multiple of
+    # the values: the transform is linear)
+    n22 = 1 << NTT_LOGS[-1]
+    a22 = fr_rows(1, n22, 22).reshape(FR.nlimbs, n22)
+    ntt.ntt(a22)  # the twiddle tables of the size
+    ntt.intt(a22)
+    ev22 = run_path(f"ntt(2^{NTT_LOGS[-1]})", lambda: ntt.ntt(a22),
+                    ["fr_ntt_bitrev", "fr_ntt_stage"], exact=ntt_counts(NTT_LOGS[-1]))
+    back22 = run_path(f"intt(2^{NTT_LOGS[-1]})", lambda: ntt.intt(ev22),
+                      ["fr_ntt_bitrev", "fr_ntt_stage"], exact=ntt_counts(NTT_LOGS[-1]))
+    if not torch.equal(back22, a22):
+        raise AssertionError("intt(ntt(a)) != a at 2^22")
+    if not torch.equal(ev22, ntt.ntt_plain(a22)):
+        raise AssertionError("ntt(a) != ntt_plain(a) at 2^22")
+    coeffs_raw = FR.decode_fast(a22.cpu().numpy())
+    ev_raw = ev22.cpu().numpy()
+    omega22 = ref_ntt.root_of_unity(n22)
+    for k in [0] + [prng.randrange(1, n22) for _ in range(4)]:
+        want = ref_ntt.poly_eval(coeffs_raw, pow(omega22, k, P))
+        if FR.decode_fast(ev_raw[:, k:k + 1])[0] != want:
+            raise AssertionError(f"ntt(a)[{k}] != poly_eval(a, omega^{k}) at 2^22")
+    del coeffs_raw, ev_raw, back22
+    log("ntt at 2^22: intt(ntt(a)) == a, ntt(a) == ntt_plain(a), and ntt(a)[k] == "
+        "poly_eval(a, omega^k) on the host for k = 0 and 4 random k")
+    for log_n in (12, 16):
+        a = fr_rows(1, 1 << log_n, log_n).reshape(FR.nlimbs, -1)
+        for inverse in (False, True):
+            got = FR.decode_fast(ntt.ntt(a, inverse).cpu().numpy(), mont=True)
+            if got != ref_ntt.ntt(FR.decode_fast(a.cpu().numpy(), mont=True), inverse):
+                raise AssertionError(f"ntt(invert={inverse}) at 2^{log_n} != the host ntt")
+    log("ntt and intt at 2^12 and 2^16 equal the host crypto/ref/ntt.py")
+    rows_b, log_b = NTT_BATCH
+    xb = fr_rows(rows_b, 1 << log_b, 7)
+    ntt.ntt_batched(xb)
+    evb = run_path(f"ntt_batched({rows_b} x 2^{log_b})", lambda: ntt.ntt_batched(xb),
+                   ["fr_ntt_bitrev", "fr_ntt_stage"], exact=ntt_counts(log_b))
+    for r_ in range(rows_b):
+        if not torch.equal(evb[:, r_], ntt.ntt(xb[:, r_].contiguous())):
+            raise AssertionError(f"ntt_batched row {r_} != ntt of the row")
+    log(f"each row of ntt_batched over (16, {rows_b}, 2^{log_b}) == ntt of the row")
+
+    def host_ms3(fn):
+        """med3 in ms."""
+        med, ts = med3(fn)
+        return med * 1e3, [t * 1e3 for t in ts]
+
+    ntt_times = {}
+    for log_n in NTT_LOGS:
+        a = fr_rows(1, 1 << log_n, 200 + log_n).reshape(FR.nlimbs, -1)
+        calls = [("ntt", lambda a=a: ntt.ntt(a))]
+        if log_n == NTT_LOGS[-1]:
+            calls.append(("intt", lambda a=a: ntt.intt(a)))
+        for what, fn in calls:
+            fn()
+            med, ts = host_ms3(fn)
+            dev_ms = graph_ms(fn, 3, 1)
+            ntt_times[f"{what}_2^{log_n}"] = {"ms": ts, "median_ms": med, "device_ms": dev_ms,
+                                              "elems_per_s": (1 << log_n) / med * 1e3}
+            log(f"{what}(2^{log_n}): median {med:.4f} ms of {[round(t, 4) for t in ts]} "
+                f"(device {dev_ms:.4f} ms) -> {(1 << log_n) / med * 1e3:.0f} elems/s on {smi}")
+    # the device time of each of the 22 stages at 2^22 (a CUDA graph of 20
+    # launches in place, median of 3 replays)
+    a = fr_rows(1, n22, 23)
+    master = ntt._master_table(n22, False, dev)
+    per_stage = [graph_ms(lambda s_=s_: ntt.stage_kernel(a, master, s_), 3, 20)
+                 for s_ in range(NTT_LOGS[-1])]
+    ntt_times["stage_device_ms_2^22"] = per_stage
+    log(f"fr_ntt_stage at 2^22, device ms by stage s = 0..21: "
+        f"{[round(t, 4) for t in per_stage]}; sum {sum(per_stage):.3f} ms")
+    del a, master
+    report["ntt"] = ntt_times
+
+    # the pipeline of entry.entry(): at JAX's 2^10 byte for byte against the
+    # host composition, then at 2^22 with its launches
+    fwd, (seed10, ctr10) = entry_mod.entry(log_n=10)
+    out10 = fwd(seed10, ctr10)
+    coeffs10 = [ref_poseidon.hash_many([sv, cv], 2, domain=entry_mod.DOMAIN)[0]
+                for sv, cv in zip(FR.decode_fast(seed10.cpu().numpy(), mont=True),
+                                  FR.decode_fast(ctr10.cpu().numpy(), mont=True))]
+    want10 = FR.encode_fast([v * v % P for v in ref_ntt.ntt(coeffs10)], mont=True)
+    if not np.array_equal(out10.cpu().numpy(), want10):
+        raise AssertionError("entry.forward at 2^10 != the host Poseidon -> ntt -> square")
+    log("entry.forward at 2^10 == host Poseidon ('graft.entry') -> host ntt -> square, "
+        "limb for limb")
+    fwd, (seed22, ctr22) = entry_mod.entry(log_n=PIPE_LOG)
+    fwd(seed22, ctr22)
+    out22 = run_path(f"entry.forward(2^{PIPE_LOG})", lambda: fwd(seed22, ctr22),
+                     ["fr_poseidon_permute", "fr_ntt_bitrev", "fr_ntt_stage", "mont_mul"],
+                     exact=only({"fr_poseidon_permute": 1, "fr_ntt_bitrev": 1,
+                                 "fr_ntt_stage": PIPE_LOG, "mont_mul": 1}))
+    coeffs22 = poseidon.hash_fixed(torch.stack([seed22, ctr22]), 2, domain=entry_mod.DOMAIN)[0]
+    lanes = [0, 1, (1 << PIPE_LOG) - 1] + [prng.randrange(1 << PIPE_LOG) for _ in range(5)]
+    for lane in lanes:
+        sv, cv = (FR.decode_fast(t[:, lane:lane + 1].cpu().numpy(), mont=True)[0]
+                  for t in (seed22, ctr22))
+        got = FR.decode_fast(coeffs22[:, lane:lane + 1].cpu().numpy(), mont=True)[0]
+        if got != ref_poseidon.hash_many([sv, cv], 2, domain=entry_mod.DOMAIN)[0]:
+            raise AssertionError(f"pipeline coefficient {lane} != the host Poseidon")
+    evals22 = ntt.ntt_plain(coeffs22)
+    for lo in range(0, 1 << PIPE_LOG, 1 << 20):  # the plain square in slices: its memory
+        part = evals22[:, lo:lo + (1 << 20)]
+        if not torch.equal(out22[:, lo:lo + (1 << 20)], fa.mont_mul_plain(FR, part, part)):
+            raise AssertionError(f"entry.forward(2^{PIPE_LOG}) != square(ntt_plain(coeffs))")
+    del evals22
+    pipe_med, pipe_ts = host_ms3(lambda: fwd(seed22, ctr22))
+    # its three steps apart, and the sponge's one permutation within the
+    # first (medians of 3 host-clock calls)
+    ev_c = ntt.ntt(coeffs22)
+    state22 = torch.stack([coeffs22] * 3)
+    steps = {"hash_fixed": host_ms3(lambda: poseidon.hash_fixed(
+                 torch.stack([seed22, ctr22]), 2, domain=entry_mod.DOMAIN))[0],
+             "of which permute": host_ms3(lambda: poseidon.permute(state22, 2))[0],
+             "ntt": host_ms3(lambda: ntt.ntt(coeffs22))[0],
+             "square": host_ms3(lambda: fa.mont_mul(FR, ev_c, ev_c))[0]}
+    del coeffs22, ev_c, state22
+    log(f"entry.forward(2^{PIPE_LOG}): coefficients == host Poseidon at {len(lanes)} lanes, "
+        f"output == square(ntt_plain(coefficients)); median {pipe_med:.3f} ms of "
+        f"{[round(t, 3) for t in pipe_ts]} on {smi}; apart: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in steps.items()))
+    report["pipeline"] = {"log_n": PIPE_LOG, "ms": pipe_ts, "median_ms": pipe_med,
+                          "steps_median_ms": steps}
+
+    # -- 10. output -----------------------------------------------------------------
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:

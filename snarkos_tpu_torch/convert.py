@@ -1,8 +1,9 @@
 """Carry state across from the JAX package, given as numpy arrays.
 
-The JAX package's ``PuzzleSRS.points`` coordinates and its ``EpochProgram``
-tensors are already in the port's layout (int32 16-bit limbs, Montgomery
-form with the same R), so conversion is a checked copy onto the device.
+The JAX package's ``PuzzleSRS.points`` coordinates, its ``EpochProgram``
+tensors and its Fr arrays (the NTT's inputs and outputs) are already in the
+port's layout (int32 16-bit limbs, Montgomery form with the same R), so
+conversion is a checked copy onto the device.
 Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
 its arrays, and host values (``srs_ref.tau_h``) as Python ints.
 """
@@ -27,6 +28,18 @@ def _limbs(arr, nlimbs: int, what: str, ndim: int = 2) -> np.ndarray:
     if arr.size and (arr.min() < 0 or arr.max() > 0xFFFF):
         raise ValueError(f"{what}: limbs outside [0, 2^16)")
     return arr
+
+
+def fr(arr, device=None) -> torch.Tensor:
+    """(16, n) or (16, B, n) int32 Montgomery Fr limbs -> the same tensor
+    on device."""
+    device = _build.resolve_device(device)
+    arr = np.asarray(arr)
+    if arr.ndim not in (2, 3) or arr.shape[0] != FR.nlimbs:
+        raise ValueError(f"fr: expected ({FR.nlimbs}, n) or ({FR.nlimbs}, B, n), "
+                         f"got shape {arr.shape}")
+    _limbs(arr.reshape(FR.nlimbs, -1), FR.nlimbs, "fr")
+    return torch.from_numpy(np.array(arr)).to(device)
 
 
 def points(x, y, z, device=None) -> g1.JacobianPoints:

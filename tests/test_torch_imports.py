@@ -87,6 +87,11 @@ def test_entry_points_refuse_without_card():
     srs = ref_kzg.SRS(powers_g1=[ref_g1.GENERATOR], h=None, tau_h=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kzg.batch_verify(srs, [(ref_g1.GENERATOR, 1, 1, ref_g1.INFINITY)])
+    # the pipeline step builds its inputs on the card by default
+    from snarkos_tpu_torch import entry
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.entry()
     assert _build.resolve_device("cpu").type == "cpu"
 
 
@@ -112,7 +117,7 @@ def test_global_puzzle_keys_the_device(monkeypatch):
 def test_kernel_wrappers_reject_cpu_tensors():
     """The launchers take only what their kernels take; they never run the
     plain version."""
-    from snarkos_tpu_torch.ops import g1, g1_kernels, msm_kernels, poseidon, puzzle
+    from snarkos_tpu_torch.ops import g1, g1_kernels, msm_kernels, ntt, poseidon, puzzle
     from snarkos_tpu_torch.ops import modarith as fa
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
 
@@ -152,7 +157,12 @@ def test_kernel_wrappers_reject_cpu_tensors():
         msm_kernels.bucket_scan_fast_kernel(xs, xs, fl, fl, 2)
     with pytest.raises(ValueError, match="CUDA"):
         msm_kernels.bucket_total_kernel(p.x, p.y, p.z)
+    with pytest.raises(ValueError, match="CUDA"):
+        ntt.bitrev_kernel(v)
+    with pytest.raises(ValueError, match="CUDA"):
+        ntt.stage_kernel(v, a[:, :2], 0)
     assert fa.mont_mul_kernel.launches == 0
+    assert ntt.bitrev_kernel.launches == ntt.stage_kernel.launches == 0
     assert poseidon.permute_kernel.launches == puzzle.epoch_step_kernel.launches == 0
     assert g1_kernels.seg_prefix_kernel.launches == 0
     assert g1_kernels.horner_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
