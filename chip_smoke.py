@@ -61,22 +61,26 @@ result line:
      loaded by PuzzleSRS.from_artifact (the consistency check's MSMs on B4)
      gives the same device points and tau H; a copy with one power changed
      fails the consistency check.
-  9. the NTT over Fr and the pipeline: B1's NTT entries fr_ntt_bitrev and
-     fr_ntt_stage against their plain versions, limb for limb, at 2^12,
+  9. the NTT over Fr and the pipeline: B1's NTT entry fr_ntt_pass against
+     its plain version, limb for limb, at every pass of the plans for 2^12,
      2^16, 2^20, 2^22 and (16, 8, 2^16), forward and inverse (n^-1 in the
-     gather; the inverse table in the stages), stages s = 0, log n / 2 and
-     log n - 1, every pair of 0, 1, p - 1, p - 2 as the (u, v) of a
-     butterfly; ntt at 2^22: intt(ntt(a)) == a, ntt(a) == ntt_plain(a),
+     first pass), with every pair of 0, 1, p - 1, p - 2 as the (u, v) of a
+     butterfly at the first, middle and last stage of each pass (planted at
+     that stage's input and undone in plain PyTorch back to the pass's
+     input); the first pass at 2^22 timed beside index_select of the same
+     permutation. ntt at 2^22: intt(ntt(a)) == a, ntt(a) == ntt_plain(a),
      ntt(a)[k] == poly_eval(a, omega^k) on the host at k = 0 and 4 random
      k; ntt and intt at 2^12 and 2^16 equal to the host crypto/ref/ntt.py;
      each row of ntt_batched over (16, 8, 2^16) equal to ntt of the row. A
-     transform of 2^k launches fr_ntt_bitrev once, fr_ntt_stage k times and
-     nothing else. ntt elems/s at 2^12-2^22 and intt at 2^22 (median of 3
-     host-clock calls, and the device time of a CUDA graph replay). The
-     pipeline of entry.entry() (Poseidon, ntt, square) at 2^10 equal limb
-     for limb to the host composition, then at 2^22 (one permutation, one
-     gather, 22 stages, one mont_mul) against the host Poseidon at 8 lanes
-     and the plain ntt and square; its wall time (median of 3).
+     transform of 2^k launches fr_ntt_pass len(ntt._pass_plan(k)) times
+     and nothing else. ntt elems/s at 2^12-2^22 and intt at 2^22 (median
+     of 3 host-clock calls, and the device time of a CUDA graph replay);
+     the device time of each pass at 2^22; the sweep of plans, tiles and
+     block sizes at 2^22 and 2^20. The pipeline of entry.entry()
+     (Poseidon, ntt, square) at 2^10 equal limb for limb to the host
+     composition, then at 2^22 (one permutation, len(plan) passes, one
+     mont_mul) against the host Poseidon at 8 lanes and the plain ntt and
+     square; its wall time (median of 3).
  10. one JSON line with every kernel's numbers, then the result line.
 Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
@@ -122,6 +126,11 @@ VERIFY_BATCH = 4
 NTT_LOGS = (12, 16, 20, 22)
 NTT_BATCH = (8, 16)
 PIPE_LOG = 22
+# the NTT's sweep at 2^22 and 2^20: stages a pass at most (the plan), log2 of
+# a tile's elements, threads a block
+NTT_SWEEP_K_MAX = (6, 8)
+NTT_SWEEP_LOG_ELEMS = (9, 10, 11)
+NTT_SWEEP_THREADS = (128, 256, 512)
 # B1's launches a prove_batch call (PERF.md): one permutation, the epoch
 # program's 12 steps, at most 80 single multiplies (KZG eval, conversions)
 PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_step": 12}
@@ -336,7 +345,8 @@ def main() -> int:
     def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True,
               compare=None, library=None):
         """cases: [(label, kernel_fn, plain_fn, nbytes, nops[, timed_fn])],
-        ``timed_fn`` timed in place of kernel_fn if given; ``big``: time
+        ``timed_fn`` timed in place of kernel_fn if given, a case with nbytes
+        None compared and not timed (the first case is timed); ``big``: time
         7 runs of 3 launches and one plain call after a warm-up (else 7 runs of
         20 and 5 plain calls), and the device time over as many launches as a
         run; ``verify``
@@ -364,6 +374,10 @@ def main() -> int:
                 raise AssertionError(f"{name} {label}: kernel != plain (max abs err {err})")
             if verify is not None:
                 verify(label, got)
+            if nbytes is None:  # a case that is compared, not timed
+                shapes.append({"shape": label, "max_abs_err": err})
+                log(f"{name} {label}: exact")
+                continue
             inner = 3 if big else 20
             tfn = timed[0] if timed else kfn
             ms = cuda_ms(tfn, 7, inner=inner)
@@ -1156,83 +1170,115 @@ def main() -> int:
         "an artifact with one power changed fails the consistency check")
     report.update(from_artifact_s=art_s)
 
-    # -- 9. the NTT over Fr (B1's fr_ntt_bitrev, fr_ntt_stage) and the pipeline ----
+    # -- 9. the NTT over Fr (B1's fr_ntt_pass) and the pipeline -------------------------
     P = FR.p
-    edge_vals = [0, 1, P - 1, P - 2]
+    edge_limbs = torch.from_numpy(FR.encode_fast([0, 1, P - 1, P - 2], mont=True)).to(dev)
+    inv2 = torch.from_numpy(FR.encode_fast([pow(2, -1, P)], mont=True)).to(dev)
 
     def fr_rows(rows, n, seed):
         """(16, rows, n) uniform Montgomery limbs on the card."""
         arr = FR.random(rows * n, np.random.default_rng(seed)).reshape(FR.nlimbs, rows, n)
         return torch.from_numpy(arr).to(dev)
 
-    def plant_butterflies(x, s):
-        """A copy of x with every pair of the edge values (0, 1, p - 1, p - 2)
-        as (u, v) of the first 16 butterflies of stage s, in row 0."""
-        x = x.clone()
+    def unstage(a, inv_twiddles, s):
+        """The plain inverse of stage s: (A, B) -> ((A + B) / 2, (A - B) / 2w),
+        with ``inv_twiddles`` the stage's w^-1."""
+        L, B, n = a.shape
         m = 1 << s
+        v = a.reshape(L, B, n // (2 * m), 2, m)
+        half = inv2.view(L, 1, 1, 1)
+        u = fa.mont_mul_plain(FR, fa.add(FR, v[:, :, :, 0], v[:, :, :, 1]), half)
+        w = fa.mont_mul_plain(FR, fa.sub(FR, v[:, :, :, 0], v[:, :, :, 1]), half)
+        w = fa.mont_mul_plain(FR, w, inv_twiddles.reshape(L, 1, 1, m))
+        return torch.stack([u, w], dim=3).reshape(L, B, n)
+
+    def plant_pass(x, s0, k, s, inverse):
+        """A pass input made from x whose first 16 butterflies of stage s, in
+        row 0, see every pair of the edge values (0, 1, p - 1, p - 2) as (u,
+        v): the edges are written at stage s's input, the stages s - 1 .. s0
+        undone in plain PyTorch (and, for the first pass, the gather and its
+        n^-1), and the plain pass's first s - s0 stages must bring them back."""
+        n = x.shape[-1]
+        y = x.clone()
+        m = 1 << s
+        pos = []
         for e in range(16):
             i0 = (e // m) * 2 * m + e % m
-            for i, v in ((i0, edge_vals[e // 4]), (i0 + m, edge_vals[e % 4])):
-                x[:, 0, i] = torch.from_numpy(FR.encode_fast([v], mont=True)[:, 0]).to(dev)
-        return x
+            y[:, 0, i0] = edge_limbs[:, e // 4]
+            y[:, 0, i0 + m] = edge_limbs[:, e % 4]
+            pos += [i0, i0 + m]
+        want = y[:, 0, pos].clone()
+        inv_table = ntt._stage_table(n, not inverse, dev)
+        for t in range(s - 1, s0 - 1, -1):
+            y = unstage(y, ntt._stage_twiddles(inv_table, t), t)
+        scale = ntt._n_inv_const(n, dev) if inverse and s0 == 0 else None
+        if s0 == 0:
+            n_mont = torch.from_numpy(FR.encode_fast([n], mont=True)).to(dev)
+            y = ntt.bitrev_plain(y, n_mont if inverse else None)
+        at_s = ntt.pass_plain(y, ntt._stage_table(n, inverse, dev), s0, s - s0, scale)
+        if not torch.equal(at_s[:, 0, pos], want):
+            raise AssertionError(f"planting at stage {s} of pass ({s0}, {k}) failed")
+        return y
 
     ntt_inputs = {}
     for rows, log_n in ((1, 22), (1, 20), (1, 16), (1, 12), (NTT_BATCH[0], NTT_BATCH[1])):
-        x = fr_rows(rows, 1 << log_n, 100 + log_n + rows)
-        x[:, 0, :4] = torch.from_numpy(FR.encode_fast(edge_vals, mont=True)).to(dev)
-        ntt_inputs[(rows, log_n)] = x
+        ntt_inputs[(rows, log_n)] = fr_rows(rows, 1 << log_n, 100 + log_n + rows)
     elem = FR.nlimbs * 4  # bytes an element
 
-    def shape_label(rows, log_n):
-        return f"(16, {rows}, 2^{log_n})"
+    def pass_work(rows, n, s0, k, inverse):
+        """(bytes, 32-bit multiplies) of a pass: each element read and
+        written once, the pass's twiddles read once (and n^-1), rows n / 2
+        butterflies a stage (and rows n scalings)."""
+        first = s0 == 0
+        tw = (1 << k) - 1 if first else (1 << (s0 + k)) - (1 << s0)
+        scaled = first and inverse
+        nbytes = 2 * elem * rows * n + elem * (tw + scaled)
+        return nbytes, FR_MUL_OPS * rows * n * (k / 2 + scaled)
 
-    bitrev_cases = []
-    for (rows, log_n), inverse in (((1, 22), False), ((1, 22), True), ((1, 20), False),
-                                   ((1, 16), False), ((1, 12), False), ((1, 12), True),
-                                   (NTT_BATCH, False), (NTT_BATCH, True)):
-        x = ntt_inputs[(rows, log_n)]
-        n = 1 << log_n
-        scale = ntt._n_inv_const(n, dev) if inverse else None
-        bitrev_cases.append((
-            shape_label(rows, log_n) + (" inverse (n^-1)" if inverse else ""),
-            lambda x=x, scale=scale: ntt.bitrev_kernel(x, scale),
-            lambda x=x, scale=scale: ntt.bitrev_plain(x, scale),
-            2 * elem * rows * n + (elem if inverse else 0),
-            FR_MUL_OPS * rows * n if inverse else 0))
-    # the forward gather is one PyTorch call, index_select (the inverse's
-    # n^-1 is not)
+    # every pass of every plan, both directions; at the first, middle and last
+    # stage of each the edge butterflies (the first of the three also timed)
+    pass_cases = []
     x22 = ntt_inputs[(1, 22)]
-    perm22 = torch.from_numpy(ntt._bitrev_perm(x22.shape[-1])).to(dev).long()
-    check("fr_ntt_bitrev", "snarkos_tpu_torch/csrc/ntt.cu", "snarkos_tpu/ops/modarith.py:171",
-          bitrev_cases, ntt.bitrev_kernel, library=lambda: x22.index_select(-1, perm22))
-    del x22, perm22
-
-    stage_cases = []
-    for (rows, log_n), tables in (((1, 22), (False, True)), ((1, 20), (False,)),
-                                  ((1, 16), (False,)), ((1, 12), (False, True)),
-                                  (NTT_BATCH, (False, True))):
+    for (rows, log_n), x in ntt_inputs.items():
         n = 1 << log_n
-        for s in (log_n // 2, 0, log_n - 1):
-            x = plant_butterflies(ntt_inputs[(rows, log_n)], s)
-            work = x.clone()
-            for inverse in tables:
-                master = ntt._master_table(n, inverse, dev)
-                stage_cases.append((
-                    f"{shape_label(rows, log_n)} s={s}" + (" inverse table" if inverse else ""),
-                    lambda x=x, master=master, s=s: ntt.stage_kernel(x.clone(), master, s),
-                    lambda x=x, master=master, s=s: ntt.stage_plain(x, master, s),
-                    2 * elem * rows * n + elem * (1 << s), FR_MUL_OPS * rows * n // 2,
-                    lambda work=work, master=master, s=s: ntt.stage_kernel(work, master, s)))
-    check("fr_ntt_stage", "snarkos_tpu_torch/csrc/ntt.cu", "snarkos_tpu/ops/modarith.py:171",
-          stage_cases, ntt.stage_kernel)
-    del ntt_inputs, bitrev_cases, stage_cases
+        for inverse in (False, True):
+            table = ntt._stage_table(n, inverse, dev)
+            for s0, k in ntt._pass_plan(log_n):
+                scale = ntt._n_inv_const(n, dev) if inverse and s0 == 0 else None
+                out = torch.empty_like(x)
+                for s in sorted({s0, s0 + k // 2, s0 + k - 1}):
+                    y = plant_pass(x, s0, k, s, inverse)
+                    if s0 == 0:
+                        kfn = (lambda y=y, out=out, table=table, k=k, scale=scale:
+                               ntt.pass_kernel(y, out, table, 0, k, scale))
+                        tfn = kfn
+                    else:
+                        def kfn(y=y, table=table, s0=s0, k=k):
+                            z = y.clone()
+                            return ntt.pass_kernel(z, z, table, s0, k)
+                        work = y.clone()
+                        tfn = (lambda work=work, table=table, s0=s0, k=k:
+                               ntt.pass_kernel(work, work, table, s0, k))
+                    nbytes, nops = pass_work(rows, n, s0, k, inverse) if s == s0 else (None, None)
+                    pass_cases.append((
+                        f"(16, {rows}, 2^{log_n}) pass ({s0}, {k})"
+                        + (" inverse" if inverse else "") + f", edges at stage {s}", kfn,
+                        lambda y=y, table=table, s0=s0, k=k, scale=scale:
+                            ntt.pass_plain(y, table, s0, k, scale),
+                        nbytes, nops, tfn))
+    # the first pass at 2^22 beside one PyTorch call that moves the same
+    # permutation (its stages have no such call)
+    perm22 = torch.from_numpy(ntt._bitrev_perm(x22.shape[-1])).to(dev).long()
+    check("fr_ntt_pass", "snarkos_tpu_torch/csrc/ntt.cu", "snarkos_tpu/ops/modarith.py:171",
+          pass_cases, ntt.pass_kernel, library=lambda: x22.index_select(-1, perm22))
+    del ntt_inputs, pass_cases, x22, perm22
 
     def only(counts):
         """Exactly these launches and none of any other kernel."""
         return {**{k["name"]: 0 for k in kernels}, **counts}
 
     def ntt_counts(log_n):
-        return only({"fr_ntt_bitrev": 1, "fr_ntt_stage": log_n})
+        return only({"fr_ntt_pass": len(ntt._pass_plan(log_n))})
 
     # ntt at 2^22: the round trip, the plain stage loop, and the host's
     # poly_eval at k = 0 and 4 random k (on the raw limbs, a R-multiple of
@@ -1242,9 +1288,9 @@ def main() -> int:
     ntt.ntt(a22)  # the twiddle tables of the size
     ntt.intt(a22)
     ev22 = run_path(f"ntt(2^{NTT_LOGS[-1]})", lambda: ntt.ntt(a22),
-                    ["fr_ntt_bitrev", "fr_ntt_stage"], exact=ntt_counts(NTT_LOGS[-1]))
+                    ["fr_ntt_pass"], exact=ntt_counts(NTT_LOGS[-1]))
     back22 = run_path(f"intt(2^{NTT_LOGS[-1]})", lambda: ntt.intt(ev22),
-                      ["fr_ntt_bitrev", "fr_ntt_stage"], exact=ntt_counts(NTT_LOGS[-1]))
+                      ["fr_ntt_pass"], exact=ntt_counts(NTT_LOGS[-1]))
     if not torch.equal(back22, a22):
         raise AssertionError("intt(ntt(a)) != a at 2^22")
     if not torch.equal(ev22, ntt.ntt_plain(a22)):
@@ -1270,7 +1316,7 @@ def main() -> int:
     xb = fr_rows(rows_b, 1 << log_b, 7)
     ntt.ntt_batched(xb)
     evb = run_path(f"ntt_batched({rows_b} x 2^{log_b})", lambda: ntt.ntt_batched(xb),
-                   ["fr_ntt_bitrev", "fr_ntt_stage"], exact=ntt_counts(log_b))
+                   ["fr_ntt_pass"], exact=ntt_counts(log_b))
     for r_ in range(rows_b):
         if not torch.equal(evb[:, r_], ntt.ntt(xb[:, r_].contiguous())):
             raise AssertionError(f"ntt_batched row {r_} != ntt of the row")
@@ -1295,16 +1341,64 @@ def main() -> int:
                                               "elems_per_s": (1 << log_n) / med * 1e3}
             log(f"{what}(2^{log_n}): median {med:.4f} ms of {[round(t, 4) for t in ts]} "
                 f"(device {dev_ms:.4f} ms) -> {(1 << log_n) / med * 1e3:.0f} elems/s on {smi}")
-    # the device time of each of the 22 stages at 2^22 (a CUDA graph of 20
-    # launches in place, median of 3 replays)
+
+    def plan_run(x, out, table, log_n, k_max=None, log_elems=None, threads=None):
+        """A forward transform of x into out by the plan for k_max, with the
+        tile of log_elems and the block size given (the defaults else)."""
+        for s0, k in ntt._pass_plan(log_n, k_max):
+            ntt.pass_kernel(x if s0 == 0 else out, out, table, s0, k,
+                            cols=ntt._pass_cols(log_n, s0, k, log_elems), threads=threads)
+        return out
+
+    # the device time of each pass at 2^22 (a CUDA graph of 20 launches,
+    # median of 3 replays; the later passes in place)
     a = fr_rows(1, n22, 23)
-    master = ntt._master_table(n22, False, dev)
-    per_stage = [graph_ms(lambda s_=s_: ntt.stage_kernel(a, master, s_), 3, 20)
-                 for s_ in range(NTT_LOGS[-1])]
-    ntt_times["stage_device_ms_2^22"] = per_stage
-    log(f"fr_ntt_stage at 2^22, device ms by stage s = 0..21: "
-        f"{[round(t, 4) for t in per_stage]}; sum {sum(per_stage):.3f} ms")
-    del a, master
+    out = torch.empty_like(a)
+    table = ntt._stage_table(n22, False, dev)
+    per_pass = [graph_ms(lambda s0=s0, k=k: ntt.pass_kernel(a if s0 == 0 else out, out, table,
+                                                            s0, k), 3, 20)
+                for s0, k in ntt._pass_plan(NTT_LOGS[-1])]
+    ntt_times["pass_device_ms_2^22"] = per_pass
+    log(f"fr_ntt_pass at 2^22, device ms by pass {ntt._pass_plan(NTT_LOGS[-1])}: "
+        f"{[round(t, 4) for t in per_pass]}; sum {sum(per_pass):.3f} ms")
+    # the sweep: plans (k_max), tiles (2^log_elems elements) and block sizes
+    # at 2^22 and 2^20, each transform checked against the default's output,
+    # device ms a transform (a graph of 3, median of 3 replays)
+    sweep = []
+    for log_n in (NTT_LOGS[-1], NTT_LOGS[-2]):
+        n = 1 << log_n
+        x = fr_rows(1, n, 300 + log_n)
+        table = ntt._stage_table(n, False, dev)
+        want = ntt.ntt_batched(x)
+        for k_max in NTT_SWEEP_K_MAX:
+            plan = ntt._pass_plan(log_n, k_max)
+            for log_elems in NTT_SWEEP_LOG_ELEMS:
+                cols = [ntt._pass_cols(log_n, s0, k, log_elems) for s0, k in plan]
+                if max(ntt._pass_smem(k, c, s0 == 0) for (s0, k), c in zip(plan, cols)) \
+                        > ntt.PASS_SMEM_MAX:
+                    continue
+                for threads in NTT_SWEEP_THREADS:
+                    out = torch.empty_like(x)
+
+                    def fn(x=x, out=out, table=table, log_n=log_n, k_max=k_max,
+                           log_elems=log_elems, threads=threads):
+                        return plan_run(x, out, table, log_n, k_max, log_elems, threads)
+
+                    if not torch.equal(fn(), want):
+                        raise AssertionError(f"sweep 2^{log_n} k_max={k_max} "
+                                             f"log_elems={log_elems} threads={threads}: wrong")
+                    ms = graph_ms(fn, 3, 3)
+                    sweep.append({"log_n": log_n, "plan": plan, "cols": cols,
+                                  "threads": threads, "device_ms": ms})
+                    log(f"sweep 2^{log_n}: plan {plan} cols {cols} threads {threads}: "
+                        f"device {ms:.4f} ms")
+        best = min((r for r in sweep if r["log_n"] == log_n), key=lambda r: r["device_ms"])
+        plan = ntt._pass_plan(log_n)
+        log(f"sweep 2^{log_n}: fastest plan {best['plan']} cols {best['cols']} threads "
+            f"{best['threads']} ({best['device_ms']:.4f} ms); the default plan {plan} cols "
+            f"{[ntt._pass_cols(log_n, s0, k) for s0, k in plan]} threads {ntt.PASS_THREADS}")
+    ntt_times["sweep"] = sweep
+    del a, out, table, x, want
     report["ntt"] = ntt_times
 
     # the pipeline of entry.entry(): at JAX's 2^10 byte for byte against the
@@ -1322,9 +1416,9 @@ def main() -> int:
     fwd, (seed22, ctr22) = entry_mod.entry(log_n=PIPE_LOG)
     fwd(seed22, ctr22)
     out22 = run_path(f"entry.forward(2^{PIPE_LOG})", lambda: fwd(seed22, ctr22),
-                     ["fr_poseidon_permute", "fr_ntt_bitrev", "fr_ntt_stage", "mont_mul"],
-                     exact=only({"fr_poseidon_permute": 1, "fr_ntt_bitrev": 1,
-                                 "fr_ntt_stage": PIPE_LOG, "mont_mul": 1}))
+                     ["fr_poseidon_permute", "fr_ntt_pass", "mont_mul"],
+                     exact=only({"fr_poseidon_permute": 1, "mont_mul": 1,
+                                 "fr_ntt_pass": len(ntt._pass_plan(PIPE_LOG))}))
     coeffs22 = poseidon.hash_fixed(torch.stack([seed22, ctr22]), 2, domain=entry_mod.DOMAIN)[0]
     lanes = [0, 1, (1 << PIPE_LOG) - 1] + [prng.randrange(1 << PIPE_LOG) for _ in range(5)]
     for lane in lanes:

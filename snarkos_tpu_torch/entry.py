@@ -5,9 +5,9 @@ generation, then the radix-2 NTT, then a pointwise square.
     forward, (seed, ctr) = entry(log_n=22)
     out = forward(seed, ctr)
 
-On the card a call is one ``fr_poseidon_permute``, one ``fr_ntt_bitrev``,
-log_n ``fr_ntt_stage`` and one ``mont_mul`` launch (kernel B1), once the
-NTT's twiddle table for the size is cached.
+On the card a call is one ``fr_poseidon_permute``, ``len(ntt._pass_plan(log_n))``
+``fr_ntt_pass`` (three at 2^22) and one ``mont_mul`` launch (kernel B1), once
+the NTT's twiddle tables for the size are cached.
 """
 
 from __future__ import annotations

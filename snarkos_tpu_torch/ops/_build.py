@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[tuple[str, str], object] = {}
 _LOCK = threading.Lock()
 
 
@@ -114,11 +115,15 @@ def load(name: str) -> ctypes.CDLL:
 
 def entry(lib_name: str, symbol: str, n_ptrs: int, n_ints: int):
     """The C function ``symbol``: ``n_ptrs`` pointers, ``n_ints`` int64
-    sizes, then the stream; returns an int error code."""
-    fn = getattr(load(lib_name), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * n_ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    sizes, then the stream; returns an int error code. Bound once a
+    (library, symbol): later calls return the same function object."""
+    fn = _ENTRIES.get((lib_name, symbol))
+    if fn is None:
+        fn = getattr(load(lib_name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _ENTRIES[(lib_name, symbol)] = fn
     return fn
 
 

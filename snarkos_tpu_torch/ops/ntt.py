@@ -1,17 +1,20 @@
 """Radix-2 NTT over Fr (the port of ``snarkos_tpu/ops/ntt.py``).
 
-Bit-exact against crypto/ref/ntt.py. Decimation in time: one bit-reversal
+Bit-exact against crypto/ref/ntt.py. Decimation in time: a bit-reversal
 gather, then log2(n) butterfly stages; the stage of half-length m = 2^s
 pairs u = a[g 2m + j] with v = a[g 2m + j + m] and writes u + w, u - w with
-w = v W[j n / 2m], where W[i] = omega^i is one master table of n/2
-Montgomery powers (omega of order n, or its inverse), shared by every stage.
+w = v omega_{2m}^j. The twiddles of every stage come from one (16, n - 1)
+stage table a size and direction (``_stage_table``: stage s at offset
+2^s - 1), cut from the (16, n/2) master table of omega powers.
 
-On a CUDA tensor a transform is log2(n) + 1 launches of kernel B1's two NTT
-entries (``csrc/ntt.cu``): ``fr_ntt_bitrev`` (the gather, with n^-1 folded
-in for the inverse) and ``fr_ntt_stage`` (one stage, in place). On a CPU
-tensor each runs its plain version. ``ntt_plain`` is the JAX package's
-stage loop (``_ntt_kernel``) in plain PyTorch, with its separate n^-1
-pass: the yardstick of the tests and of chip_smoke.py.
+On a CUDA tensor a transform is ``len(_pass_plan(log2 n))`` launches of
+kernel B1's NTT entry ``fr_ntt_pass`` (``csrc/ntt.cu``), at most three at
+2^22: each runs k consecutive stages in shared memory, the first one with
+the gather (and n^-1 for the inverse) folded in, out of place; the others
+in place. On a CPU tensor each pass runs its plain version (``pass_plain``:
+``bitrev_plain``, then ``stage_plain``). ``ntt_plain`` is the JAX package's
+stage loop (``_ntt_kernel``) in plain PyTorch, with the master table and
+its separate n^-1 pass: the yardstick of the tests and of chip_smoke.py.
 
 Not ported: the JAX package's four-step (Bailey) path for n >= 2^12
 (``_ntt_four_step_kernel`` and its tables). It exists because the TPU's
@@ -114,6 +117,19 @@ def _master_table(n: int, invert: bool, device: torch.device) -> torch.Tensor:
     return out.contiguous()
 
 
+# The per-stage table holds twice the master table's words (256 MiB at 2^22),
+# so the two caches hold at most 4 x (128 + 256) MiB at 2^22.
+@functools.lru_cache(maxsize=4)
+def _stage_table(n: int, invert: bool, device: torch.device) -> torch.Tensor:
+    """(L, n - 1) Montgomery table, contiguous on ``device``: stage s starts
+    at offset 2^s - 1 and its element j is omega_{2^(s+1)}^j (the JAX
+    package's ``_stage_twiddles``, concatenated), a strided slice of the
+    master table a stage."""
+    master = _master_table(n, invert, device)
+    return torch.cat([master[:, :: n >> (s + 1)] for s in range(n.bit_length() - 1)],
+                     dim=1).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _n_inv_const(n: int, device: torch.device) -> torch.Tensor:
     """(L, 1) Montgomery n^-1, contiguous on ``device``."""
@@ -129,12 +145,52 @@ def _log2(n) -> int:
 
 
 # ---------------------------------------------------------------------------
-# kernel B1's NTT entries (csrc/ntt.cu) and their plain versions
+# kernel B1's NTT entry (csrc/ntt.cu) and its plain version
 # ---------------------------------------------------------------------------
+
+# The pass plan and tile: at most K_MAX stages a pass, tiles of up to
+# 2^PASS_LOG_ELEMS elements (cols = 2^(PASS_LOG_ELEMS - k) columns, cut to
+# what the pass has), PASS_THREADS threads a block. From the sweep of
+# chip_smoke.py phase 9 at 2^22 and 2^20 (PERF.md).
+K_MAX = 8
+PASS_LOG_ELEMS = 10
+PASS_THREADS = 256
+PASS_SMEM_MAX = 232448  # bytes of shared memory a block may use on sm_90
+
+
+def _pass_plan(log_n: int, k_max: int | None = None) -> tuple:
+    """The passes ((s0, k), ...) of a transform of 2^log_n: ceil(log_n /
+    k_max) runs of consecutive stages that tile [0, log_n), as even as
+    possible, the longer first (8 + 7 + 7 at 2^22)."""
+    k_max = K_MAX if k_max is None else k_max
+    if log_n < 1 or k_max < 1:
+        raise ValueError(f"ntt pass plan: log_n = {log_n}, k_max = {k_max}")
+    count = -(-log_n // k_max)
+    base, extra = divmod(log_n, count)
+    plan, s0 = [], 0
+    for i in range(count):
+        k = base + (i < extra)
+        plan.append((s0, k))
+        s0 += k
+    return tuple(plan)
+
+
+def _pass_cols(log_n: int, s0: int, k: int, log_elems: int | None = None) -> int:
+    """Columns of a pass's tile: 2^(log_elems - k), at most the pass's
+    chunks (2^(log_n - k)) in the first pass and its columns (2^s0) in a
+    later one, at least 1."""
+    log_elems = PASS_LOG_ELEMS if log_elems is None else log_elems
+    return 1 << min(log_n - k if s0 == 0 else s0, max(0, log_elems - k))
+
+
+def _pass_smem(k: int, cols: int, first: bool) -> int:
+    """Bytes of shared memory of a pass's block: the tile's 8 word planes,
+    2^k rows of cols + 1 words, and the first pass's 2^k twiddle slots."""
+    return 4 * 8 * ((1 << k) * (cols + 1) + ((1 << k) if first else 0))
 
 
 def bitrev_plain(a: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of ``fr_ntt_bitrev`` on (L, B, n), any device:
+    """The bit-reversal gather in plain PyTorch on (L, B, n), any device:
     out[:, b, i] = a[:, b, rev(i)], times ``scale`` ((L, 1) Montgomery) if
     given."""
     n = a.shape[-1]
@@ -144,71 +200,76 @@ def bitrev_plain(a: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Te
     return out
 
 
-def bitrev_kernel(a: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch ``fr_ntt_bitrev`` on a (L, B, n) int32 CUDA tensor (and an
-    (L, 1) scale, or None); writes a new tensor."""
-    L, B, n = a.shape if a.dim() == 3 else (None, None, None)
-    _build.check(a, (FR.nlimbs, B, n), "ntt bitrev a")
-    if scale is not None:
-        _build.check(scale, (FR.nlimbs, 1), "ntt bitrev scale")
-    log_n = _log2(n)
-    out = torch.empty_like(a)
-    if B:
-        fn = _build.entry("ntt", "fr_ntt_bitrev", 3, 3)
-        _build.launch(fn, (a, out, scale), (n, B, log_n), a.device)
-        bitrev_kernel.launches += 1
-    return out
-
-
-bitrev_kernel.launches = 0
-
-
-def bitrev(a: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
-    """The bit-reversal gather: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if a.device.type == "cpu":
-        return bitrev_plain(a, scale)
-    return bitrev_kernel(a.to(torch.int32).contiguous(), scale)
-
-
-def stage_plain(a: torch.Tensor, master: torch.Tensor, s: int) -> torch.Tensor:
-    """Plain PyTorch version of ``fr_ntt_stage`` on (L, B, n), any device:
-    the radix-2 stage of half-length m = 2^s with the twiddles W[j n / 2m]
-    of the (L, n/2) master table; returns a new tensor."""
+def stage_plain(a: torch.Tensor, twiddles: torch.Tensor, s: int) -> torch.Tensor:
+    """One radix-2 DIT stage in plain PyTorch on (L, B, n), any device: the
+    stage of half-length m = 2^s with its (L, m) twiddles omega_{2m}^j;
+    returns a new tensor."""
     L, B, n = a.shape
     m = 1 << s
     v = a.reshape(L, B, n // (2 * m), 2, m)
     u, w = v[:, :, :, 0], v[:, :, :, 1]
-    w = fa.mont_mul_plain(FR, w, master[:, :: n // (2 * m)].reshape(L, 1, 1, m))
+    w = fa.mont_mul_plain(FR, w, twiddles.reshape(L, 1, 1, m))
     return torch.stack([fa.add(FR, u, w), fa.sub(FR, u, w)], dim=3).reshape(L, B, n)
 
 
-def stage_kernel(a: torch.Tensor, master: torch.Tensor, s: int) -> torch.Tensor:
-    """Launch ``fr_ntt_stage`` on a (L, B, n) int32 CUDA tensor with the
-    (L, n/2) master table: stage s of the transform, in place; returns
-    ``a``."""
+def _stage_twiddles(table: torch.Tensor, s: int) -> torch.Tensor:
+    return table[:, (1 << s) - 1:(2 << s) - 1]
+
+
+def pass_plain(a: torch.Tensor, table: torch.Tensor, s0: int, k: int,
+               scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ``fr_ntt_pass`` on (L, B, n), any device:
+    the gather (times ``scale``) when s0 == 0, then stages s0 .. s0 + k - 1
+    with the twiddles of the (L, n - 1) stage table; returns a new
+    tensor."""
+    if s0 != 0 and scale is not None:
+        raise ValueError("ntt pass: only the first pass scales")
+    out = bitrev_plain(a, scale) if s0 == 0 else a
+    for s in range(s0, s0 + k):
+        out = stage_plain(out, _stage_twiddles(table, s), s)
+    return out
+
+
+def pass_kernel(a: torch.Tensor, out: torch.Tensor, table: torch.Tensor, s0: int, k: int,
+                scale: torch.Tensor | None = None, *, cols: int | None = None,
+                threads: int | None = None) -> torch.Tensor:
+    """Launch ``fr_ntt_pass`` on (L, B, n) int32 CUDA tensors: stages s0 ..
+    s0 + k - 1 with the (L, n - 1) stage table, from ``a`` into ``out``. The
+    first pass (s0 == 0) gathers into a new ``out`` (times an (L, 1)
+    ``scale``, or None); a later one runs in place (``out is a``). ``cols``
+    and ``threads`` override the tile's columns and the block size (the
+    sweep). Returns ``out``."""
     L, B, n = a.shape if a.dim() == 3 else (None, None, None)
-    _build.check(a, (FR.nlimbs, B, n), "ntt stage a")
+    _build.check(a, (FR.nlimbs, B, n), "ntt pass a")
+    _build.check(out, (FR.nlimbs, B, n), "ntt pass out")
     log_n = _log2(n)
-    _build.check(master, (FR.nlimbs, n // 2), "ntt stage master")
-    if not 0 <= s < log_n:
-        raise ValueError(f"ntt stage: s = {s} outside [0, {log_n})")
+    _build.check(table, (FR.nlimbs, n - 1), "ntt pass table")
+    if scale is not None:
+        _build.check(scale, (FR.nlimbs, 1), "ntt pass scale")
+    if s0 < 0 or k < 1 or s0 + k > log_n:
+        raise ValueError(f"ntt pass: stages [{s0}, {s0 + k}) outside [0, {log_n})")
+    if (out.data_ptr() == a.data_ptr()) != (s0 != 0) or (s0 != 0 and scale is not None):
+        raise ValueError("ntt pass: the first pass writes a new tensor (and may scale); "
+                         "a later one runs in place")
     if B:
-        fn = _build.entry("ntt", "fr_ntt_stage", 2, 3)
-        _build.launch(fn, (a, master), (n, B, s), a.device)
-        stage_kernel.launches += 1
-    return a
+        fn = _build.entry("ntt", "fr_ntt_pass", 4, 6)
+        _build.launch(fn, (a, out, table, scale),
+                      (n, B, s0, k, cols or _pass_cols(log_n, s0, k), threads or PASS_THREADS),
+                      a.device)
+        pass_kernel.launches += 1
+    return out
 
 
-stage_kernel.launches = 0
+pass_kernel.launches = 0
 
 
-def stage(a: torch.Tensor, master: torch.Tensor, s: int) -> torch.Tensor:
-    """One butterfly stage: the kernel (in place) on a CUDA tensor, the
-    plain version on a CPU tensor."""
+def pass_(a: torch.Tensor, out: torch.Tensor | None, table: torch.Tensor, s0: int, k: int,
+          scale: torch.Tensor | None = None) -> torch.Tensor:
+    """One pass of the plan: the kernel on a CUDA tensor (into ``out``), the
+    plain version on a CPU tensor (a new tensor; ``out`` is not used)."""
     if a.device.type == "cpu":
-        return stage_plain(a, master, s)
-    return stage_kernel(a, master, s)
+        return pass_plain(a, table, s0, k, scale)
+    return pass_kernel(a.to(torch.int32).contiguous(), out, table, s0, k, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -222,14 +283,17 @@ def _check_size(n: int) -> None:
 
 
 def _transform(a: torch.Tensor, invert: bool) -> torch.Tensor:
-    """(L, B, n), n >= 2: the gather (times n^-1 for the inverse), then the
-    log2(n) stages. No host read, no host sync."""
+    """(L, B, n), n >= 2: the passes of the plan, the first one gathering
+    (times n^-1 for the inverse) into a new tensor, the others in place. No
+    host read, no host sync."""
     n = a.shape[-1]
-    master = _master_table(n, invert, a.device)
-    out = bitrev(a, _n_inv_const(n, a.device) if invert else None)
-    for s in range(n.bit_length() - 1):
-        out = stage(out, master, s)
-    return out
+    table = _stage_table(n, invert, a.device)
+    scale = _n_inv_const(n, a.device) if invert else None
+    out = None if a.device.type == "cpu" else torch.empty(a.shape, dtype=torch.int32,
+                                                           device=a.device)
+    for s0, k in _pass_plan(n.bit_length() - 1):
+        a = pass_(a, out, table, s0, k, scale if s0 == 0 else None)
+    return a
 
 
 def ntt_plain(a: torch.Tensor, invert: bool = False) -> torch.Tensor:
@@ -243,7 +307,7 @@ def ntt_plain(a: torch.Tensor, invert: bool = False) -> torch.Tensor:
     master = _master_table(n, invert, a.device)
     out = bitrev_plain(a3)
     for s in range(n.bit_length() - 1):
-        out = stage_plain(out, master, s)
+        out = stage_plain(out, master[:, :: n >> (s + 1)], s)
     if invert:
         out = fa.mont_mul_plain(FR, out, _n_inv_const(n, a.device).view(FR.nlimbs, 1, 1))
     return out.reshape(a.shape)

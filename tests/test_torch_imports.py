@@ -158,11 +158,11 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         msm_kernels.bucket_total_kernel(p.x, p.y, p.z)
     with pytest.raises(ValueError, match="CUDA"):
-        ntt.bitrev_kernel(v)
+        ntt.pass_kernel(v, torch.empty_like(v), a[:, :3], 0, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        ntt.stage_kernel(v, a[:, :2], 0)
+        ntt.pass_kernel(v, v, a[:, :3], 1, 1)
     assert fa.mont_mul_kernel.launches == 0
-    assert ntt.bitrev_kernel.launches == ntt.stage_kernel.launches == 0
+    assert ntt.pass_kernel.launches == 0
     assert poseidon.permute_kernel.launches == puzzle.epoch_step_kernel.launches == 0
     assert g1_kernels.seg_prefix_kernel.launches == 0
     assert g1_kernels.horner_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
