@@ -63,8 +63,9 @@ result line:
      fails the consistency check.
   9. the NTT over Fr and the pipeline: B1's NTT entry fr_ntt_pass against
      its plain version, limb for limb, at every pass of the plans for 2^12,
-     2^16, 2^20, 2^22 and (16, 8, 2^16), forward and inverse (n^-1 in the
-     first pass), with every pair of 0, 1, p - 1, p - 2 as the (u, v) of a
+     2^16, 2^20, 2^22, (16, 8, 2^16) and ntt_dist's batches at 2^22 ((16,
+     2048, 2^11) at world 1, (16, 1024, 2^11) at world 2), forward and
+     inverse (n^-1 in the first pass), with every pair of 0, 1, p - 1, p - 2 as the (u, v) of a
      butterfly at the first, middle and last stage of each pass (planted at
      that stage's input and undone in plain PyTorch back to the pass's
      input); the first pass at 2^22 timed beside index_select of the same
@@ -81,7 +82,26 @@ result line:
      composition, then at 2^22 (one permutation, len(plan) passes, one
      mont_mul) against the host Poseidon at 8 lanes and the plain ntt and
      square; its wall time (median of 3).
- 10. one JSON line with every kernel's numbers, then the result line.
+ 10. the multi-device layer (snarkos_tpu_torch/parallel/). World 1 over
+     NCCL, in this process: ntt_dist and intt_dist at 2^22 (N1 = N2 =
+     2^11) equal to ntt.ntt limb for limb and the round trip to the input
+     (one B1 mont_mul and 2 x 2 fr_ntt_pass a call); msm_dist over phase 5's
+     2^20 bases and scalars equal to (sum k_i tau^i) G and to msm.msm of
+     the same bases (the fused engine); msm_dist at 2^24 over those powers
+     tiled 16 times, scalars drawn on the card below 2^252, equal to
+     (sum k_i tau^(i mod 2^20)) G (the 16 blocks' scalars folded by Fr adds
+     on the card first), one call with its peak device memory. The generic
+     engine's launches are exact (2 m W g1_add, W each of B3, B7 and
+     g1_horner). Host-clock times: ntt_dist beside ntt (medians of 3) with
+     its steps apart, msm_dist(2^20) beside msm.msm (medians of 3),
+     msm_dist(2^24) once. World 2 over gloo, two spawned ranks sharing the
+     one card: all_gather_last of ntt_dist(2^22) equal to the world-1 output,
+     msm_dist(2^20) equal to the oracle on both ranks, each rank's launches
+     (sent back from its process) and times, which are two processes
+     time-slicing one card, not a scaling figure. Then
+     entry.dryrun_multichip(8) on the card, its eight ranks sharing it over
+     gloo, each of its checks against the host.
+ 11. one JSON line with every kernel's numbers, then the result line.
 Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
 must launch on some path, but those of NO_PATH_YET (none now), which must
@@ -94,9 +114,11 @@ Details go to chiprun_out/chip_smoke.json.
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -125,6 +147,9 @@ VERIFY_BATCH = 4
 # transform's (rows, log2 n), and the pipeline's log2 n
 NTT_LOGS = (12, 16, 20, 22)
 NTT_BATCH = (8, 16)
+# ntt_dist's column and row batches at 2^22 (phase 10): N2/D rows of N1 and
+# N1/D rows of N2 (N1 = N2 = 2^11), at world 1 and world 2
+NTT_DIST_BATCHES = ((2048, 11), (1024, 11))
 PIPE_LOG = 22
 # the NTT's sweep at 2^22 and 2^20: stages a pass at most (the plan), log2 of
 # a tile's elements, threads a block
@@ -219,6 +244,64 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+# the multi-device phase (10): the NTT's and the large MSM's sizes at world
+# 1 (BASELINE configs #2 and #3), and the world-2 run's
+DIST_NTT_LOG = 22
+DIST_MSM_LOG = 24
+DIST_WORLD2 = 2
+# the ranks of the dry run (entry.dryrun_multichip), as the JAX reference's
+# is called
+DRYRUN_WORLD = 8
+
+
+def _dist_rank(mesh, tmp, counters, reps):
+    """One rank of the world-2 run (gloo, both ranks on the one card): its
+    shard of ntt_dist at 2^22, held against the world-1 output after
+    all_gather_last, then its shard of msm_dist at 2^20; the inputs come from
+    files in ``tmp``. Returns, for each path, its launches (the counters at
+    0 just before its first call) and host-clock seconds a call (ntt_dist:
+    1 + ``reps`` calls), whether the NTT matched, and the MSM's point."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from snarkos_tpu_torch.ops import g1
+    from snarkos_tpu_torch.parallel import mesh as pmesh, msm_dist, ntt_dist
+
+    # a spawned rank has launch counters of its own: found by their
+    # (module, function) names
+    fns = {k: getattr(importlib.import_module(m), f) for k, (m, f) in counters.items()}
+
+    def run(fn):
+        """fn() with the counters at 0 just before it, both ranks starting
+        together: (result, seconds, launches)."""
+        torch.cuda.synchronize()
+        dist.barrier()
+        for f in fns.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, {k: f.launches for k, f in fns.items()}
+
+    x = pmesh.shard_last(mesh, torch.load(os.path.join(tmp, "ntt_in.pt")))
+    ntt_dist.ntt_dist(x, mesh)  # the twiddle matrix of the size
+    ev, s, launches = run(lambda: ntt_dist.ntt_dist(x, mesh))
+    out = {"ntt_dist": {"s": [s] + [run(lambda: ntt_dist.ntt_dist(x, mesh))[1]
+                                    for _ in range(reps)], "launches": launches}}
+    want = torch.load(os.path.join(tmp, "ntt_out.pt")).to(mesh.device)
+    out["ntt_equal"] = bool(torch.equal(pmesh.all_gather_last(mesh, ev), want))
+    del x, ev, want
+    bx, by, bz, k = torch.load(os.path.join(tmp, "msm_in.pt"))
+    pts = g1.JacobianPoints(*(pmesh.shard_last(mesh, t) for t in (bx, by, bz)))
+    p, s, launches = run(lambda: msm_dist.msm_dist(pts, pmesh.shard_last(mesh, k), mesh))
+    out["msm_dist"] = {"s": [s], "launches": launches}
+    out["msm"] = tuple(t.cpu() for t in (p.x, p.y, p.z))
+    dist.barrier()
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -230,6 +313,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import numpy as np
+    import torch.distributed as dist
 
     from snarkos_tpu_torch import entry as entry_mod
     from snarkos_tpu_torch.crypto import params, srs_artifact
@@ -240,6 +324,7 @@ def main() -> int:
     from snarkos_tpu_torch.ops import puzzle as puzzle_mod
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
     from snarkos_tpu_torch.ops.puzzle import DEV_TAU, Puzzle, PuzzleSRS, sha64
+    from snarkos_tpu_torch.parallel import mesh as pmesh, msm_dist, ntt_dist
 
     with open(os.path.join(HERE, "tests", "fixtures", "torch_puzzle_k12_b8.json")) as fh:
         fixture = json.load(fh)
@@ -1221,7 +1306,7 @@ def main() -> int:
         return y
 
     ntt_inputs = {}
-    for rows, log_n in ((1, 22), (1, 20), (1, 16), (1, 12), (NTT_BATCH[0], NTT_BATCH[1])):
+    for rows, log_n in ((1, 22), (1, 20), (1, 16), (1, 12), NTT_BATCH) + NTT_DIST_BATCHES:
         ntt_inputs[(rows, log_n)] = fr_rows(rows, 1 << log_n, 100 + log_n + rows)
     elem = FR.nlimbs * 4  # bytes an element
 
@@ -1451,7 +1536,185 @@ def main() -> int:
     report["pipeline"] = {"log_n": PIPE_LOG, "ms": pipe_ts, "median_ms": pipe_med,
                           "steps_median_ms": steps}
 
-    # -- 10. output -----------------------------------------------------------------
+    # -- 10. the multi-device layer: world 1 over NCCL, world 2 over gloo ---------------
+    def generic_counts(n, extra_adds=0):
+        """The generic engine's launches on n points at c =
+        default_window_bits(n): a window's 2 m g1_add steps (K = 4096 lanes),
+        one B3 prefix, one B7 total, one Horner step; plus the tree reduce's
+        adds."""
+        c = msm.default_window_bits(n)
+        w = -(-msm.SCALAR_BITS // c)
+        m = n // min(4096, n)
+        return only({"g1_add": 2 * m * w + extra_adds, "seg_prefix": w,
+                     "jadd_bucket_total": w, "g1_horner": w})
+
+    dist_report = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    try:
+        # world 1 over NCCL: the mesh of a torch.distributed program of one rank
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+                                world_size=1, rank=0)
+        mesh = pmesh.make_mesh(1)
+        n = 1 << DIST_NTT_LOG
+        n1, n2 = ntt_dist._split(n)
+        x = torch.from_numpy(FR.random(n, np.random.default_rng(2210))).to(mesh.device)
+        ntt_dist.ntt_dist(x, mesh)  # the twiddle matrices of the size
+        ntt_dist.intt_dist(x, mesh)
+        ntt_counts = only({"mont_mul": 1,
+                           "fr_ntt_pass": len(ntt._pass_plan(n1.bit_length() - 1))
+                           + len(ntt._pass_plan(n2.bit_length() - 1))})
+        ev = run_path(f"ntt_dist(2^{DIST_NTT_LOG}) w1", lambda: ntt_dist.ntt_dist(x, mesh),
+                      ["mont_mul", "fr_ntt_pass"], exact=ntt_counts)
+        back = run_path(f"intt_dist(2^{DIST_NTT_LOG}) w1", lambda: ntt_dist.intt_dist(ev, mesh),
+                        ["mont_mul", "fr_ntt_pass"], exact=ntt_counts)
+        if not torch.equal(ev, ntt.ntt(x)):
+            raise AssertionError(f"ntt_dist(2^{DIST_NTT_LOG}) at world 1 != ntt.ntt, limb for limb")
+        if not torch.equal(ev, ntt.ntt_plain(x)):
+            raise AssertionError(f"ntt_dist(2^{DIST_NTT_LOG}) at world 1 != ntt.ntt_plain, "
+                                 "limb for limb")
+        if not torch.equal(back, x):
+            raise AssertionError(f"intt_dist(ntt_dist(a)) != a at 2^{DIST_NTT_LOG}, world 1")
+        log(f"ntt_dist / intt_dist(2^{DIST_NTT_LOG}) at world 1 over NCCL (N1 = {n1}, "
+            f"N2 = {n2}): == ntt.ntt and ntt.ntt_plain limb for limb, and the round trip "
+            "returns the input")
+        dist_ms, dist_ts = host_ms3(lambda: ntt_dist.ntt_dist(x, mesh))
+        one_ms, one_ts = host_ms3(lambda: ntt.ntt(x))
+        # its steps apart, each on the previous step's output (host clock,
+        # median of 3)
+        step_ms, a = {}, x
+        for name, step in ntt_dist.steps(mesh, n):
+            step_ms[name] = host_ms3(lambda step=step, a=a: step(a))[0]
+            a = step(a)
+        if not torch.equal(a, ev):
+            raise AssertionError("ntt_dist's steps apart do not compose to its output")
+        del a, back
+        log(f"ntt_dist(2^{DIST_NTT_LOG}) at world 1: median {dist_ms:.3f} ms of "
+            f"{[round(t, 3) for t in dist_ts]}, ntt(2^{DIST_NTT_LOG}) in the same call "
+            f"{one_ms:.3f} ms, on {smi}; apart: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+            + f" ms (sum {sum(step_ms.values()):.3f})")
+        dist_report["ntt_dist_w1"] = {"ms": dist_ts, "median_ms": dist_ms, "ntt_ms": one_ts,
+                                      "ntt_median_ms": one_ms, "steps_median_ms": step_ms}
+
+        # msm_dist at world 1: 2^20 distinct dev SRS powers (phase 5's bases
+        # and scalars), against the oracle and the fused engine's msm.msm
+        N = big_scalars.shape[-1]
+        log_n = N.bit_length() - 1
+        bases = g1.JacobianPoints(*(t[:, :N].contiguous()
+                                    for t in (srs.points.x, srs.points.y, srs.points.z)))
+        want = times_g(s_tau)
+        got = run_path(f"msm_dist(2^{log_n}) w1",
+                       lambda: msm_dist.msm_dist(bases, big_scalars, mesh),
+                       ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
+                       exact=generic_counts(N))
+        if affine_of(got) != want:
+            raise AssertionError(f"msm_dist(2^{log_n}) at world 1 != (sum k_i tau^i) G")
+        if affine_of(msm.msm(bases, big_scalars)) != want:
+            raise AssertionError(f"msm.msm(2^{log_n}) != (sum k_i tau^i) G")
+        md_ms, md_ts = host_ms3(lambda: msm_dist.msm_dist(bases, big_scalars, mesh))
+        mf_ms, mf_ts = host_ms3(lambda: msm.msm(bases, big_scalars))
+        log(f"msm_dist(2^{log_n}) at world 1 == (sum k_i tau^i) G == msm.msm of the same bases "
+            f"(fused engine); msm_dist median {md_ms:.1f} ms of {[round(t, 1) for t in md_ts]}, "
+            f"msm.msm {mf_ms:.1f} ms of {[round(t, 1) for t in mf_ts]}, on {smi}")
+        dist_report["msm_dist_w1_2^20"] = {"ms": md_ts, "median_ms": md_ms, "msm_ms": mf_ts,
+                                           "msm_median_ms": mf_ms}
+
+        # msm_dist at world 1 at 2^24: the 2^20 powers tiled, scalars below
+        # 2^252 drawn on the card; the oracle folds the 16 blocks' scalars on
+        # the card (Fr add), so that it stays (sum_i k'_i tau^i) G over 2^20
+        n24 = 1 << DIST_MSM_LOG
+        tile = n24 // N
+        b24 = g1.JacobianPoints(*(t.repeat(1, tile) for t in (bases.x, bases.y, bases.z)))
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(DIST_MSM_LOG)
+        k24 = torch.randint(0, 1 << 16, (FR.nlimbs, n24), generator=gen, device=mesh.device,
+                            dtype=torch.int32)
+        k24[-1] &= 0x0FFF
+        folded = k24[:, :N]
+        for i in range(1, tile):
+            folded = fa.add(FR, folded, k24[:, i * N:(i + 1) * N])
+        s24, tau_i = 0, 1
+        for k in FR.decode_fast(folded.cpu().numpy()):
+            s24 = (s24 + k * tau_i) % r
+            tau_i = tau_i * DEV_TAU % r
+        del folded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        t0 = time.perf_counter()
+        got = run_path(f"msm_dist(2^{DIST_MSM_LOG}) w1",
+                       lambda: msm_dist.msm_dist(b24, k24, mesh),
+                       ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
+                       exact=generic_counts(n24))
+        s_24 = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(mesh.device)
+        if affine_of(got) != times_g(s24):
+            raise AssertionError(f"msm_dist(2^{DIST_MSM_LOG}) != "
+                                 f"(sum k_i tau^(i mod 2^{log_n})) G")
+        del b24, k24, got
+        log(f"msm_dist(2^{DIST_MSM_LOG}) at world 1 == (sum k_i tau^(i mod 2^{log_n})) G: one "
+            f"call {s_24:.2f} s ({n24 / s_24:.0f} points/s), peak device memory "
+            f"{peak / 2 ** 30:.2f} GiB, on {smi}")
+        dist_report["msm_dist_w1_2^24"] = {"s": s_24, "peak_bytes": peak}
+        dist.destroy_process_group()
+
+        # world 2 over gloo, both ranks on this card: the exchanges and the
+        # reduce with real data split across ranks (two processes time-slice
+        # the card: their times are no scaling figure)
+        torch.save(x.cpu(), os.path.join(tmp, "ntt_in.pt"))
+        torch.save(ev.cpu(), os.path.join(tmp, "ntt_out.pt"))
+        torch.save(tuple(t.cpu() for t in (bases.x, bases.y, bases.z, big_scalars)),
+                   os.path.join(tmp, "msm_in.pt"))
+        del x, ev, bases
+        torch.cuda.empty_cache()
+        counters = {k["name"]: (k["counter"].__module__, k["counter"].__name__) for k in kernels}
+        t0 = time.perf_counter()
+        ranks = pmesh.spawn(_dist_rank, DIST_WORLD2, "gloo", str(mesh.device), tmp, counters, 2)
+        spawn_s = time.perf_counter() - t0
+        for rank, res in enumerate(ranks):
+            if not res["ntt_equal"]:
+                raise AssertionError(f"ntt_dist(2^{DIST_NTT_LOG}) at world 2, rank {rank}: "
+                                     "all_gather_last != the world-1 output")
+            if affine_of(g1.JacobianPoints(*res["msm"])) != want:
+                raise AssertionError(f"msm_dist(2^{log_n}) at world 2, rank {rank} != "
+                                     "(sum k_i tau^i) G")
+            for path, size, required, exact in (
+                    ("ntt_dist", DIST_NTT_LOG, ["mont_mul", "fr_ntt_pass"], ntt_counts),
+                    ("msm_dist", log_n, ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
+                     generic_counts(N // DIST_WORLD2, extra_adds=1))):
+                label = f"{path}(2^{size}) w{DIST_WORLD2} rank {rank}"
+                counts = res[path]["launches"]
+                for kern in kernels:
+                    kern.setdefault("launches_per_path", {})[label] = counts[kern["name"]]
+                log(f"launches in {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+                if any(counts[k] == 0 for k in required) or counts != exact:
+                    raise AssertionError(f"launches in {label}: {counts}, want {exact}")
+        log(f"world {DIST_WORLD2} over gloo, both ranks on one card: all_gather_last(ntt_dist) == "
+            f"the world-1 output limb for limb and msm_dist(2^{log_n}) == (sum k_i tau^i) G on "
+            f"every rank; spawn and both paths {spawn_s:.1f} s")
+        for rank, res in enumerate(ranks):
+            log(f"  rank {rank} (sharing the card): ntt_dist(2^{DIST_NTT_LOG}) "
+                f"{[round(t * 1e3, 1) for t in res['ntt_dist']['s']]} ms, msm_dist(2^{log_n}) "
+                f"{res['msm_dist']['s'][0]:.2f} s, on {smi}")
+        dist_report["world2"] = {"spawn_s": spawn_s,
+                                 "ranks": [{p: res[p]["s"] for p in ("ntt_dist", "msm_dist")}
+                                           for res in ranks]}
+
+        # the port's dryrun_multichip on the card: its ranks share this card
+        # over gloo, each of its four checks against the host inside the rank
+        t0 = time.perf_counter()
+        entry_mod.dryrun_multichip(DRYRUN_WORLD)
+        dry_s = time.perf_counter() - t0
+        log(f"entry.dryrun_multichip({DRYRUN_WORLD}) on the card ({DRYRUN_WORLD} ranks sharing "
+            f"it over gloo): the field step, ntt_dist / intt_dist, the mock and the real-G1 "
+            f"msm_dist all equal the host; spawn and the checks {dry_s:.1f} s on {smi}")
+        dist_report["dryrun_multichip"] = {"world": DRYRUN_WORLD, "s": dry_s}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["dist"] = dist_report
+
+    # -- 11. output -----------------------------------------------------------------
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:

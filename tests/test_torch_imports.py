@@ -92,6 +92,18 @@ def test_entry_points_refuse_without_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.entry()
+    # the mesh of the multi-device layer is this rank's card unless told
+    # otherwise; the device is resolved before any process group is joined
+    from snarkos_tpu_torch.parallel import mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh(1, backend="gloo", device="cuda:0")
+    # the dry run's ranks are on the card unless told otherwise; nothing is
+    # spawned without one
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.dryrun_multichip(2)
     assert _build.resolve_device("cpu").type == "cpu"
 
 
