@@ -11,7 +11,8 @@ result line:
   2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute and
      fr_epoch_step; B2 g1_add and its window entry points g1_horner and
      g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
-     B6 bucket_scan_fast, B7 jadd_bucket_total) against its plain PyTorch
+     B6 bucket_scan_fast, B7 jadd_bucket_total; the generic engine's lane
+     scan g1_lane_scan and g1_lane_carry) against its plain PyTorch
      version on the card, at the paths' shapes and on real windows of their
      MSMs, with edge lanes; the comparison is exact (tolerance 0: the
      arithmetic is integer). B4-B7 add in another order than their plain
@@ -19,7 +20,13 @@ result line:
      max_abs_err is then over the affine normal forms), at each setting of
      their sweeps: B4 and B5 at every position, B6 at every position of a
      live bucket in an unflagged chain (elsewhere its values are don't-care)
-     and its exception flags exactly, B7 at the total and at every suffix.
+     and its exception flags exactly, B7 at the total and at every suffix,
+     g1_lane_scan at every position and its lane aggregates (their flags and
+     first heads exactly) on real windows of the generic engine at m = 16
+     and 256 steps a lane, each team of its sweep; g1_lane_carry limb for
+     limb; both around B3 equal to the fold of the JAX order. At m = 4096
+     (msm_dist(2^24)'s window) the sweep is timed and sampled lanes are held
+     to the host's serial scan.
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
      of 3 at the 2^20 shapes and for the Poseidon permutation), CUDA events
      around each run, which at small widths time the host's launch rate;
@@ -46,17 +53,18 @@ result line:
   6. the generic engine: msm.msm over the first 2^16 dev SRS powers, each
      rescaled to a random z, every 64th the identity, every 97th scalar 0:
      the result equals (sum k_i tau^i) G over the non-identity lanes, and a
-     call launches B2's g1_add 2 m W times (m = 16 steps a lane, W = 20
-     windows), B3, B7 and g1_horner W times each, and no B4-B6; points/s
-     (median of 3).
+     call launches g1_lane_scan, B3, g1_lane_carry, B7 and g1_horner W times
+     each (W = 20 windows; m = 16 steps a lane) and nothing else, no g1_add;
+     points/s (median of 3).
   7. the verifier: check_binding's B1 launches; Puzzle.verify_batch over the
      first 4 solutions of phase 3 and verify of each accept, eval_y + 1 and
      swapped witnesses reject, check_structural refuses x >= q;
      kzg.batch_verify over their openings runs on the fused engine (B4, no
      g1_add), with a constant polynomial's opening (W the identity) on the
-     generic one (g1_add, no B4), both accept, and reject once that
-     opening's y changes. Times: verify_batch(4), its check_bindings,
-     batch_verify and the host pairing_check apart (medians of 3).
+     generic one (the lane scan, no g1_add, no B4), both accept, and reject
+     once that opening's y changes. Times: verify_batch(4), its
+     check_bindings, batch_verify (without and with the identity witness)
+     and the host pairing_check apart (medians of 3).
   8. the SRS artifact: the degree-2^12 dev SRS saved with save_srs and
      loaded by PuzzleSRS.from_artifact (the consistency check's MSMs on B4)
      gives the same device points and tau H; a copy with one power changed
@@ -91,8 +99,9 @@ result line:
      tiled 16 times, scalars drawn on the card below 2^252, equal to
      (sum k_i tau^(i mod 2^20)) G (the 16 blocks' scalars folded by Fr adds
      on the card first), one call with its peak device memory. The generic
-     engine's launches are exact (2 m W g1_add, W each of B3, B7 and
-     g1_horner). Host-clock times: ntt_dist beside ntt (medians of 3) with
+     engine's launches are exact (W each of g1_lane_scan, B3,
+     g1_lane_carry, B7 and g1_horner, no g1_add; at world 2 one g1_add, the
+     tree reduce). Host-clock times: ntt_dist beside ntt (medians of 3) with
      its steps apart, msm_dist(2^20) beside msm.msm (medians of 3),
      msm_dist(2^24) once. World 2 over gloo, two spawned ranks sharing the
      one card: all_gather_last of ntt_dist(2^22) equal to the world-1 output,
@@ -129,6 +138,7 @@ The script imports nothing of JAX or of the JAX package (snarkos_tpu).
 Details go to chiprun_out/chip_smoke.json.
 """
 
+import dataclasses
 import json
 import os
 import random
@@ -151,12 +161,19 @@ WIDE_TEAM_SWEEP = (4, 8, 16, 32)  # B5's and B6's threads per chain
 # and the few also run at the c = 16 MSM's B = 2^15 + 1
 TOTAL_SWEEP = tuple((t, s) for t in (32, 64, 128, 256) for s in (1, 2, 4))
 TOTAL_SWEEP_WIDE = ((64, 1), (128, 1), (256, 1), (256, 2))
+# the lane scan's threads a lane at the generic engine's m = 16 (2^16), 256
+# (2^20) and 4096 (2^24) elements a lane
+LANE_SWEEP = {16: (2, 4, 8, 16, 32), 256: (8, 16, 32, 64, 128, 256),
+              4096: (16, 32, 64, 128, 256)}
 # kernels that no path launches yet, with their next caller: held against
 # their plain versions, exempt from the "launched on no path" check, and a
 # failure if a path does launch them
 NO_PATH_YET = {}
 # the generic engine's MSM (phase 6): 2^16 Jacobian bases, c = 13, K = 4096
-# lanes of m = 16 steps, W = 20 windows
+# lanes of m = 16 steps, W = 20 windows; the kernels it launches once a
+# window
+GENERIC_KERNELS = ["g1_lane_scan", "seg_prefix", "g1_lane_carry", "jadd_bucket_total",
+                   "g1_horner"]
 LOG_GENERIC = 16
 GENERIC_C = 13
 GENERIC_K = 4096
@@ -954,6 +971,230 @@ def main() -> int:
           "snarkos_tpu/ops/msm_pallas.py:303", b7, msm_kernels.bucket_total_kernel,
           compare=b7_compare, verify=no_total)
 
+    # The generic engine's chunked scan: g1_lane_scan and g1_lane_carry on
+    # real windows (keys sorted, the points gathered in that order) of the
+    # generic msm(2^16) (phase 6's bases: rescaled SRS powers, every 64th an
+    # identity; m = 16) and msm_dist(2^20) (the dev SRS powers, identities
+    # planted at every 1000th position; m = 256), K = 4096 lanes, with edges
+    # planted in chosen lanes: at lane offsets 0, s - 1 for each sub-run
+    # length s = ceil(m / T) of the sweep, and m - 2, a head followed by its
+    # copy (P == Q) or its negation (P == -Q), alternately; a head at the
+    # last position of one lane; a run over lanes 60-63, three of them
+    # whole, with no head.
+    # g1_lane_scan is held to its plain version at every position (the same
+    # points), its aggregates likewise and its aggregate flags and first
+    # heads exactly, at each team of the sweep (the path's first);
+    # g1_lane_carry limb for limb; the whole scan (the G1 group's lane_scan:
+    # both entries around one B3 prefix) against the fold of the JAX order.
+    NG = 1 << LOG_GENERIC
+    gen_pts = [rescale(p) for p in srs.srs_ref.powers_g1[:NG]]  # z != 1
+    for i in range(0, NG, 64):  # every 64th an identity
+        gen_pts[i] = ref_g1.INFINITY
+    gen_scalars = FR.random(NG, np.random.default_rng(16))
+    gen_scalars[:, ::97] = 0
+    gen_base = g1.encode_points(gen_pts, dev)
+    gen_k = torch.from_numpy(gen_scalars).to(dev)
+
+    def lane_window(points, keys):
+        """(flags (1, N), x, y, z) of a window: the points in the stable
+        order of ``keys``, a head where the key changes."""
+        keys, order = torch.sort(keys, stable=True)
+        head = torch.cat([torch.ones(1, dtype=torch.int32, device=dev),
+                          (keys[1:] != keys[:-1]).to(torch.int32)]).unsqueeze(0)
+        return (head,) + tuple(t[..., order] for t in points)
+
+    def plant_lane_edges(win, m, sweep):
+        """A copy of the window with the edges above: lanes 8 i + 1 for the
+        edge at offset i of the list (i < 7), lane 5's last position a head,
+        lanes 60-63 in one run (K >= 64)."""
+        fl, x, y, z = (t.clone() for t in win)
+        offs = [0] + sorted({-(-m // t) - 1 for t in sweep} - {0}) + [m - 2]
+        offs = [i for i in dict.fromkeys(offs) if 0 <= i < m - 1]
+        for idx, i in enumerate(offs):
+            e = (8 * idx + 1) * m + i
+            fl[0, e], fl[0, e + 1] = 1, 0
+            x[:, e + 1], y[:, e + 1], z[:, e + 1] = x[:, e], y[:, e], z[:, e]
+            if idx % 2:
+                y[:, e + 1] = fa.neg(FQ, y[:, e:e + 1])[:, 0]
+        fl[0, 6 * m - 1] = 1
+        fl[0, 60 * m + 1:64 * m] = 0
+        return (fl.contiguous(), x.contiguous(), y.contiguous(), z.contiguous()), offs
+
+    def lane_cost(fl, K):
+        """g1_lane_scan: flags and points read, points written once, the
+        lane outputs written; the serial scan's complete add a non-head
+        position (16 Fq products)."""
+        npos = fl.numel()
+        return ((4 + 2 * 72 * 4) * npos + (4 + 72 * 4 + 4) * K,
+                (npos - int(fl.sum())) * 16 * FQ_MUL_OPS)
+
+    def carry_cost(first, m, K):
+        """g1_lane_carry: the prefix and first heads read; at each position
+        before its lane's first head (lanes >= 1) the point read and
+        written, one complete add."""
+        n_c = int(first[1:].clamp(max=m).long().sum())
+        return (2 * 72 * 4 * n_c + (72 * 4 + 4) * K, 16 * n_c * FQ_MUL_OPS)
+
+    def lane_compare(got, want):
+        if not (torch.equal(got[3], want[3]) and torch.equal(got[7], want[7])):
+            raise AssertionError("g1_lane_scan: aggregate flags or first heads differ from the "
+                                 "plain version's")
+        return max(affine_err(got[:3], want[:3]), affine_err(got[4:7], want[4:7]))
+
+    lane_windows = {}
+    gen_keys = msm.window_digits(gen_k, GENERIC_C)[10].long()
+    k20_keys = msm.window_digits(big_scalars, msm.default_window_bits(N))[10].long()
+    ids20 = g1.JacobianPoints(bx.clone(), by.clone(),
+                              fa.broadcast_const(FQ, 1, (N,), device=dev).contiguous())
+    ids20.z[:, ::1000] = 0  # identities with the power's X, Y
+    for label, pts, keys, sweep in (
+            ("2^20", (ids20.x, ids20.y, ids20.z), k20_keys, LANE_SWEEP[256]),
+            ("2^16", coords(gen_base), gen_keys, LANE_SWEEP[16])):
+        m_l = pts[0].shape[-1] // GENERIC_K
+        win, offs = plant_lane_edges(lane_window(pts, keys), m_l, sweep)
+        tp = msm_kernels.lane_team(m_l)  # the path's team first
+        lane_windows[label] = (win, m_l, [tp] + [t for t in sweep if t != tp])
+        log(f"lane scan window of {label}: m = {m_l}, edges at lane offsets {offs}")
+    del ids20
+
+    def lane_plain(win):
+        return g1_kernels.lane_scan_plain(*win, GENERIC_K)
+
+    lane_plains = {label: (lambda win=win: lane_plain(win))
+                   for label, (win, _, _) in lane_windows.items()}
+    check("g1_lane_scan", "snarkos_tpu_torch/csrc/lane_scan.cu",
+          "snarkos_tpu/ops/g1_pallas.py:125",
+          [(f"(24, {win[1].shape[-1]}) K={GENERIC_K} m={m_l} T={t} ({label})",
+            lambda win=win, t=t: g1_kernels.lane_scan_kernel(*win, GENERIC_K, t),
+            lane_plains[label], *lane_cost(win[0], GENERIC_K))
+           for label, (win, m_l, teams) in lane_windows.items() for t in teams],
+          g1_kernels.lane_scan_kernel, big=True, compare=lane_compare)
+
+    carry_cases = []
+    for label, (win, m_l, _) in lane_windows.items():
+        ox, oy, oz, *agg, first = g1_kernels.lane_scan_kernel(*win, GENERIC_K,
+                                                              msm_kernels.lane_team(m_l))
+        summ = tuple(t.contiguous() for t in g1_kernels.seg_prefix(tuple(agg))[1:])
+        scratch = (ox.clone(), oy.clone(), oz.clone())
+        carry_cases.append((
+            f"(24, {win[1].shape[-1]}) K={GENERIC_K} m={m_l} ({label})",
+            lambda o=(ox, oy, oz), summ=summ, first=first, m_l=m_l:
+                g1_kernels.lane_carry_kernel(*(t.clone() for t in o), *summ, first, m_l),
+            lambda o=(ox, oy, oz), summ=summ, first=first, m_l=m_l:
+                g1_kernels.lane_carry_plain(*o, *summ, first, m_l),
+            *carry_cost(first, m_l, GENERIC_K),
+            lambda scratch=scratch, summ=summ, first=first, m_l=m_l:
+                g1_kernels.lane_carry_kernel(*scratch, *summ, first, m_l)))
+    check("g1_lane_carry", "snarkos_tpu_torch/csrc/lane_scan.cu",
+          "snarkos_tpu/ops/g1_pallas.py:125", carry_cases, g1_kernels.lane_carry_kernel,
+          big=True)
+    g1_cuda = msm.g1_group(dev)
+    fold_group = dataclasses.replace(g1_cuda, lane_scan=None)
+    for label, (win, m_l, _) in lane_windows.items():
+        whole = g1_cuda.lane_scan(win[0], win[1:], GENERIC_K)
+        fold = msm._fold_lanes(msm._default_seg_combine(fold_group), fold_group, win[0], win[1:],
+                               GENERIC_K)
+        log(f"the chunked scan of the {label} window (g1_lane_scan, B3, g1_lane_carry) == the "
+            f"fold of the JAX order at every position (max abs err of the affine forms "
+            f"{affine_err(whole, fold)})")
+    del lane_windows, lane_plains, carry_cases, whole, fold
+
+    # msm_dist(2^24)'s window, m = 4096: the 2^20 dev SRS powers tiled 16
+    # times in the order of 13 random key bits, the edges planted as above.
+    # Each team of the sweep is timed; the plain fold would take minutes, so
+    # sampled lanes (the first, the edge lanes, lane 5, the run over lanes
+    # 60-63) are held to the host's serial scan (crypto/ref/g1)
+    # at every position, lane-local after g1_lane_scan and whole after B3
+    # and g1_lane_carry, and every lane's aggregate to its own last
+    # position, its flag and first head to the flags.
+    n24 = 1 << DIST_MSM_LOG
+    gen24 = torch.Generator(device=dev)
+    gen24.manual_seed(DIST_MSM_LOG)
+    keys24, order24 = torch.sort(torch.randint(0, 1 << GENERIC_C, (n24,), generator=gen24,
+                                               device=dev), stable=True)
+    order24 = order24 % N
+    win24 = (torch.cat([torch.ones(1, dtype=torch.int32, device=dev),
+                        (keys24[1:] != keys24[:-1]).to(torch.int32)]).unsqueeze(0),
+             bx[:, order24], by[:, order24], fa.broadcast_const(FQ, 1, (n24,), device=dev))
+    del keys24, order24
+    m24 = n24 // GENERIC_K
+    win24, offs24 = plant_lane_edges(win24, m24, LANE_SWEEP[4096])
+    team24 = msm_kernels.lane_team(m24)
+    by_name = {k["name"]: k for k in kernels}
+    ms24 = {}
+    for t in [team24] + [t for t in LANE_SWEEP[4096] if t != team24]:
+        ms24[t] = (cuda_ms(lambda t=t: g1_kernels.lane_scan_kernel(*win24, GENERIC_K, t), 3, 2),
+                   graph_ms(lambda t=t: g1_kernels.lane_scan_kernel(*win24, GENERIC_K, t), 3, 2))
+        b_ms, b_by = bound(*lane_cost(win24[0], GENERIC_K))
+        by_name["g1_lane_scan"]["shapes"].append({
+            "shape": f"(24, {n24}) K={GENERIC_K} m={m24} T={t} (2^24)", "ms": ms24[t][0],
+            "device_ms": ms24[t][1], "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        log(f"g1_lane_scan (24, {n24}) m={m24} T={t}: kernel {ms24[t][0]:.4f} ms (device "
+            f"{ms24[t][1]:.4f} ms), bound {b_ms:.5f} ms ({b_by})")
+        torch.cuda.empty_cache()
+    ox, oy, oz, agg_f, ax, ay, az, first24 = g1_kernels.lane_scan_kernel(*win24, GENERIC_K, team24)
+    f2 = win24[0].reshape(GENERIC_K, m24) != 0
+    want_first = torch.where(f2.any(1), f2.int().argmax(1), m24).to(torch.int32)
+    if not (torch.equal(first24, want_first)
+            and torch.equal(agg_f[0], f2.any(1).to(torch.int32))):
+        raise AssertionError("g1_lane_scan at 2^24: first heads or aggregate flags are wrong")
+    lasts = torch.arange(1, GENERIC_K + 1, device=dev) * m24 - 1
+    if affine_err((ax, ay, az), tuple(t[:, lasts] for t in (ox, oy, oz))) != 0:
+        raise AssertionError("g1_lane_scan at 2^24: an aggregate is not its lane's last value")
+    sample = sorted({0, 5} | {8 * i + 1 for i in range(len(offs24))} | {60, 61, 62, 63})
+    span = (max(sample) + 1) * m24
+
+    def lanes_of(t):
+        return torch.cat([t[:, k * m24:(k + 1) * m24] for k in sample], dim=-1).cpu()
+
+    local24 = tuple(lanes_of(t) for t in (ox, oy, oz))
+    summ = tuple(t.contiguous() for t in g1_kernels.seg_prefix((agg_f, ax, ay, az))[1:])
+    b_ms, b_by = bound(*carry_cost(first24, m24, GENERIC_K))
+    c_ms = cuda_ms(lambda: g1_kernels.lane_carry_kernel(ox, oy, oz, *summ, first24, m24), 3, 2)
+    c_dev = graph_ms(lambda: g1_kernels.lane_carry_kernel(ox, oy, oz, *summ, first24, m24), 3, 2)
+    by_name["g1_lane_carry"]["shapes"].append({
+        "shape": f"(24, {n24}) K={GENERIC_K} m={m24} (2^24)", "ms": c_ms, "device_ms": c_dev,
+        "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+    log(f"g1_lane_carry (24, {n24}) m={m24}: kernel {c_ms:.4f} ms (device {c_dev:.4f} ms), "
+        f"bound {b_ms:.5f} ms ({b_by})")
+    # the timed launches added the carries again: one more clean pass
+    ox, oy, oz, agg_f, ax, ay, az, first24 = g1_kernels.lane_scan_kernel(*win24, GENERIC_K, team24)
+    summ = tuple(t.contiguous() for t in g1_kernels.seg_prefix((agg_f, ax, ay, az))[1:])
+    g1_kernels.lane_carry_kernel(ox, oy, oz, *summ, first24, m24)
+    whole24 = tuple(lanes_of(t) for t in (ox, oy, oz))
+    host_pts = g1.decode_points(g1.JacobianPoints(*(t[:, :span] for t in win24[1:])))
+    heads24 = win24[0][0, :span].cpu().tolist()
+    del ox, oy, oz, agg_f, ax, ay, az, first24, summ, win24
+    torch.cuda.empty_cache()
+    local_pts = g1.decode_points(g1.JacobianPoints(*local24))
+    whole_pts = g1.decode_points(g1.JacobianPoints(*whole24))
+
+    def host_same(a, b):
+        """Projective equality of two host Jacobian points (no inversion)."""
+        q = FQ.p
+        za, zb = a[2] % q, b[2] % q
+        if za == 0 or zb == 0:
+            return za == zb
+        za2, zb2 = za * za % q, zb * zb % q
+        return (a[0] * zb2 - b[0] * za2) % q == 0 and \
+            (a[1] * zb2 * zb - b[1] * za2 * za) % q == 0
+
+    acc, at = ref_g1.INFINITY, 0
+    for k in range(max(sample) + 1):  # the serial scan over the lanes up to the last sampled
+        lacc = ref_g1.INFINITY
+        for e in range(k * m24, (k + 1) * m24):
+            acc = host_pts[e] if heads24[e] else ref_g1.add(acc, host_pts[e])
+            lacc = host_pts[e] if heads24[e] else ref_g1.add(lacc, host_pts[e])
+            if k in sample:
+                if not (host_same(lacc, local_pts[at]) and host_same(acc, whole_pts[at])):
+                    raise AssertionError(f"the lane scan at 2^24, lane {k} position {e}: not "
+                                         "the host's serial scan")
+                at += 1
+    log(f"lane scan at 2^24 (m = {m24}, edges at lane offsets {offs24}): lanes {sample} equal the "
+        "host's serial scan at every position, lane-local and whole; every aggregate is its "
+        "lane's last value, the flags and first heads exact")
+    del host_pts, local_pts, whole_pts, local24, whole24
+
     def run_path(label, fn, required, absent=(), exact=None, at_most=None):
         """Drive one path with every launch counter at 0 just before it; the
         kernels in ``required`` must launch, those in ``absent`` must not,
@@ -980,6 +1221,15 @@ def main() -> int:
         if off:
             raise AssertionError(f"launches in {label}: {off}, want {exact} and at most {at_most}")
         return out
+
+    def generic_counts(n, extra_adds=0):
+        """The generic engine's launches on n points at c =
+        default_window_bits(n), exactly and nothing else: a window's
+        g1_lane_scan, B3 prefix, g1_lane_carry, B7 total and Horner step;
+        plus the tree reduce's g1_add launches."""
+        w = -(-msm.SCALAR_BITS // msm.default_window_bits(n))
+        return {**{k["name"]: 0 for k in kernels},
+                **{k: w for k in GENERIC_KERNELS}, "g1_add": extra_adds}
 
     # -- 3. the prover at batch 8 ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1121,15 +1371,7 @@ def main() -> int:
         f"{N / med:.0f} points/s on {smi}")
     report.update(msm_s=times, msm_points_per_s=N / med)
 
-    # -- 6. the generic engine: 2^16 Jacobian bases (B2's add, B3, B7, B2's horner) ---
-    NG = 1 << LOG_GENERIC
-    gen_pts = [rescale(p) for p in srs.srs_ref.powers_g1[:NG]]  # z != 1
-    for i in range(0, NG, 64):  # every 64th an identity
-        gen_pts[i] = ref_g1.INFINITY
-    gen_scalars = FR.random(NG, np.random.default_rng(16))
-    gen_scalars[:, ::97] = 0
-    gen_base = g1.encode_points(gen_pts, dev)
-    gen_k = torch.from_numpy(gen_scalars).to(dev)
+    # -- 6. the generic engine: 2^16 Jacobian bases (the lane scan, B3, B7, B2's horner) -
     ks_g = FR.decode_fast(gen_scalars)
     s_gen, tau_i = 0, 1  # sum over the non-identity lanes of k_i tau^i
     for i, k in enumerate(ks_g):
@@ -1140,13 +1382,10 @@ def main() -> int:
         raise AssertionError(f"default_window_bits(2^{LOG_GENERIC}) != {GENERIC_C}")
     W_g = -(-msm.SCALAR_BITS // GENERIC_C)
     m_g = NG // GENERIC_K
-    # a window: 2 passes of m steps of B2's add at width K, one B3 prefix of
-    # the lane aggregates, one B7 total of the 2^c buckets, one Horner step
+    # a window: one g1_lane_scan, one B3 prefix of the lane aggregates, one
+    # g1_lane_carry, one B7 total of the 2^c buckets, one Horner step
     got = run_path(f"msm(2^{LOG_GENERIC}, Jacobian bases)", lambda: msm.msm(gen_base, gen_k),
-                   ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
-                   absent=["bucket_scan_serial", "bucket_scan", "bucket_scan_fast"],
-                   exact={"g1_add": 2 * m_g * W_g, "seg_prefix": W_g,
-                          "jadd_bucket_total": W_g, "g1_horner": W_g, "g1_bucket_fixup": 0})
+                   GENERIC_KERNELS, exact=generic_counts(NG))
     if affine_of(got) != times_g(s_gen):
         raise AssertionError(f"msm(2^{LOG_GENERIC}) on Jacobian bases != "
                              "(sum k_i tau^i) G over the non-identity lanes")
@@ -1205,8 +1444,7 @@ def main() -> int:
                         absent=["g1_add", "jadd_bucket_total"])
     gen_ok = run_path(f"batch_verify({VERIFY_BATCH} + identity witness)",
                       lambda: kzg.batch_verify(srs_ref, openings + [const]),
-                      ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
-                      absent=["bucket_scan_serial", "g1_bucket_fixup"])
+                      GENERIC_KERNELS, absent=["g1_add", "bucket_scan_serial", "g1_bucket_fixup"])
     const_bad = (const[0], const[1], (const[2] + 1) % r, const[3])
     if not (fused_ok and gen_ok) or kzg.batch_verify(srs_ref, openings + [const_bad]):
         raise AssertionError("batch_verify: the fused or generic engine gave a wrong verdict")
@@ -1234,12 +1472,14 @@ def main() -> int:
     vb_s, vb_all = med3(lambda: puzzle.verify_batch(items))
     bind_s, _ = med3(lambda: [puzzle.check_binding(*it[:5]) for it in items])
     bv_s, _ = med3(lambda: kzg.batch_verify(srs_ref, openings))
+    bvi_s, _ = med3(lambda: kzg.batch_verify(srs_ref, openings + [const]))
     pair_s, _ = med3(lambda: pairing.pairing_check(pairs))
     log(f"verify_batch({VERIFY_BATCH}): median {vb_s:.3f} s of {[round(t, 3) for t in vb_all]} "
         f"on {smi}; apart: {VERIFY_BATCH} check_binding {bind_s:.3f} s, batch_verify "
-        f"{bv_s:.3f} s, of which the host pairing_check {pair_s:.3f} s")
+        f"{bv_s:.3f} s, of which the host pairing_check {pair_s:.3f} s; batch_verify with the "
+        f"identity witness (the generic engine) {bvi_s:.3f} s")
     report.update(verify_batch4_s=vb_all, check_binding4_s=bind_s, batch_verify4_s=bv_s,
-                  pairing_check_s=pair_s)
+                  batch_verify4_identity_s=bvi_s, pairing_check_s=pair_s)
 
     # -- 8. the SRS artifact: save, load through the consistency check ---------------
     art_dir = os.path.join(HERE, "build", "srs")
@@ -1556,17 +1796,6 @@ def main() -> int:
                           "steps_median_ms": steps}
 
     # -- 10. the multi-device layer: world 1 over NCCL, world 2 over gloo ---------------
-    def generic_counts(n, extra_adds=0):
-        """The generic engine's launches on n points at c =
-        default_window_bits(n): a window's 2 m g1_add steps (K = 4096 lanes),
-        one B3 prefix, one B7 total, one Horner step; plus the tree reduce's
-        adds."""
-        c = msm.default_window_bits(n)
-        w = -(-msm.SCALAR_BITS // c)
-        m = n // min(4096, n)
-        return only({"g1_add": 2 * m * w + extra_adds, "seg_prefix": w,
-                     "jadd_bucket_total": w, "g1_horner": w})
-
     dist_report = {}
     tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
     try:
@@ -1624,8 +1853,7 @@ def main() -> int:
         want = times_g(s_tau)
         got = run_path(f"msm_dist(2^{log_n}) w1",
                        lambda: msm_dist.msm_dist(bases, big_scalars, mesh),
-                       ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
-                       exact=generic_counts(N))
+                       GENERIC_KERNELS, exact=generic_counts(N))
         if affine_of(got) != want:
             raise AssertionError(f"msm_dist(2^{log_n}) at world 1 != (sum k_i tau^i) G")
         if affine_of(msm.msm(bases, big_scalars)) != want:
@@ -1662,8 +1890,7 @@ def main() -> int:
         t0 = time.perf_counter()
         got = run_path(f"msm_dist(2^{DIST_MSM_LOG}) w1",
                        lambda: msm_dist.msm_dist(b24, k24, mesh),
-                       ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
-                       exact=generic_counts(n24))
+                       GENERIC_KERNELS, exact=generic_counts(n24))
         s_24 = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(mesh.device)
         if affine_of(got) != times_g(s24):
@@ -1698,7 +1925,7 @@ def main() -> int:
                                      "(sum k_i tau^i) G")
             for path, size, required, exact in (
                     ("ntt_dist", DIST_NTT_LOG, ["mont_mul", "fr_ntt_pass"], ntt_counts),
-                    ("msm_dist", log_n, ["g1_add", "seg_prefix", "jadd_bucket_total", "g1_horner"],
+                    ("msm_dist", log_n, GENERIC_KERNELS + ["g1_add"],
                      generic_counts(N // DIST_WORLD2, extra_adds=1))):
                 label = f"{path}(2^{size}) w{DIST_WORLD2} rank {rank}"
                 counts = res[path]["launches"]

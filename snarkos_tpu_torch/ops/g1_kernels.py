@@ -1,9 +1,10 @@
 """Kernels B2 (complete G1 add) and B3 (segmented prefix scan), the port of
 ``snarkos_tpu/ops/g1_pallas.py``.
 
-A CUDA tensor launches ``csrc/g1_add.cu`` / ``csrc/seg_prefix.cu``; a CPU
-tensor runs the plain version: ``g1.add`` for B2, ``seg_prefix_plain`` for
-B3. Coordinates are (24, N) int32 Montgomery limb tensors, flags (1, N) int32.
+A CUDA tensor launches ``csrc/g1_add.cu`` / ``csrc/seg_prefix.cu`` /
+``csrc/lane_scan.cu``; a CPU tensor runs the plain version: ``g1.add`` for
+B2, ``seg_prefix_plain`` for B3. Coordinates are (24, N) int32 Montgomery
+limb tensors, flags (1, N) int32.
 
 B2 has two more entry points, the compositions of the add that the MSM's
 window loop runs: ``horner`` (acc = 2^c acc + t) and ``bucket_fixup`` (the
@@ -15,6 +16,15 @@ The TPU kernel B3 is the one-round operator ``seg_combine``, launched once
 per Hillis-Steele round by the MSM's prefix scans. Here B3 runs the whole
 prefix in one launch (``seg_prefix``), round for round the same function;
 ``seg_combine_plain`` stays as the plain round operator.
+
+The generic MSM engine's chunked segmented scan (K lanes of m consecutive
+elements) runs B3's operator 2 m times a window in the JAX package. Here it
+is two launches of ``csrc/lane_scan.cu`` around one B3 prefix of the lane
+aggregates: ``lane_scan`` (every lane's own scan from the identity, its
+aggregate and first head; a team of threads a lane) and ``lane_carry`` (the
+carry into each lane added where the lane's first run continues one from
+earlier lanes). Their plain versions are ``lane_scan_plain`` (the JAX
+engine's first pass, keeping every step) and ``lane_carry_plain``.
 """
 
 from __future__ import annotations
@@ -153,6 +163,98 @@ def seg_prefix_kernel(flags, x, y, z):
 seg_prefix_kernel.launches = 0
 
 
+def lane_scan_plain(flags, x, y, z, K: int):
+    """Plain version of ``lane_scan``: lane k of the N = K m positions owns
+    [k m, (k+1) m); its segmented scan from (flag 0, the identity) with
+    ``seg_combine_plain``, m steps at width K as the JAX engine's first pass
+    runs them. Returns (x, y, z) (24, N) lane-local values at every position,
+    the aggregates (flag (1, K) int32, the OR of the lane's heads; x, y, z
+    (24, K), the value at its last position) and first_head (K,) int32, the
+    index of the lane's first head, m if it has none."""
+    n = x.shape[-1]
+    m = n // K
+    f3 = flags.reshape(K, m)
+    p3 = tuple(t.reshape(_L, K, m) for t in (x, y, z))
+    inf = g1.infinity((K,), device=x.device)
+    state = (torch.zeros((1, K), dtype=torch.int32, device=x.device), inf.x, inf.y, inf.z)
+    steps = []
+    for j in range(m):
+        state = seg_combine_plain(state, (f3[:, j].unsqueeze(0),) + tuple(p[:, :, j] for p in p3))
+        steps.append(state[1:])
+    out = tuple(torch.stack([st[i] for st in steps], dim=-1).reshape(_L, n) for i in range(3))
+    heads = f3 != 0
+    first = torch.where(heads.any(1), heads.int().argmax(1), m).to(torch.int32)
+    return (*out, *state, first)
+
+
+def lane_scan_kernel(flags, x, y, z, K: int, team: int):
+    """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_scan``: a team of
+    ``team`` threads a lane (a power of two up to 256; members past the
+    lane's end hold no elements). Its values are other Jacobian
+    representatives of the plain version's points; the aggregate flags and
+    first heads are exact."""
+    n = x.shape[-1]
+    if K < 1 or n % K:
+        raise ValueError(f"lane_scan: {n} positions are not a multiple of {K} lanes")
+    if team < 1 or team > 256 or team & (team - 1):
+        raise ValueError(f"lane_scan: team {team} is not a power of two up to 256")
+    _build.check(flags, (1, n), "lane_scan flags")
+    for t, what in zip((x, y, z), "xyz"):
+        _build.check(t, (_L, n), f"lane_scan {what}")
+    out = [torch.empty_like(x) for _ in range(3)]
+    agg = [torch.empty((1, K), dtype=torch.int32, device=x.device)] + [
+        torch.empty((_L, K), dtype=torch.int32, device=x.device) for _ in range(3)]
+    first = torch.empty(K, dtype=torch.int32, device=x.device)
+    if n:
+        fn = _build.entry("lane_scan", "g1_lane_scan", 12, 3)
+        _build.launch(fn, (flags, x, y, z, *out, *agg, first), (n // K, K, team), x.device)
+        lane_scan_kernel.launches += 1
+    return (*out, *agg, first)
+
+
+lane_scan_kernel.launches = 0
+
+
+def lane_carry_plain(ox, oy, oz, sx, sy, sz, first_head, m: int):
+    """Plain version of ``lane_carry``: at each position e of lane k = e // m
+    >= 1 with e - k m < first_head[k], ``g1.add(carry, local)`` with the
+    carry (sx, sy, sz)[k - 1] (the inclusive prefix of the lane aggregates);
+    every other position as it is. Returns new tensors."""
+    n = ox.shape[-1]
+    pos = torch.arange(n, device=ox.device)
+    lane = pos // m
+    idx = ((lane > 0) & (pos - lane * m < first_head.long()[lane])).nonzero().squeeze(1)
+    carry = g1.JacobianPoints(*(s[:, lane[idx] - 1] for s in (sx, sy, sz)))
+    summed = g1.add(carry, g1.JacobianPoints(*(o[:, idx] for o in (ox, oy, oz))))
+    out = [o.clone() for o in (ox, oy, oz)]
+    for o, v in zip(out, (summed.x, summed.y, summed.z)):
+        o[:, idx] = v
+    return tuple(out)
+
+
+def lane_carry_kernel(ox, oy, oz, sx, sy, sz, first_head, m: int):
+    """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_carry``, updating
+    (ox, oy, oz) in place (they are returned); limb for limb the plain
+    version."""
+    n = ox.shape[-1]
+    if m < 1 or n % m:
+        raise ValueError(f"lane_carry: {n} positions are not a multiple of lanes of {m}")
+    K = n // m
+    for t, what in zip((ox, oy, oz), "xyz"):
+        _build.check(t, (_L, n), f"lane_carry {what}")
+    for t, what in zip((sx, sy, sz), "xyz"):
+        _build.check(t, (_L, K), f"lane_carry prefix {what}")
+    _build.check(first_head, (K,), "lane_carry first_head")
+    if n:
+        fn = _build.entry("lane_scan", "g1_lane_carry", 7, 2)
+        _build.launch(fn, (ox, oy, oz, sx, sy, sz, first_head), (m, K), ox.device)
+        lane_carry_kernel.launches += 1
+    return ox, oy, oz
+
+
+lane_carry_kernel.launches = 0
+
+
 def _contig(*ts):
     return tuple(t.to(torch.int32).contiguous() for t in ts)
 
@@ -200,3 +302,23 @@ def seg_prefix(state):
     if x.device.type == "cpu":
         return seg_prefix_plain(state)
     return seg_prefix_kernel(*_contig(flags.expand(1, x.shape[-1]), x, y, z))
+
+
+def lane_scan(flags, x, y, z, K: int, team: int):
+    """Every lane's own segmented scan (module docstring): flags (1, N), x,
+    y, z (24, N), N = K m. Returns (x, y, z) at every position, the lane
+    aggregates (flag (1, K), x, y, z (24, K)) and first_head (K,).
+    ``g1_lane_scan`` on a CUDA tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return lane_scan_plain(flags, x, y, z, K)
+    return lane_scan_kernel(*_contig(flags, x, y, z), K, team)
+
+
+def lane_carry(ox, oy, oz, sx, sy, sz, first_head, m: int):
+    """The carry into each lane (sx, sy, sz: the inclusive prefix of the
+    lane aggregates) added to the lane-local values where the lane's first
+    run continues one from earlier lanes. ``g1_lane_carry`` on a CUDA tensor
+    (in place), the plain version on a CPU tensor."""
+    if ox.device.type == "cpu":
+        return lane_carry_plain(ox, oy, oz, sx, sy, sz, first_head, m)
+    return lane_carry_kernel(*_contig(ox, oy, oz, sx, sy, sz, first_head), m)

@@ -28,14 +28,15 @@ the card and their plain versions on the CPU.
 ``msm`` sends bases with z != 1 anywhere (identities included) to the generic
 engine, ``msm_generic``: unsigned c-bit windows over 2^c buckets, and per
 window a sort, a chunked segmented scan of the sorted Jacobian points as K
-lanes of m steps (two m-step passes of the segmented combine, kernel B2's
-``g1_add`` at width K, around one B3 prefix of the lane aggregates), the
+lanes of m steps (for G1 on the card: ``g1_lane_scan``, a team of threads a
+lane, one B3 prefix of the lane aggregates and ``g1_lane_carry``; for other
+groups two m-step passes of the segmented combine around the prefix), the
 bucket sums at the runs' tails, T_w by kernel B7 and the Horner step by B2.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import torch
@@ -66,6 +67,10 @@ class GroupOps:
     # a window's bucket sums -> T_w = sum_{b>=1} b S_b, width 1, in one call
     # (``_weighted_bucket_total``); groups without it scan and sum
     bucket_total: Callable[[Any], Any] | None = None
+    # (flags, pts, K) -> the chunked segmented scan at every position in one
+    # call (``_seg_scan_chunked``); groups without it fold the lanes step by
+    # step
+    lane_scan: Callable[[torch.Tensor, Any, int], Any] | None = None
 
 
 def _default_seg_combine(group: GroupOps):
@@ -81,8 +86,9 @@ def _default_seg_combine(group: GroupOps):
 
 def g1_group(device) -> GroupOps:
     """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add, horner,
-    bucket_fixup), B3 (seg_prefix) and B7 (bucket_total) on the card, their
-    plain versions on the CPU."""
+    bucket_fixup), B3 (seg_prefix), B7 (bucket_total) and the lane scan
+    (``g1_lane_scan``, ``g1_lane_carry``) on the card, their plain versions
+    on the CPU."""
 
     def coords(p):
         return (p.x, p.y, p.z)
@@ -105,9 +111,22 @@ def g1_group(device) -> GroupOps:
     def bucket_total(sums):
         return msm_kernels.bucket_total(*sums)
 
-    return GroupOps(identity=identity, add=add, select=select,
-                    seg_prefix=g1_kernels.seg_prefix, horner=horner, bucket_fixup=bucket_fixup,
-                    bucket_total=bucket_total)
+    group = GroupOps(identity=identity, add=add, select=select,
+                     seg_prefix=g1_kernels.seg_prefix, horner=horner, bucket_fixup=bucket_fixup,
+                     bucket_total=bucket_total)
+
+    def lane_scan(flags, pts, K):
+        """The chunked scan: on a CPU tensor its plain version, the lane fold
+        in the JAX engine's order; on a CUDA tensor ``g1_lane_scan``, one B3
+        prefix of the lane aggregates and ``g1_lane_carry``."""
+        if flags.device.type == "cpu":
+            return _fold_lanes(_default_seg_combine(group), group, flags, pts, K)
+        m = flags.shape[-1] // K
+        ox, oy, oz, *agg, first = g1_kernels.lane_scan(flags, *pts, K, msm_kernels.lane_team(m))
+        summ = g1_kernels.seg_prefix(tuple(agg))
+        return g1_kernels.lane_carry(ox, oy, oz, *summ[1:], first, m)
+
+    return replace(group, lane_scan=lane_scan)
 
 
 # --------------------------------------------------------------------------
@@ -394,10 +413,18 @@ def default_window_bits(n: int) -> int:
 
 def _seg_scan_chunked(seg, group: GroupOps, flags: torch.Tensor, pts, K: int):
     """Segmented inclusive scan of (flags (1, N), pts) along the trailing
-    axis, N % K == 0: lane k holds elements [k m, (k+1) m), m = N / K. Pass 1
-    folds each lane with ``seg`` in m steps at width K, one prefix over the
-    K lane aggregates (``_hillis_steele_prefix``) gives the carries, and
-    pass 2 folds again from the carries, keeping every step."""
+    axis, N % K == 0: lane k holds elements [k m, (k+1) m), m = N / K. One
+    ``group.lane_scan`` call where the group has it, else ``_fold_lanes``."""
+    if group.lane_scan is not None:
+        return group.lane_scan(flags, pts, K)
+    return _fold_lanes(seg, group, flags, pts, K)
+
+
+def _fold_lanes(seg, group: GroupOps, flags: torch.Tensor, pts, K: int):
+    """``_seg_scan_chunked`` as the JAX engine runs it: pass 1 folds each
+    lane with ``seg`` in m steps at width K, one prefix over the K lane
+    aggregates (``_hillis_steele_prefix``) gives the carries, and pass 2
+    folds again from the carries, keeping every step."""
     n = flags.shape[-1]
     m = n // K
     device = flags.device
@@ -461,6 +488,8 @@ def msm_generic(group: GroupOps, points, scalar_limbs: torch.Tensor, c: int,
         live = (pos >= 0) & (keys[posc] == bucket_ids) & (bucket_ids > 0)
         sums = group.select(live, tuple(t[..., posc] for t in scanned),
                             group.identity(num_buckets))
+        # this window's (.., N) copies go before the next window makes its own
+        del pts, scanned
         acc = _horner(group, acc, _weighted_bucket_total(sums, group, seg, num_buckets), c)
     return acc
 

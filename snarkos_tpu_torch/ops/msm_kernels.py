@@ -34,6 +34,12 @@ SERIAL_TEAM = 64
 FAST_TEAM = 8
 # threads that scan one wide chain together in B5 (PERF.md has the sweep)
 SCAN_TEAM = 16
+# the team of g1_lane_scan (csrc/lane_scan.cu), the generic engine's lane
+# scan: LANE_ELEMS elements a thread, at most LANE_TEAM threads a lane
+# (``lane_team``; PERF.md has the sweep at m = 16, 256 and 4096 elements a
+# lane, where T = 8, 128 and 256 were the fastest)
+LANE_TEAM = 256
+LANE_ELEMS = 2
 LANES = 512
 CHUNK = 8
 # B7's threads a block and buckets a thread (PERF.md has the sweep)
@@ -59,10 +65,16 @@ def _zeros(n: int, device) -> g1.JacobianPoints:
 
 
 def team_size(team: int, steps: int) -> int:
-    """A scan team (B4-B6) cut to the power of two at or above a chain's
-    ``steps`` elements: a thread with no elements only lengthens the carry
-    scan."""
+    """A scan team (B4-B6, the lane scan) cut to the power of two at or
+    above a chain's ``steps`` elements: a thread with no elements only
+    lengthens the carry scan."""
     return min(team, 1 << max(steps - 1, 0).bit_length())
+
+
+def lane_team(m: int) -> int:
+    """g1_lane_scan's threads a lane of m elements: LANE_ELEMS elements a
+    thread, cut by ``team_size`` to at most LANE_TEAM."""
+    return team_size(LANE_TEAM, -(-m // LANE_ELEMS))
 
 
 def _stack(rows, shape):

@@ -189,3 +189,28 @@ def test_kernel_wrappers_reject_cpu_tensors():
     assert g1_kernels.horner_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
     assert msm_kernels.bucket_scan_fast_kernel.launches == 0
     assert msm_kernels.bucket_total_kernel.launches == 0
+
+
+def test_lane_scan_wrappers_reject_cpu_tensors():
+    """The generic engine's lane-scan launchers take only what their kernels
+    take: CUDA tensors, K lanes that divide the positions, a team that is a
+    power of two up to 256; they never run the plain version."""
+    from snarkos_tpu_torch.ops import g1, g1_kernels
+
+    p = g1.infinity((8,))
+    flag = torch.zeros((1, 8), dtype=torch.int32)
+    first = torch.zeros(4, dtype=torch.int32)
+    agg = g1.infinity((4,))
+    with pytest.raises(ValueError, match="CUDA"):
+        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 4, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 3, 2)
+    with pytest.raises(ValueError, match="team"):
+        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 4, 3)
+    with pytest.raises(ValueError, match="team"):
+        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 4, 512)
+    with pytest.raises(ValueError, match="CUDA"):
+        g1_kernels.lane_carry_kernel(p.x, p.y, p.z, agg.x, agg.y, agg.z, first, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        g1_kernels.lane_carry_kernel(p.x, p.y, p.z, agg.x, agg.y, agg.z, first, 3)
+    assert g1_kernels.lane_scan_kernel.launches == g1_kernels.lane_carry_kernel.launches == 0
