@@ -9,8 +9,8 @@ result line:
      nvcc per source, all at once; the dev SRS of degree 2^20 built on the
      card (its first 2^20 points are the bases of phase 5).
   2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute and
-     fr_epoch_step; B2 g1_add and its window entry points g1_horner and
-     g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
+     fr_epoch_step; B2 g1_add and its window-tail entry points
+     g1_horner_chain and g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
      B6 bucket_scan_fast, B7 jadd_bucket_total; the generic engine's lane
      scan g1_lane_scan and g1_lane_carry) against its plain PyTorch
      version on the card, at the paths' shapes and on real windows of their
@@ -26,21 +26,30 @@ result line:
      and 256 steps a lane, each team of its sweep; g1_lane_carry limb for
      limb; both around B3 equal to the fold of the JAX order. At m = 4096
      (msm_dist(2^24)'s window) the sweep is timed and sampled lanes are held
-     to the host's serial scan.
+     to the host's serial scan. g1_horner_chain (one launch a MSM) at the
+     paths' (W, 24, 8), (W, 24, 16) c = 6 and (19, 24, 1) c = 14, with lane
+     0's acc an identity with arbitrary X, Y through the top windows and the
+     last add meeting P == Q and P == -Q, and its width-1 latency sweep over
+     c (ms = a + b c, beside the chain figure); g1_bucket_fixup on real
+     windows of b8, b16 and the 2^20 MSM (keys, heads, scan and B3 prefix as
+     the engine makes them), each also with P == Q, P == -Q and identity
+     carries planted.
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
-     of 3 at the 2^20 shapes and for the Poseidon permutation), CUDA events
+     of 3 at the 2^20 shapes, for the Poseidon permutation and the Horner
+     chain), CUDA events
      around each run, which at small widths time the host's launch rate;
      beside it the device time a launch, the same run captured in one CUDA
      graph and replayed (median of 7 replays); of 5 single calls
-     for its plain version (of 1 call after a warm-up at the 2^20 shapes and
-     for the permutation, where one takes seconds).
+     for its plain version (of 1 call after a warm-up at the 2^20 shapes, for
+     the permutation and the chain, where one takes seconds).
   3. Puzzle(log_degree=12).prove_batch over 8 nonces on the card, checked
      byte for byte against tests/fixtures/torch_puzzle_k12_b8.json, against
      C = p(tau) G and W = q(tau) G computed on the host from the coefficients
      and the known dev tau, and against prove_batch of one nonce. Then
      solutions/s at batch 8 (median of 3 timed calls). A call must launch
-     fr_poseidon_permute once, fr_epoch_step 12 times and mont_mul at most 80
-     times (here and at batch 16).
+     fr_poseidon_permute once, fr_epoch_step 12 times, mont_mul at most 80
+     times, g1_horner_chain twice (once a multi-MSM) and g1_bucket_fixup
+     86 times (once a window; here and at batch 16).
   4. prove_batch over 16 nonces (the wide-chain engine, B5): nonces 0-7 equal
      to prove_batch(8), all 16 checked on the host as above plus solution_id
      = sha64(C || y); solutions/s at batch 16 (median of 3 after a warm-up).
@@ -48,13 +57,14 @@ result line:
      bucket total B7): the result equals (sum k_i tau^i) G computed on the
      host; then with base 1 := base 0 and k_1 := k_0, where B6's flag fires
      and the complete engine (B5) reruns; points/s (median of 3 timed calls).
-     A call launches B7 and B3 once a window and B2's g1_add never (twice
-     a window each on the rerun).
+     A call launches B7, B3 and g1_bucket_fixup once a window, g1_horner_chain
+     once and B2's g1_add never (twice each on the rerun).
   6. the generic engine: msm.msm over the first 2^16 dev SRS powers, each
      rescaled to a random z, every 64th the identity, every 97th scalar 0:
      the result equals (sum k_i tau^i) G over the non-identity lanes, and a
-     call launches g1_lane_scan, B3, g1_lane_carry, B7 and g1_horner W times
-     each (W = 20 windows; m = 16 steps a lane) and nothing else, no g1_add;
+     call launches g1_lane_scan, B3, g1_lane_carry and B7 W times each (W =
+     20 windows; m = 16 steps a lane), g1_horner_chain once and nothing
+     else, no g1_add;
      points/s (median of 3).
   7. the verifier: check_binding's B1 launches; Puzzle.verify_batch over the
      first 4 solutions of phase 3 and verify of each accept, eval_y + 1 and
@@ -100,8 +110,8 @@ result line:
      (sum k_i tau^(i mod 2^20)) G (the 16 blocks' scalars folded by Fr adds
      on the card first), one call with its peak device memory. The generic
      engine's launches are exact (W each of g1_lane_scan, B3,
-     g1_lane_carry, B7 and g1_horner, no g1_add; at world 2 one g1_add, the
-     tree reduce). Host-clock times: ntt_dist beside ntt (medians of 3) with
+     g1_lane_carry and B7, one g1_horner_chain, no g1_add; at world 2 one
+     g1_add, the tree reduce). Host-clock times: ntt_dist beside ntt (medians of 3) with
      its steps apart, msm_dist(2^20) beside msm.msm (medians of 3),
      msm_dist(2^24) once. World 2 over gloo, two spawned ranks sharing the
      one card: all_gather_last of ntt_dist(2^22) equal to the world-1 output,
@@ -135,7 +145,11 @@ must launch on some path, but those of NO_PATH_YET (none now), which must
 not.
 
 The script imports nothing of JAX or of the JAX package (snarkos_tpu).
-Details go to chiprun_out/chip_smoke.json.
+Details go to chiprun_out/chip_smoke.json. Whether it passes or fails, it
+stops every process it started before it exits: it adopts its descendants'
+orphans, stops multiprocessing's resource tracker (which the spawned ranks
+of phase 10 start and which would outlive the script), and terminates and
+waits for any other child, naming each on stderr.
 """
 
 import dataclasses
@@ -143,6 +157,7 @@ import json
 import os
 import random
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -173,7 +188,15 @@ NO_PATH_YET = {}
 # lanes of m = 16 steps, W = 20 windows; the kernels it launches once a
 # window
 GENERIC_KERNELS = ["g1_lane_scan", "seg_prefix", "g1_lane_carry", "jadd_bucket_total",
-                   "g1_horner"]
+                   "g1_horner_chain"]
+# the window tail's latency sweep (phase 2): the chain at width 1 over W =
+# 8 windows for these c; the latency of one Fq product on a thread's chain
+# in the one-step Horner entry the chain replaced (a doubling, 7 products,
+# 0.02831 ms: scripts/time_window_tail.py, H100 80GB HBM3 at 700 W), for
+# the chain figure
+TAIL_SWEEP_C = (0, 1, 2, 4, 8, 14)
+TAIL_SWEEP_W = 8
+STEP0_PRODUCT_MS = 0.02831 / 7
 LOG_GENERIC = 16
 GENERIC_C = 13
 GENERIC_K = 4096
@@ -210,6 +233,89 @@ FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _adopt_orphans() -> None:
+    """Make this process the reaper of its descendants' orphans (Linux
+    prctl PR_SET_CHILD_SUBREAPER), so that _stop_children finds every
+    process the run started, grandchildren included."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _children() -> dict:
+    """This process's children, {pid: (state, command line)}, from /proc:
+    a process's parent pid is the second field after the name in its stat
+    line."""
+    me, kids = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                stat = fh.read()
+            with open(f"/proc/{d}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rfind(")") + 2:].split()[:2]
+        if int(ppid) == me:
+            kids[int(d)] = (state, cmd)
+    return kids
+
+
+def _stop_children(grace_s: float = 5.0) -> list:
+    """Stop every child this process still has and wait for it: first
+    multiprocessing's resource tracker, which ignores SIGTERM and ends when
+    its pipe closes, then any other child by SIGTERM and, after ``grace_s``
+    seconds, SIGKILL. Children that appear meanwhile (orphans adopted by
+    _adopt_orphans) are stopped the same way. Returns the command lines of
+    the children that were still running, each also named on stderr."""
+    tracker = sys.modules.get("multiprocessing.resource_tracker")
+    if tracker is not None:
+        try:
+            tracker._resource_tracker._stop()
+        except (AttributeError, OSError, ChildProcessError):
+            pass
+    stopped = []
+    for _ in range(10):
+        kids = _children()
+        if not kids:
+            break
+        for pid, (state, cmd) in kids.items():
+            if state != "Z":
+                stopped.append(cmd)
+                print(f"chip_smoke: stopping child {pid}: {cmd[:200]}", file=sys.stderr,
+                      flush=True)
+                try:
+                    os.kill(pid, signal.SIGTERM)
+                except ProcessLookupError:
+                    pass
+        deadline = time.monotonic() + grace_s
+        for pid in kids:
+            while True:
+                try:
+                    done, _ = os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    break
+                if done:
+                    break
+                if time.monotonic() > deadline:
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+                    try:
+                        os.waitpid(pid, 0)
+                    except ChildProcessError:
+                        pass
+                    break
+                time.sleep(0.02)
+    return stopped
 
 
 def bound(nbytes: float, nops: float):
@@ -589,72 +695,95 @@ def main() -> int:
     check("g1_add", "snarkos_tpu_torch/csrc/g1_add.cu", "snarkos_tpu/ops/g1_pallas.py:75",
           b2, g1_kernels.add_kernel)
 
-    # B2's Horner step acc = 2^c acc + t at the windows' widths: acc an
-    # identity with arbitrary X, Y in lane 0 (every MSM starts from one), and
-    # 2^c acc == t, 2^c acc == -t in lanes 1, 2 (the add meets P == Q, P == -Q)
-    def horner_case(width, c, identity_lane=True):
-        acc = [rescale(multiples[prng.randrange(4096)]) for _ in range(width)]
-        t = [rescale(multiples[prng.randrange(4096)]) for _ in range(width)]
-        if identity_lane:
-            acc[0] = (prng.randrange(FQ.p), prng.randrange(FQ.p), 0)
-        for lane, sign in ((1, 1), (2, -1)):
-            if lane < width:
-                dbl = ref_g1.scalar_mul(1 << c, acc[lane])
-                t[lane] = rescale(dbl if sign > 0 else ref_g1.neg(dbl))
-        pa, pt = g1.encode_points(acc, dev), g1.encode_points(t, dev)
-        doubled = [ref_g1.scalar_mul(1 << c, p) for p in acc]
-        ops = 7 * c * sum(1 for p in acc if p[2]) * FQ_MUL_OPS
-        if width >= 3:
-            ops += add_ops(doubled, t)
-        else:
-            ops += sum(16 * FQ_MUL_OPS for p, q in zip(doubled, t) if p[2] and q[2])
-        label = f"(24, {width}) c={c}" + ("" if identity_lane or width > 1 else ", acc finite")
-        return (label, lambda: coords(g1_kernels.horner_kernel(pa, pt, c)),
-                lambda: coords(g1_kernels.horner_plain(pa, pt, c)), 9 * 24 * 4 * width, ops)
+    # B2's window tail: the Horner chain, one launch a MSM, at the paths'
+    # shapes (b8, b16: W = 43 windows of c = 6 at widths 8 and 16; 2^20: 19
+    # of c = 14 at width 1). Window points are rescaled multiples of H, so the
+    # host follows each lane as k H. Lane 0's two top windows are identities
+    # with arbitrary X, Y (its acc is such an identity for a window: skipped,
+    # not doubled); window 0 of lanes 1 and 2 (width >= 3), or of lane 0
+    # (width 1), is 2^c acc or -2^c acc: the last add meets P == Q or P == -Q.
+    r_ord = params.FR_MODULUS
 
-    check("g1_horner", "snarkos_tpu_torch/csrc/g1_add.cu", "snarkos_tpu/ops/g1_pallas.py:75",
-          [horner_case(8, 6), horner_case(16, 6), horner_case(1, 14, identity_lane=False),
-           horner_case(1, 14)], g1_kernels.horner_kernel)
+    def chain_case(W, width, c, sign=1):
+        logs = [[prng.randrange(4096) + 1 for _ in range(width)] for _ in range(W)]
+        for w in (W - 1, W - 2):
+            logs[w][0] = 0
+        edges = [(1, 1), (2, -1)] if width >= 3 else [(0, sign)]
+        ops, finals = 0, []
+        for e in range(width):
+            k = 0
+            for w in range(W - 1, -1, -1):
+                if k:
+                    ops += 7 * c * FQ_MUL_OPS
+                k = k * (1 << c) % r_ord
+                for lane, sgn in edges:
+                    if lane == e and w == 0:
+                        logs[0][e] = k if sgn > 0 else r_ord - k
+                t = logs[w][e]
+                if k and t:
+                    ops += (23 if t == k else 16) * FQ_MUL_OPS
+                k = (k + t) % r_ord
+            finals.append(k)
+        pts = [[rescale(ref_g1.scalar_mul(v, H)) if v else
+                (prng.randrange(FQ.p), prng.randrange(FQ.p), 0) for v in row] for row in logs]
+        enc = [g1.encode_points(row, dev) for row in pts]
+        ts = tuple(torch.stack([getattr(p, k) for p in enc]).contiguous() for k in "xyz")
+        want = [ref_g1.affine(ref_g1.scalar_mul(k, H)) if k else None for k in finals]
+        label = f"({W}, 24, {width}) c={c}"
+        if width < 3:
+            label += f", last add P == {'+' if sign > 0 else '-'}Q"
+        chain_want[label] = want
+        return (label, lambda: coords(g1_kernels.horner_chain_kernel(ts, c)),
+                lambda: coords(g1_kernels.horner_chain_plain(ts, c)),
+                3 * 24 * 4 * width * (W + 1), ops)
 
-    # B2's bucket fixup at the three paths' widths: B_total buckets over the
-    # scan outputs of m K positions and the carries of KV chains (b8: serial
-    # chains, 2^15 positions, 256 chains; b16: 2^16, 2048; 2^20: 2^20, 4096).
-    # The values come from a pool of rescaled points, their rescaled copies
-    # and negations, and identities with arbitrary X, Y; every fourth bucket
-    # that takes a carry meets P == Q or P == -Q.
-    pool_pts = [rescale(multiples[prng.randrange(4096)]) for _ in range(1024)]
-    pool_pts[7::64] = [(prng.randrange(FQ.p), prng.randrange(FQ.p), 0)] * len(pool_pts[7::64])
-    pool_pts += [rescale(p) for p in pool_pts[:1024]] + [rescale(ref_g1.neg(p))
-                                                         for p in pool_pts[:1024]]
-    pool = g1.encode_points(pool_pts, dev)
+    chain_want = {}
 
-    def fixup_case(nb, ns, nc):
-        g = torch.Generator().manual_seed(nb)
-        tail_src = torch.randint(0, 1024, (ns,), generator=g)
-        carry_src = torch.randint(0, 3072, (nc,), generator=g)
-        flat = torch.randint(0, ns, (nb,), generator=g)
-        chain_of = torch.randint(0, nc, (nb,), generator=g)
-        needs = torch.rand(nb, generator=g) < 0.3
-        live = (torch.rand(nb, generator=g) < 0.95) & (torch.arange(nb) > 0)
-        takers = (needs & live).nonzero().reshape(-1)[::4]
-        for i, b in enumerate(takers.tolist()):  # P == Q, P == -Q
-            carry_src[chain_of[b]] = tail_src[flat[b]] + (1024 if i % 2 == 0 else 2048)
-        scan = tuple(t[:, tail_src.to(dev)].contiguous() for t in coords(pool))
-        carry = tuple(t[:, carry_src.to(dev)].contiguous() for t in coords(pool))
-        args = (scan, flat.to(dev), carry, chain_of.to(dev), needs.to(dev), live.to(dev))
-        tails = [pool_pts[int(tail_src[f])] for f in flat.tolist()]
-        carries = [pool_pts[int(carry_src[k])] for k in chain_of.tolist()]
-        adds = [(p, q) for p, q, a in zip(tails, carries, (needs & live).tolist()) if a]
-        nbytes = (3 * 24 * 4 * (int(live.sum()) + len(adds) + nb) + 18 * nb)
-        return (f"(24, {nb}) of ({ns}, {nc})",
-                lambda: coords(g1_kernels.bucket_fixup_kernel(*args)),
-                lambda: coords(g1_kernels.bucket_fixup_plain(*args)), nbytes,
-                add_ops([p for p, _ in adds], [q for _, q in adds]))
+    def chain_host(label, got):
+        """every lane's result is (its k) H on the host"""
+        for e, (p, k) in enumerate(zip(g1.decode_points(g1.JacobianPoints(*got)),
+                                       chain_want[label])):
+            if ref_g1.affine(p) != k:
+                raise AssertionError(f"g1_horner_chain {label}: lane {e} is not its k H")
 
-    check("g1_bucket_fixup", "snarkos_tpu_torch/csrc/g1_add.cu",
+    W6 = -(-(msm.SCALAR_BITS + 1) // 6)
+    W14 = -(-(msm.SCALAR_BITS + 1) // 14)
+    check("g1_horner_chain", "snarkos_tpu_torch/csrc/window_tail.cu",
           "snarkos_tpu/ops/g1_pallas.py:75",
-          [fixup_case(BATCH * 33, BATCH * 4096, 256), fixup_case(BATCH_WIDE * 33, 1 << 16, 2048),
-           fixup_case((1 << 13) + 1, 1 << LOG_N, 4096)], g1_kernels.bucket_fixup_kernel)
+          [chain_case(W6, BATCH, 6), chain_case(W6, BATCH_WIDE, 6), chain_case(W14, 1, 14),
+           chain_case(W14, 1, 14, sign=-1)], g1_kernels.horner_chain_kernel, big=True,
+          verify=chain_host)
+
+    # its latency: width 1, W = TAIL_SWEEP_W windows, over c; ms = a + b c
+    # (the top window's acc is the identity and is not doubled, so b / (W -
+    # 1) is one doubling and a / W about one add); the chain figure of each
+    # path shape: the products on a lane's longest dependent path (3 c + 5 a
+    # window here, 7 c + 16 on one thread) times STEP0_PRODUCT_MS
+    sweep_ms = []
+    for cc in TAIL_SWEEP_C:
+        enc = [g1.encode_points([rescale(multiples[prng.randrange(4096)])], dev)
+               for _ in range(TAIL_SWEEP_W)]
+        tsw = tuple(torch.stack([getattr(p, k) for p in enc]).contiguous() for k in "xyz")
+        sweep_ms.append(graph_ms(lambda tsw=tsw, cc=cc: g1_kernels.horner_chain_kernel(tsw, cc),
+                                 7, 20))
+    n_c = len(TAIL_SWEEP_C)
+    mc, mm = sum(TAIL_SWEEP_C) / n_c, sum(sweep_ms) / n_c
+    fit_b = sum((x - mc) * (y - mm) for x, y in zip(TAIL_SWEEP_C, sweep_ms)) / \
+        sum((x - mc) ** 2 for x in TAIL_SWEEP_C)
+    fit_a = mm - fit_b * mc
+    figures = {}
+    for W_, c_ in ((W6, 6), (W14, 14)):
+        figures[f"W={W_} c={c_}"] = {
+            "team": ((W_ - 1) * 3 * c_ + 5 * W_) * STEP0_PRODUCT_MS,
+            "one thread": ((W_ - 1) * 7 * c_ + 16 * W_) * STEP0_PRODUCT_MS}
+    log(f"g1_horner_chain width 1, W = {TAIL_SWEEP_W}: device ms {[round(v, 4) for v in sweep_ms]} "
+        f"at c = {list(TAIL_SWEEP_C)}; fit a = {fit_a:.4f} ms, b = {fit_b:.5f} ms: a doubling "
+        f"{fit_b / (TAIL_SWEEP_W - 1):.5f} ms, an add about {fit_a / TAIL_SWEEP_W:.5f} ms; chain "
+        "figures (path products x the one-step entry's product latency): "
+        + ", ".join(f"{k} {v['team']:.3f} ms (one thread {v['one thread']:.3f})"
+                    for k, v in figures.items()) + f"; on {smi}")
+    report["tail_sweep"] = {"W": TAIL_SWEEP_W, "c": list(TAIL_SWEEP_C), "device_ms": sweep_ms,
+                            "a_ms": fit_a, "b_ms": fit_b, "chain_figure_ms": figures}
 
     # a real window of the batch-8 multi-MSM: base = 4096 affine points tiled
     # 8 times, random scalars, c = 6, K = 256 chains of m = 128
@@ -734,6 +863,82 @@ def main() -> int:
 
     # a window of the batch-16 multi-MSM (B3's widths, B5)
     xs16, ys16, fl16, K16 = multi_window(BATCH_WIDE, serial=False)
+
+    # B2's bucket fixup on real windows of the three paths, as the engine
+    # makes its inputs: the sorted keys and head flags of chain_layout, the
+    # path's bucket scan (B4 on b8's serial chains, B5 on b16's and the 2^20
+    # MSM's wide chains) and B3's prefix of the chain finals; each window
+    # also with, at its buckets whose runs cross a chain start, in turn a
+    # carry equal to the tail (P == Q), its negation (P == -Q), a carry that
+    # is an identity and a tail that is one (arbitrary X, Y).
+    def engine_window(batch):
+        """(scan, keys, heads, summ), K, rows, nbatch, B of the middle
+        window of prove_batch(batch)'s multi-MSMs, or of the 2^20 MSM for
+        batch None."""
+        if batch is None:
+            keys, xs_, ys_, heads = keys20, xs20, ys20, heads20
+            K, serial, nbatch, B_ = K20, False, 1, (1 << (c20 - 1)) + 1
+        else:
+            nn = batch * 4096
+            K, serial, nbatch, B_ = msm._default_lanes(nn), nn <= msm_kernels.SERIAL_MAX_N, batch, B
+            x = base.x.repeat(1, batch)
+            ycat = torch.cat([base.y.repeat(1, batch), fa.neg(FQ, base.y).repeat(1, batch)], -1)
+            packed = msm.signed_window_digits(torch.from_numpy(FR.random(nn, rng)).to(dev), c)
+            src = msm.chain_src(nn, K, msm_kernels.CHUNK, serial, dev)
+            batch_off = (torch.arange(nn, device=dev) // 4096) * B
+            keys, xs_, ys_, heads = msm.chain_layout(x, ycat, packed[packed.shape[0] // 2], src,
+                                                     batch_off)
+        rows = 1 if serial else msm_kernels.CHUNK
+        fl = heads.unsqueeze(0).contiguous()
+        scan = (msm_kernels.bucket_scan_serial(xs_, ys_, fl, K) if serial
+                else msm_kernels.bucket_scan(xs_, ys_, fl, K, msm_kernels.CHUNK))
+        mv = heads.shape[0] // rows
+        flag = heads.reshape(mv, rows, K).max(0).values.reshape(1, K * rows)
+        finals = tuple(t[:, -rows:, :].reshape(24, K * rows) for t in scan)
+        summ = g1_kernels.seg_prefix((flag,) + finals)[1:]
+        return (tuple(t.contiguous() for t in scan), keys, heads, tuple(summ)), K, rows, nbatch, B_
+
+    def fixup_case(batch, planted):
+        args, K, rows, nbatch, B_ = engine_window(batch)
+        flat, chain_of, needs, live = g1_kernels.bucket_indices(args[1], args[2], K, rows, nbatch,
+                                                                B_)
+        takers = (live & needs & (chain_of > 0)).nonzero().reshape(-1)
+        n_dbl = n_inf = 0
+        if planted:
+            scan = [t.clone() for t in args[0]]
+            summ = [t.clone() for t in args[3]]
+            sflat = [t.reshape(24, -1) for t in scan]
+            for i, b in enumerate(takers.tolist()):
+                f, l = int(flat[b]), int(chain_of[b]) - 1
+                if i % 4 < 2:  # P == Q, P == -Q
+                    summ[0][:, l] = sflat[0][:, f]
+                    summ[1][:, l] = (sflat[1][:, f] if i % 4 == 0
+                                     else fa.neg(FQ, sflat[1][:, f:f + 1])[:, 0])
+                    summ[2][:, l] = sflat[2][:, f]
+                    n_dbl += i % 4 == 0
+                elif i % 4 == 2:
+                    summ[2][:, l] = 0
+                    n_inf += 1
+                else:
+                    sflat[2][:, f] = 0
+                    n_inf += 1
+            args = (tuple(scan), args[1], args[2], tuple(summ))
+        n_add = int(takers.numel()) - n_inf
+        nb = nbatch * B_
+        i_of = flat // (rows * K)
+        nbytes = (3 * 24 * 4 * (int(live.sum()) + int(takers.numel()) + nb)
+                  + 8 * nb * (args[1].shape[0].bit_length() + 1)
+                  + 4 * int((i_of + 1)[live].sum()))
+        label = (f"(24, {nb}) of ({args[1].shape[0]}, {K * rows}), "
+                 + ("b%d" % batch if batch else "2^20") + (" planted" if planted else ""))
+        return (label, lambda: coords(g1_kernels.bucket_fixup_kernel(*args, K, rows, nbatch, B_)),
+                lambda: coords(g1_kernels.bucket_fixup_plain(*args, K, rows, nbatch, B_)), nbytes,
+                (16 * n_add + 7 * n_dbl) * FQ_MUL_OPS)
+
+    check("g1_bucket_fixup", "snarkos_tpu_torch/csrc/window_tail.cu",
+          "snarkos_tpu/ops/g1_pallas.py:75",
+          [fixup_case(b_, p_) for b_ in (BATCH, BATCH_WIDE, None) for p_ in (False, True)],
+          g1_kernels.bucket_fixup_kernel)
 
     # B3 at the seven prefix widths of the paths, with their head flags: the
     # cross-chain carries (one flag per chain: any head in it) and the
@@ -1209,7 +1414,8 @@ def main() -> int:
         for kern in kernels:
             kern.setdefault("launches_per_path", {})[label] = counts[kern["name"]]
         log(f"launches in {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items())
-            + f"; B2 in all {sum(counts[k] for k in ('g1_add', 'g1_horner', 'g1_bucket_fixup'))}")
+            + "; B2 in all "
+            + str(sum(counts[k] for k in ('g1_add', 'g1_horner_chain', 'g1_bucket_fixup'))))
         missing = [k for k in required if counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched in {label}: {missing}")
@@ -1225,11 +1431,18 @@ def main() -> int:
     def generic_counts(n, extra_adds=0):
         """The generic engine's launches on n points at c =
         default_window_bits(n), exactly and nothing else: a window's
-        g1_lane_scan, B3 prefix, g1_lane_carry, B7 total and Horner step;
-        plus the tree reduce's g1_add launches."""
+        g1_lane_scan, B3 prefix, g1_lane_carry and B7 total, the MSM's one
+        Horner chain; plus the tree reduce's g1_add launches."""
         w = -(-msm.SCALAR_BITS // msm.default_window_bits(n))
         return {**{k["name"]: 0 for k in kernels},
-                **{k: w for k in GENERIC_KERNELS}, "g1_add": extra_adds}
+                **{k: w for k in GENERIC_KERNELS}, "g1_horner_chain": 1, "g1_add": extra_adds}
+
+    def tail_counts(msms, windows):
+        """The fused engine's window tail: one Horner chain a MSM, one bucket
+        fixup a window."""
+        return {"g1_horner_chain": msms, "g1_bucket_fixup": msms * windows}
+
+    W4 = -(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(2 * VERIFY_BATCH + 1))
 
     # -- 3. the prover at batch 8 ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1243,10 +1456,11 @@ def main() -> int:
     address = fixture["address"]
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
     sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
-                    ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner",
+                    ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner_chain",
                      "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
                     absent=["g1_add", "jadd_bucket_total"],
-                    exact=PATH_LAUNCHES, at_most={"mont_mul": MONT_MUL_MAX})
+                    exact={**PATH_LAUNCHES, **tail_counts(2, W6)},
+                    at_most={"mont_mul": MONT_MUL_MAX})
 
     if len(sols) != len(nonces):
         raise AssertionError(f"{len(sols)} solutions for {len(nonces)} nonces")
@@ -1310,10 +1524,10 @@ def main() -> int:
     puzzle.prove_batch(epoch, address, nonces16)  # warm-up
     sols16 = run_path(f"prove_batch({BATCH_WIDE})",
                       lambda: puzzle.prove_batch(epoch, address, nonces16),
-                      ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner",
+                      ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner_chain",
                        "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
                       absent=["bucket_scan_serial", "g1_add", "jadd_bucket_total"],
-                      exact=PATH_LAUNCHES,
+                      exact={**PATH_LAUNCHES, **tail_counts(2, W6)},
                       at_most={"mont_mul": MONT_MUL_MAX})
     if len(sols16) != BATCH_WIDE or sols16[:BATCH] != sols:
         raise AssertionError("prove_batch(16)[:8] differs from prove_batch(8) (and the fixture)")
@@ -1339,10 +1553,11 @@ def main() -> int:
 
     W20 = packed20.shape[0]
     got = run_path(f"msm_affine(2^{LOG_N})", lambda: msm.msm_affine(bx, by, big_scalars),
-                   ["bucket_scan_fast", "jadd_bucket_total", "g1_horner", "g1_bucket_fixup",
-                    "seg_prefix"],
+                   ["bucket_scan_fast", "jadd_bucket_total", "g1_horner_chain",
+                    "g1_bucket_fixup", "seg_prefix"],
                    absent=["bucket_scan", "bucket_scan_serial"],
-                   exact={"jadd_bucket_total": W20, "seg_prefix": W20, "g1_add": 0})
+                   exact={"jadd_bucket_total": W20, "seg_prefix": W20, "g1_add": 0,
+                          **tail_counts(1, W20)})
     if affine_of(got) != times_g(s_tau):
         raise AssertionError(f"msm_affine(2^{LOG_N}) != (sum k_i tau^i) G")
     log(f"msm_affine(2^{LOG_N}) == (sum k_i tau^i) G on the fast engine")
@@ -1351,9 +1566,10 @@ def main() -> int:
     bx2[:, 1], by2[:, 1], sc2[:, 1] = bx[:, 0], by[:, 0], big_scalars[:, 0]
     got = run_path(f"msm_affine(2^{LOG_N}, base 1 = base 0)",
                    lambda: msm.msm_affine(bx2, by2, sc2),
-                   ["bucket_scan_fast", "bucket_scan", "jadd_bucket_total", "g1_horner",
+                   ["bucket_scan_fast", "bucket_scan", "jadd_bucket_total", "g1_horner_chain",
                     "g1_bucket_fixup"],
-                   exact={"jadd_bucket_total": 2 * W20, "seg_prefix": 2 * W20, "g1_add": 0})
+                   exact={"jadd_bucket_total": 2 * W20, "seg_prefix": 2 * W20, "g1_add": 0,
+                          **tail_counts(2, W20)})
     # base 1 (tau G) and k_1 gave way to base 0 (G) and k_0
     if affine_of(got) != times_g(s_tau - ks[1] * DEV_TAU + ks[0]):
         raise AssertionError(f"msm_affine(2^{LOG_N}) with base 1 = base 0 is wrong after the rerun")
@@ -1371,7 +1587,7 @@ def main() -> int:
         f"{N / med:.0f} points/s on {smi}")
     report.update(msm_s=times, msm_points_per_s=N / med)
 
-    # -- 6. the generic engine: 2^16 Jacobian bases (the lane scan, B3, B7, B2's horner) -
+    # -- 6. the generic engine: 2^16 Jacobian bases (the lane scan, B3, B7, B2's chain) -
     ks_g = FR.decode_fast(gen_scalars)
     s_gen, tau_i = 0, 1  # sum over the non-identity lanes of k_i tau^i
     for i, k in enumerate(ks_g):
@@ -1383,7 +1599,7 @@ def main() -> int:
     W_g = -(-msm.SCALAR_BITS // GENERIC_C)
     m_g = NG // GENERIC_K
     # a window: one g1_lane_scan, one B3 prefix of the lane aggregates, one
-    # g1_lane_carry, one B7 total of the 2^c buckets, one Horner step
+    # g1_lane_carry, one B7 total of the 2^c buckets; one Horner chain
     got = run_path(f"msm(2^{LOG_GENERIC}, Jacobian bases)", lambda: msm.msm(gen_base, gen_k),
                    GENERIC_KERNELS, exact=generic_counts(NG))
     if affine_of(got) != times_g(s_gen):
@@ -1414,9 +1630,10 @@ def main() -> int:
         raise AssertionError("check_binding rejected a solution of prove_batch")
     ok = run_path(f"verify_batch({VERIFY_BATCH})", lambda: puzzle.verify_batch(items),
                   ["fr_poseidon_permute", "fr_epoch_step", "bucket_scan_serial", "seg_prefix",
-                   "g1_bucket_fixup", "g1_horner"],
+                   "g1_bucket_fixup", "g1_horner_chain"],
                   absent=["g1_add", "bucket_scan", "bucket_scan_fast", "jadd_bucket_total"],
-                  exact={k: VERIFY_BATCH * v for k, v in b1_per_binding.items()})
+                  exact={**{k: VERIFY_BATCH * v for k, v in b1_per_binding.items()},
+                         **tail_counts(2, W4)})
     if not ok:
         raise AssertionError(f"verify_batch({VERIFY_BATCH}) rejected prove_batch's solutions")
     for item in items:
@@ -1440,11 +1657,12 @@ def main() -> int:
     srs_ref = puzzle.srs.srs_ref
     fused_ok = run_path(f"batch_verify({VERIFY_BATCH} affine)",
                         lambda: kzg.batch_verify(srs_ref, openings),
-                        ["bucket_scan_serial", "seg_prefix", "g1_horner"],
-                        absent=["g1_add", "jadd_bucket_total"])
+                        ["bucket_scan_serial", "seg_prefix", "g1_horner_chain"],
+                        absent=["g1_add", "jadd_bucket_total"], exact=tail_counts(2, W4))
     gen_ok = run_path(f"batch_verify({VERIFY_BATCH} + identity witness)",
                       lambda: kzg.batch_verify(srs_ref, openings + [const]),
-                      GENERIC_KERNELS, absent=["g1_add", "bucket_scan_serial", "g1_bucket_fixup"])
+                      GENERIC_KERNELS, absent=["g1_add", "bucket_scan_serial", "g1_bucket_fixup"],
+                      exact={"g1_horner_chain": 2})
     const_bad = (const[0], const[1], (const[2] + 1) % r, const[3])
     if not (fused_ok and gen_ok) or kzg.batch_verify(srs_ref, openings + [const_bad]):
         raise AssertionError("batch_verify: the fused or generic engine gave a wrong verdict")
@@ -1489,8 +1707,8 @@ def main() -> int:
     t0 = time.perf_counter()
     loaded = run_path("PuzzleSRS.from_artifact(2^12)",
                       lambda: PuzzleSRS.from_artifact(art, digest, log_degree=12),
-                      ["bucket_scan_serial", "seg_prefix", "g1_horner", "g1_bucket_fixup"],
-                      absent=["g1_add", "jadd_bucket_total"])
+                      ["bucket_scan_serial", "seg_prefix", "g1_horner_chain", "g1_bucket_fixup"],
+                      absent=["g1_add", "jadd_bucket_total"], exact=tail_counts(2, W6))
     art_s = time.perf_counter() - t0
     same = all(torch.equal(a, b) for a, b in zip(
         (loaded.points.x, loaded.points.y, loaded.points.z),
@@ -1998,8 +2216,9 @@ def main() -> int:
                       for k in kernels}
             seam_sols = run_path(f"seam prove_batch({BATCH})",
                                  lambda: in_worker(spz.prove_batch, epoch, address, nonces, None),
-                                 ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner",
-                                  "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
+                                 ["mont_mul", "fr_poseidon_permute", "fr_epoch_step",
+                                  "g1_horner_chain", "g1_bucket_fixup", "seg_prefix",
+                                  "bucket_scan_serial"],
                                  absent=["g1_add", "bucket_scan", "bucket_scan_fast",
                                          "jadd_bucket_total"],
                                  exact=phase3)
@@ -2050,8 +2269,8 @@ def main() -> int:
             bad = seam_openings[:1] + [(c, z, (y + 1) % r, w)] + seam_openings[2:]
             ok = run_path(f"seam batch_verify({VERIFY_BATCH})",
                           lambda: kzg_facade.batch_verify(seam_srs, seam_openings),
-                          ["bucket_scan_serial", "seg_prefix", "g1_horner"],
-                          absent=["g1_add", "jadd_bucket_total"])
+                          ["bucket_scan_serial", "seg_prefix", "g1_horner_chain"],
+                          absent=["g1_add", "jadd_bucket_total"], exact=tail_counts(2, W4))
             if not ok or kzg_facade.batch_verify(seam_srs, bad):
                 raise AssertionError("the kzg facade's batch_verify gave a wrong verdict")
             if not ref_kzg.batch_verify(seam_srs, seam_openings) \
@@ -2133,4 +2352,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    _adopt_orphans()
+    try:
+        rc = main()
+    finally:
+        _stop_children()
+    sys.exit(rc)

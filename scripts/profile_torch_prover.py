@@ -11,7 +11,9 @@ traces one more under torch.profiler (CPU and CUDA activity); with
 dev SRS powers and random scalars instead. Prints the wall time of the
 traced call, the device busy time (union of kernel intervals), the idle
 share, the number of device activities and of host syncs (the CUDA
-runtime's synchronize calls), and device time by kernel name. The full table goes to
+runtime's synchronize calls), device time by kernel name, and the summed
+device time and launches of the kernels named in SUMMED (the MSM's window
+tail) whatever their rank. The full table goes to
 chiprun_out/profile_torch_prover.txt (profile_torch_msm.txt for an MSM).
 
 ``--reps N`` first times N untraced calls after the warm-up, each ended by a
@@ -32,6 +34,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+SUMMED = ("horner", "bucket_fixup")
 
 
 def main() -> int:
@@ -123,6 +126,10 @@ def main() -> int:
             rows[ev.key] = (t, ev.count)
     for key, (t, count) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    for sub in SUMMED:
+        hits = [v for k, v in rows.items() if sub in k]
+        print(f"  kernels named *{sub}*: {sum(t for t, _ in hits) / 1e3:.3f} ms in "
+              f"{sum(c for _, c in hits)} launches")
     return 0
 
 

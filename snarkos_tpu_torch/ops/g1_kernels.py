@@ -1,16 +1,21 @@
 """Kernels B2 (complete G1 add) and B3 (segmented prefix scan), the port of
 ``snarkos_tpu/ops/g1_pallas.py``.
 
-A CUDA tensor launches ``csrc/g1_add.cu`` / ``csrc/seg_prefix.cu`` /
-``csrc/lane_scan.cu``; a CPU tensor runs the plain version: ``g1.add`` for
-B2, ``seg_prefix_plain`` for B3. Coordinates are (24, N) int32 Montgomery
-limb tensors, flags (1, N) int32.
+A CUDA tensor launches ``csrc/g1_add.cu`` / ``csrc/window_tail.cu`` /
+``csrc/seg_prefix.cu`` / ``csrc/lane_scan.cu``; a CPU tensor runs the plain
+version: ``g1.add`` for B2, ``seg_prefix_plain`` for B3. Coordinates are
+(24, N) int32 Montgomery limb tensors, flags (1, N) int32.
 
-B2 has two more entry points, the compositions of the add that the MSM's
-window loop runs: ``horner`` (acc = 2^c acc + t) and ``bucket_fixup`` (the
-window's bucket sums from the scan outputs and the chain carries), each one
-launch giving the limbs of its plain version (``horner_plain``,
-``bucket_fixup_plain``), which composes ``g1.add`` calls.
+B2 has two more entry points in ``csrc/window_tail.cu``, the compositions
+of the add that end the MSM's window loop: ``horner_chain`` (the whole
+Horner chain of a MSM, acc = 2^c acc + T_w from the identity and the top
+window down, over a (W, 24, N) stack of the windows' totals) and
+``bucket_fixup`` (a window's bucket sums from its raw inputs: sorted keys,
+head flags, B3's prefix of the chain finals and the scan outputs). Each is
+one launch giving the limbs of its plain version (``horner_chain_plain``,
+``bucket_fixup_plain``), which composes ``g1.add`` / ``g1.double`` calls;
+``bucket_indices`` is the torch index glue of the latter, which the kernel
+derives per bucket itself.
 
 The TPU kernel B3 is the one-round operator ``seg_combine``, launched once
 per Hillis-Steele round by the MSM's prefix scans. Here B3 runs the whole
@@ -87,56 +92,106 @@ add_kernel.launches = 0
 
 
 def horner_plain(acc: g1.JacobianPoints, t: g1.JacobianPoints, c: int) -> g1.JacobianPoints:
-    """Plain version of ``horner``: c times ``g1.add(acc, acc)``, then
-    ``g1.add(acc, t)``. The self-add doubles a finite lane and keeps an
-    identity lane's limbs, so only the doubling is computed."""
+    """One step of ``horner_chain_plain``, acc = 2^c acc + t: c times
+    ``g1.add(acc, acc)``, then ``g1.add(acc, t)``. The self-add doubles a
+    finite lane and keeps an identity lane's limbs, so only the doubling is
+    computed."""
     for _ in range(c):
         acc = g1.select_points(g1.is_infinity(acc), acc, g1.double(acc))
     return g1.add(acc, t)
 
 
-def horner_kernel(acc: g1.JacobianPoints, t: g1.JacobianPoints, c: int) -> g1.JacobianPoints:
-    n = acc.x.shape[-1]
-    for v, what in zip((acc.x, acc.y, acc.z, t.x, t.y, t.z),
-                       ("acc x", "acc y", "acc z", "t x", "t y", "t z")):
-        _build.check(v, (_L, n), f"g1 horner {what}")
-    out = [torch.empty_like(acc.x) for _ in range(3)]
+def horner_chain_plain(ts, c: int) -> g1.JacobianPoints:
+    """Plain version of ``horner_chain``: ts = (x, y, z), each (W, 24, N),
+    window w's total at index w; from the identity and the top window down,
+    acc = ``horner_plain(acc, T_w, c)``."""
+    acc = g1.infinity((ts[0].shape[-1],), device=ts[0].device)
+    for w in range(ts[0].shape[0] - 1, -1, -1):
+        acc = horner_plain(acc, g1.JacobianPoints(*(t[w] for t in ts)), c)
+    return acc
+
+
+def horner_chain_kernel(ts, c: int) -> g1.JacobianPoints:
+    """One launch of ``csrc/window_tail.cu``'s ``g1_horner_chain`` over the
+    (W, 24, N) stacks ts = (x, y, z); limb for limb the plain version."""
+    W, _, n = ts[0].shape
+    for v, what in zip(ts, "xyz"):
+        _build.check(v, (W, _L, n), f"g1 horner_chain {what}")
+    if W < 1:
+        raise ValueError("horner_chain: no windows")
+    out = [torch.empty((_L, n), dtype=torch.int32, device=ts[0].device) for _ in range(3)]
     if n:
-        fn = _build.entry("g1_add", "g1_horner", 9, 2)
-        _build.launch(fn, (acc.x, acc.y, acc.z, t.x, t.y, t.z, *out), (n, c), acc.x.device)
-        horner_kernel.launches += 1
+        fn = _build.entry("window_tail", "g1_horner_chain", 6, 3)
+        _build.launch(fn, (*ts, *out), (W, n, c), ts[0].device)
+        horner_chain_kernel.launches += 1
     return g1.JacobianPoints(*out)
 
 
-horner_kernel.launches = 0
+horner_chain_kernel.launches = 0
 
 
-def bucket_fixup_plain(scan, flat, carry, chain_of, needs_carry, live) -> g1.JacobianPoints:
-    """Plain version of ``bucket_fixup``: the gathers, add and selects of the
-    window's bucket sums, as g1 functions."""
+def bucket_indices(keys, heads, K: int, rows: int, nbatch: int, B: int):
+    """The index glue of a window's bucket sums, for buckets b < nbatch B:
+    keys (n,) the sorted buckets; heads (m, K) the head flags in the chain
+    layout (chain l = r K + k owns the sorted run [l mv, (l+1) mv), mv = n /
+    (K rows), its element i at layout position (i rows + r) K + k). Returns
+    (flat, chain_of, needs_carry, live): the layout position of the bucket's
+    last sorted position, its chain, whether no head precedes it in that
+    chain (its run started in an earlier chain), and whether the bucket is
+    non-empty and not bucket 0 of its batch."""
+    n = keys.shape[0]
+    mv = n // (K * rows)
+    bucket_ids = torch.arange(nbatch * B, device=keys.device)
+    pos = torch.searchsorted(keys, bucket_ids, right=True) - 1
+    posc = pos.clamp(min=0)
+    nonempty = (pos >= 0) & (keys[posc] == bucket_ids)
+    chain_of = posc // mv
+    i_of = posc % mv
+    flat = (i_of * rows + chain_of // K) * K + chain_of % K
+    cum_heads = heads.reshape(mv, rows, K).cumsum(0).reshape(-1)  # heads so far within the chain
+    needs_carry = cum_heads[flat] == 0
+    live = nonempty & ((bucket_ids % B > 0) if nbatch > 1 else (bucket_ids > 0))
+    return flat, chain_of, needs_carry, live
+
+
+def bucket_fixup_plain(scan, keys, heads, summ, K: int, rows: int, nbatch: int,
+                       B: int) -> g1.JacobianPoints:
+    """Plain version of ``bucket_fixup``: ``bucket_indices``, the carry into
+    chain l (``summ`` at l - 1, the identity for l = 0), and the gathers,
+    add and selects of the window's bucket sums, as g1 functions."""
+    flat, chain_of, needs_carry, live = bucket_indices(keys, heads, K, rows, nbatch, B)
+    inf1 = g1.infinity((1,), device=keys.device)
+    carry = [torch.cat([i, s[:, :-1]], dim=-1) for i, s in zip((inf1.x, inf1.y, inf1.z), summ)]
     tails = g1.JacobianPoints(*(t.reshape(t.shape[0], -1)[:, flat] for t in scan))
     carry_at = g1.JacobianPoints(*(t[:, chain_of] for t in carry))
     sums = g1.select_points(needs_carry, g1.add(tails, carry_at), tails)
     return g1.select_points(live, sums, g1.infinity(flat.shape, device=flat.device))
 
 
-def bucket_fixup_kernel(scan, flat, carry, chain_of, needs_carry, live) -> g1.JacobianPoints:
-    ns = scan[0].numel() // _L
-    nc = carry[0].shape[-1]
-    nb = flat.shape[0]
+def bucket_fixup_kernel(scan, keys, heads, summ, K: int, rows: int, nbatch: int,
+                        B: int) -> g1.JacobianPoints:
+    """One launch of ``csrc/window_tail.cu``'s ``g1_bucket_fixup``: a team of
+    threads a bucket; limb for limb the plain version."""
+    n = keys.shape[0]
+    KV = K * rows
+    if KV < 1 or n % KV:
+        raise ValueError(f"bucket_fixup: {n} positions are not a multiple of {KV} chains")
+    nb = nbatch * B
     for v, what in zip(scan, "xyz"):
         _build.check(v, (_L,) + tuple(v.shape[1:]), f"bucket_fixup scan {what}")
-    for v, what in zip(carry, "xyz"):
-        _build.check(v, (_L, nc), f"bucket_fixup carry {what}")
-    _build.check(flat, (nb,), "bucket_fixup flat", torch.int64)
-    _build.check(chain_of, (nb,), "bucket_fixup chain_of", torch.int64)
-    _build.check(needs_carry, (nb,), "bucket_fixup needs_carry", torch.bool)
-    _build.check(live, (nb,), "bucket_fixup live", torch.bool)
-    out = [torch.empty((_L, nb), dtype=torch.int32, device=flat.device) for _ in range(3)]
+        if v.numel() != _L * n:
+            raise ValueError(f"bucket_fixup scan {what}: {v.numel() // _L} positions, not {n}")
+    _build.check(keys, (n,), "bucket_fixup keys", torch.int64)
+    _build.check(heads, tuple(heads.shape), "bucket_fixup heads")
+    if heads.numel() != n:
+        raise ValueError(f"bucket_fixup heads: {heads.numel()} positions, not {n}")
+    for v, what in zip(summ, "xyz"):
+        _build.check(v, (_L, KV), f"bucket_fixup summ {what}")
+    out = [torch.empty((_L, nb), dtype=torch.int32, device=keys.device) for _ in range(3)]
     if nb:
-        fn = _build.entry("g1_add", "g1_bucket_fixup", 13, 3)
-        _build.launch(fn, (*scan, *carry, flat, chain_of, needs_carry, live, *out),
-                      (ns, nc, nb), flat.device)
+        fn = _build.entry("window_tail", "g1_bucket_fixup", 11, 5)
+        _build.launch(fn, (*scan, keys, heads, *summ, *out), (n, K, rows, nbatch, B),
+                      keys.device)
         bucket_fixup_kernel.launches += 1
     return g1.JacobianPoints(*out)
 
@@ -271,27 +326,32 @@ def add(pa: g1.JacobianPoints, pb: g1.JacobianPoints) -> g1.JacobianPoints:
     return add_kernel(_contig_points(pa), _contig_points(pb))
 
 
-def horner(acc: g1.JacobianPoints, t: g1.JacobianPoints, c: int) -> g1.JacobianPoints:
-    """acc = 2^c acc + t over (L, N) batches, the Horner step of the MSM's
-    window loop: B2's ``g1_horner`` on a CUDA tensor (one launch for the
-    c + 1 adds), the plain version on a CPU tensor."""
-    if acc.x.device.type == "cpu":
-        return horner_plain(acc, t, c)
-    return horner_kernel(_contig_points(acc), _contig_points(t), c)
+def horner_chain(ts, c: int) -> g1.JacobianPoints:
+    """The Horner chain of a MSM's windows: ts = (x, y, z), each (W, 24, N)
+    with window w's total T_w at index w; from the identity and the top
+    window down, acc = 2^c acc + T_w. B2's ``g1_horner_chain`` on a CUDA
+    tensor (one launch for the W (c + 1) adds), the plain version on a CPU
+    tensor."""
+    if ts[0].device.type == "cpu":
+        return horner_chain_plain(ts, c)
+    return horner_chain_kernel(_contig(*ts), c)
 
 
-def bucket_fixup(scan, flat, carry, chain_of, needs_carry, live) -> g1.JacobianPoints:
-    """A window's bucket sums (width nb): the scan value at ``flat`` (scan:
-    (x, y, z) outputs of a bucket scan, (L, ...) with flat positions over the
-    trailing axes), plus ``carry`` (x, y, z), (L, KV), at ``chain_of`` where
-    ``needs_carry``, and the identity where not ``live``. flat, chain_of:
-    (nb,) int64; needs_carry, live: (nb,) bool. B2's ``g1_bucket_fixup`` on a
-    CUDA tensor, the plain version on a CPU tensor."""
-    if flat.device.type == "cpu":
-        return bucket_fixup_plain(scan, flat, carry, chain_of, needs_carry, live)
-    return bucket_fixup_kernel(_contig(*scan), flat.long().contiguous(), _contig(*carry),
-                               chain_of.long().contiguous(), needs_carry.bool().contiguous(),
-                               live.bool().contiguous())
+def bucket_fixup(scan, keys, heads, summ, K: int, rows: int, nbatch: int,
+                 B: int) -> g1.JacobianPoints:
+    """A window's bucket sums, width nbatch B: the scan value at each
+    bucket's last sorted position, plus the carry into its chain (``summ``,
+    B3's inclusive prefix of the chain finals, at the chain before) where
+    the bucket's run started in an earlier chain, the identity where the
+    bucket is empty or bucket 0 of its batch. scan: the (x, y, z) outputs of
+    a bucket scan, (L, m, K) in the chain layout; keys (n,) the sorted
+    buckets; heads (m, K) the head flags in that layout; summ (x, y, z),
+    (L, K rows). B2's ``g1_bucket_fixup`` on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if keys.device.type == "cpu":
+        return bucket_fixup_plain(scan, keys, heads, summ, K, rows, nbatch, B)
+    return bucket_fixup_kernel(_contig(*scan), keys.long().contiguous(), *_contig(heads),
+                               _contig(*summ), K, rows, nbatch, B)
 
 
 def seg_prefix(state):

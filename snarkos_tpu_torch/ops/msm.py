@@ -13,11 +13,13 @@ Per c-bit signed window, high to low (Horner):
      finals (kernel B3, the whole prefix in one launch)
   5. bucket sums = scan values at each bucket's last position, plus the carry
      where a bucket's run starts in an earlier chain (kernel B2's
-     ``bucket_fixup``, one launch)
+     ``bucket_fixup``, one launch from the sorted keys, the head flags and
+     B3's prefix: it finds each bucket's indices itself)
   6. T_w = sum_b b S_b: (suffix of suffix)[1] per batch (kernel B3), or, for
      a single MSM with B >= 2^11 buckets, kernel B7 (``_weighted_bucket_total``:
      the suffix scan and its total in one launch)
-  7. acc = 2^c acc + T_w (kernel B2's ``horner``, one launch)
+After the loop, acc = sum_w 2^(c w) T_w by Horner from the top window down
+(kernel B2's ``horner_chain``, one launch a MSM over the windows' T_w).
 
 ``msm_affine`` runs the fast engine above SERIAL_MAX_N and reruns the
 complete one when its exception flag is set. The group and the scans are
@@ -31,7 +33,8 @@ window a sort, a chunked segmented scan of the sorted Jacobian points as K
 lanes of m steps (for G1 on the card: ``g1_lane_scan``, a team of threads a
 lane, one B3 prefix of the lane aggregates and ``g1_lane_carry``; for other
 groups two m-step passes of the segmented combine around the prefix), the
-bucket sums at the runs' tails, T_w by kernel B7 and the Horner step by B2.
+bucket sums at the runs' tails and T_w by kernel B7; after the loop the
+Horner chain by B2.
 """
 
 from __future__ import annotations
@@ -58,11 +61,12 @@ class GroupOps:
     # the whole inclusive segmented prefix of a (flags, *elems) state in one
     # call; groups without it run the Hillis-Steele round loop
     seg_prefix: Callable[[Any], Any] | None = None
-    # (acc, t, c) -> 2^c acc + t in one call; groups without it run c + 1 adds
-    horner: Callable[[Any, Any, int], Any] | None = None
-    # (scan, flat, carry_in, chain_of, needs_carry, live) -> a window's bucket
-    # sums in one call (``_bucket_sums``); groups without it gather, add and
-    # select
+    # (ts, c) -> the Horner chain over the windows' totals ts[w] in one call
+    # (``_horner_chain``); groups without it run c + 1 adds a window
+    horner_chain: Callable[[list, int], Any] | None = None
+    # (scan, keys, heads, summ, K, rows, nbatch, B) -> a window's bucket sums
+    # in one call (``_bucket_sums``); groups without it run the index glue,
+    # gather, add and select
     bucket_fixup: Callable[..., Any] | None = None
     # a window's bucket sums -> T_w = sum_{b>=1} b S_b, width 1, in one call
     # (``_weighted_bucket_total``); groups without it scan and sum
@@ -85,7 +89,7 @@ def _default_seg_combine(group: GroupOps):
 
 
 def g1_group(device) -> GroupOps:
-    """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add, horner,
+    """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add, horner_chain,
     bucket_fixup), B3 (seg_prefix), B7 (bucket_total) and the lane scan
     (``g1_lane_scan``, ``g1_lane_carry``) on the card, their plain versions
     on the CPU."""
@@ -102,8 +106,9 @@ def g1_group(device) -> GroupOps:
     def select(mask, a, b):
         return tuple(torch.where(mask.unsqueeze(0), x, y) for x, y in zip(a, b))
 
-    def horner(acc, t, c):
-        return coords(g1_kernels.horner(g1.JacobianPoints(*acc), g1.JacobianPoints(*t), c))
+    def horner_chain(ts, c):
+        return coords(g1_kernels.horner_chain(
+            tuple(torch.stack([t[i] for t in ts]) for i in range(3)), c))
 
     def bucket_fixup(*args):
         return coords(g1_kernels.bucket_fixup(*args))
@@ -112,7 +117,8 @@ def g1_group(device) -> GroupOps:
         return msm_kernels.bucket_total(*sums)
 
     group = GroupOps(identity=identity, add=add, select=select,
-                     seg_prefix=g1_kernels.seg_prefix, horner=horner, bucket_fixup=bucket_fixup,
+                     seg_prefix=g1_kernels.seg_prefix, horner_chain=horner_chain,
+                     bucket_fixup=bucket_fixup,
                      bucket_total=bucket_total)
 
     def lane_scan(flags, pts, K):
@@ -212,24 +218,35 @@ def _hillis_steele_prefix(seg, group: GroupOps, state, width: int, nelems: int):
     return cur
 
 
-def _horner(group: GroupOps, acc, t, c: int):
-    """acc = 2^c acc + t: one ``group.horner`` call, or c doublings as
-    ``group.add(acc, acc)`` and one add."""
-    if group.horner is not None:
-        return group.horner(acc, t, c)
-    for _ in range(c):
-        acc = group.add(acc, acc)
-    return group.add(acc, t)
+def _horner_chain(group: GroupOps, ts, c: int):
+    """sum_w 2^(c w) ts[w] by Horner: from the identity and the top window
+    down, acc = 2^c acc + ts[w]. One ``group.horner_chain`` call, or for each
+    window c doublings as ``group.add(acc, acc)`` and one add."""
+    if group.horner_chain is not None:
+        return group.horner_chain(ts, c)
+    acc = group.identity(ts[0][0].shape[-1])
+    for t in reversed(ts):
+        for _ in range(c):
+            acc = group.add(acc, acc)
+        acc = group.add(acc, t)
+    return acc
 
 
-def _bucket_sums(group: GroupOps, scan, flat, carry_in, chain_of, needs_carry, live):
-    """A window's bucket sums: the scan values at the buckets' last
-    positions ``flat`` (scan: the (x, y, z) scan outputs), plus the carry
-    into chain ``chain_of`` where ``needs_carry``, the identity where not
-    ``live``. One ``group.bucket_fixup`` call, or gathers, an add and
-    selects."""
+def _bucket_sums(group: GroupOps, scan, keys, heads, summ, K: int, rows: int, nbatch: int,
+                 B: int):
+    """A window's bucket sums (``g1_kernels.bucket_fixup``): the scan values
+    at the buckets' last positions (scan: the (x, y, z) scan outputs), plus
+    the carry into the bucket's chain (``summ``, the inclusive prefix of the
+    chain finals, at the chain before) where its run started in an earlier
+    chain, the identity where the bucket is empty or bucket 0 of its batch.
+    One ``group.bucket_fixup`` call, or ``g1_kernels.bucket_indices``,
+    gathers, an add and selects."""
     if group.bucket_fixup is not None:
-        return group.bucket_fixup(scan, flat, carry_in, chain_of, needs_carry, live)
+        return group.bucket_fixup(scan, keys, heads, summ, K, rows, nbatch, B)
+    flat, chain_of, needs_carry, live = g1_kernels.bucket_indices(keys, heads, K, rows,
+                                                                  nbatch, B)
+    carry_in = tuple(torch.cat([i, s[..., :-1]], dim=-1)
+                     for i, s in zip(group.identity(1), summ))  # carry INTO chain l
     tails = tuple(t.reshape(t.shape[0], -1)[:, flat] for t in scan)
     carry_at = tuple(t[:, chain_of] for t in carry_in)
     sums = group.select(needs_carry, group.add(tails, carry_at), tails)
@@ -335,7 +352,6 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
         else:
             scan_fn = msm_kernels.bucket_scan_fast if fast else msm_kernels.bucket_scan
     seg = _default_seg_combine(group)
-    bucket_ids = torch.arange(B_total, device=device)
     src = chain_src(n, K, chunk, serial, device)
 
     def plain_add_scan_reverse(vals):
@@ -345,9 +361,10 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
         cur = _hillis_steele_prefix(seg, group, (flags,) + rev, B_total, len(vals))
         return tuple(t.flip(-1) for t in cur[1:])
 
-    acc = group.identity(nbatch)
+    W = packed_digits.shape[0]
+    t_ws = [None] * W  # window w's T_w, for the Horner chain after the loop
     exc_acc = torch.zeros((), dtype=torch.int32, device=device)
-    for w in range(packed_digits.shape[0] - 1, -1, -1):
+    for w in range(W - 1, -1, -1):
         keys, xs, ys, heads_lane = chain_layout(x, ycat, packed_digits[w], src, batch_off)
         if fast:
             nz_lane = (keys > 0).to(torch.int32)[src.reshape(-1)].reshape(m, K)
@@ -359,26 +376,13 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
 
         # cross-chain carries: inclusive segmented scan of the chain finals,
         # which lie in the last `rows` rows (chain l = r K + k at row r)
-        heads_chain = heads_lane.reshape(mv, rows, K)
-        chain_flag = heads_chain.max(0).values.reshape(1, KV)
+        chain_flag = heads_lane.reshape(mv, rows, K).max(0).values.reshape(1, KV)
         finals = tuple(t[:, -rows:, :].reshape(L, KV) for t in (sx, sy, sz))
         summ = _hillis_steele_prefix(seg, group, (chain_flag,) + finals, KV, 3)
-        ident1 = group.identity(1)
-        carry_in = tuple(torch.cat([ident1[i], summ[1 + i][..., :-1]], dim=-1)
-                         for i in range(3))  # carry INTO chain l
 
         # bucket sums = scan values at each bucket's last occurrence, plus
         # the chain carry when the bucket's run extends past a chain start
-        pos = torch.searchsorted(keys, bucket_ids, right=True) - 1
-        posc = pos.clamp(min=0)
-        nonempty = (pos >= 0) & (keys[posc] == bucket_ids)
-        chain_of = posc // mv
-        i_of = posc % mv
-        flat = (i_of * rows + chain_of // K) * K + chain_of % K
-        cum_heads = heads_chain.cumsum(0).reshape(-1)  # heads so far within the chain
-        needs_carry = cum_heads[flat] == 0
-        live = nonempty & ((bucket_ids % B > 0) if nbatch > 1 else (bucket_ids > 0))
-        sums = _bucket_sums(group, (sx, sy, sz), flat, carry_in, chain_of, needs_carry, live)
+        sums = _bucket_sums(group, (sx, sy, sz), keys, heads_lane, summ[1:], K, rows, nbatch, B)
 
         # T_w = sum_{b>=1} b S_b: B7 in one launch (~2B adds) for the single
         # MSM's wide windows, the double Hillis-Steele (2 B log B adds, per
@@ -395,7 +399,8 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
             else:
                 t_w = tuple(t[..., 1:2] for t in suffix2)
 
-        acc = _horner(group, acc, t_w, c)
+        t_ws[w] = t_w
+    acc = _horner_chain(group, t_ws, c)
     if fast:
         return acc, exc_acc
     return acc
@@ -464,8 +469,9 @@ def msm_generic(group: GroupOps, points, scalar_limbs: torch.Tensor, c: int,
     K = min(chunk_lanes, N). Per unsigned c-bit window, high to low: a
     stable sort by digit, the chunked segmented scan of the sorted points
     (``_seg_scan_chunked``), the bucket sums at each run's tail (bucket 0
-    weighted 0), T_w = sum_b b S_b (``_weighted_bucket_total``, B = 2^c),
-    and acc = 2^c acc + T_w. Returns a width-1 element."""
+    weighted 0) and T_w = sum_b b S_b (``_weighted_bucket_total``, B = 2^c);
+    then the Horner chain acc = 2^c acc + T_w over the windows
+    (``_horner_chain``). Returns a width-1 element."""
     n = scalar_limbs.shape[-1]
     K = min(chunk_lanes, n)
     if n % K:
@@ -475,7 +481,7 @@ def msm_generic(group: GroupOps, points, scalar_limbs: torch.Tensor, c: int,
     digits = window_digits(scalar_limbs, c)
     seg = _default_seg_combine(group)
     bucket_ids = torch.arange(num_buckets, device=device)
-    acc = group.identity(1)
+    t_ws = [None] * digits.shape[0]  # window w's T_w, for the Horner chain after the loop
     for w in range(digits.shape[0] - 1, -1, -1):
         keys, order = torch.sort(digits[w].long(), stable=True)
         pts = tuple(t[..., order] for t in points)
@@ -490,8 +496,8 @@ def msm_generic(group: GroupOps, points, scalar_limbs: torch.Tensor, c: int,
                             group.identity(num_buckets))
         # this window's (.., N) copies go before the next window makes its own
         del pts, scanned
-        acc = _horner(group, acc, _weighted_bucket_total(sums, group, seg, num_buckets), c)
-    return acc
+        t_ws[w] = _weighted_bucket_total(sums, group, seg, num_buckets)
+    return _horner_chain(group, t_ws, c)
 
 
 def _msm_jacobian(points: g1.JacobianPoints, scalar_limbs: torch.Tensor, c: int = 0,

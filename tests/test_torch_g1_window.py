@@ -1,8 +1,10 @@
 """Kernel B2's window entry points on the CPU: ``horner_plain`` (acc =
-2^c acc + t) and ``bucket_fixup_plain`` (a window's bucket sums) against the
-compositions of ``g1.add`` calls that they replace in the MSM's window loop,
-limb for limb, with identity lanes and P == +-Q; and the routing of
-``_fused_msm_body`` through a group's ``horner`` and ``bucket_fixup``."""
+2^c acc + t, one step of ``horner_chain``) and ``bucket_fixup_plain`` (a
+window's bucket sums) against the compositions of ``g1.add`` calls that
+they replace in the MSM's window loop, limb for limb, with identity lanes
+and P == +-Q; and the routing of ``_fused_msm_body`` through a group's
+``horner_chain`` and ``bucket_fixup``. The kernels' index derivation and the
+chain's plain version: tests/test_torch_window_tail.py."""
 
 import dataclasses
 import random
@@ -39,7 +41,7 @@ def _odd_identity(rng):
 
 def _loop_group():
     """The G1 group without the fused entry points: the window loop's adds."""
-    return dataclasses.replace(msm.g1_group("cpu"), horner=None, bucket_fixup=None)
+    return dataclasses.replace(msm.g1_group("cpu"), horner_chain=None, bucket_fixup=None)
 
 
 def _coords(p):
@@ -65,47 +67,94 @@ def test_horner_plain_is_c_self_adds_then_an_add(c):
          _rescale(ref.neg(ref.scalar_mul(1 << c, pts[3])), rng), ref.INFINITY]
     a, b = g1.encode_points(acc), g1.encode_points(t)
     got = g1_kernels.horner_plain(a, b, c)
-    want = msm._horner(_loop_group(), _coords(a), _coords(b), c)
+    group = _loop_group()
+    want = _coords(a)
+    for _ in range(c):
+        want = group.add(want, want)
+    want = group.add(want, _coords(b))
     _assert_limbs(_coords(got), want)
-    _assert_limbs(_coords(g1_kernels.horner(a, b, c)), want)  # the wrapper on the CPU
+    # the chain wrapper on the CPU over windows (b, a): its top window's add
+    # to the identity returns a as it is
+    stack = tuple(torch.stack([u, v]) for u, v in zip(_coords(b), _coords(a)))
+    _assert_limbs(_coords(g1_kernels.horner_chain(stack, c)), want)
     out = g1.decode_points(got)
     for i, (p, q) in enumerate(zip(acc, t)):
         assert ref.affine(out[i]) == ref.affine(ref.add(ref.scalar_mul(1 << c, p), q)), i
     assert int(got.z[:, 4].abs().sum()) == 0 and int(got.z[:, 3].abs().sum()) != 0
 
 
-def test_bucket_fixup_plain_is_the_gathers_add_and_selects():
-    """Scan values (24, 4, 3) and carries (24, 6) of rescaled points and
-    identities; buckets that take their tail alone, add a carry (finite, an
-    identity, P == Q, P == -Q), or are not live."""
-    rng = random.Random(50)
-    pool = [ref.scalar_mul(rng.randrange(1, params.FR_MODULUS), ref.GENERATOR) for _ in range(5)]
-    scan_pts = [_rescale(pool[rng.randrange(5)], rng) for _ in range(12)]
-    scan_pts[5] = _odd_identity(rng)
-    carry_pts = [_rescale(pool[rng.randrange(5)], rng) for _ in range(6)]
-    carry_pts[2] = _odd_identity(rng)
-    carry_pts[3] = _rescale(scan_pts[7], rng)             # P == Q
-    carry_pts[4] = _rescale(ref.neg(scan_pts[9]), rng)    # P == -Q
-    enc = g1.encode_points(scan_pts)
-    scan = tuple(t.reshape(24, 4, 3) for t in _coords(enc))
-    carry = _coords(g1.encode_points(carry_pts))
-    flat = torch.tensor([0, 7, 9, 5, 5, 11, 3, 2, 7])
-    chain_of = torch.tensor([0, 3, 4, 2, 1, 2, 5, 0, 3])
-    needs_carry = torch.tensor([0, 1, 1, 1, 1, 1, 0, 1, 1], dtype=torch.bool)
-    live = torch.tensor([1, 1, 1, 1, 1, 1, 1, 0, 0], dtype=torch.bool)
-    got = g1_kernels.bucket_fixup_plain(scan, flat, carry, chain_of, needs_carry, live)
-    want = msm._bucket_sums(_loop_group(), scan, flat, carry, chain_of, needs_carry, live)
+# Two windows of 32 sorted positions in 8 chains of 4 (serial: K = 8, rows =
+# 1; wide: K = 4, rows = 2), as (nbatch, B, keys). Each has buckets that are
+# empty or bucket 0 of a batch, that take their tail alone (a head in their
+# chain before it, also at the chain start), and four whose runs cross into
+# a later chain and take its carry.
+FIXUP_WINDOWS = {
+    1: (1, 9, [0] * 3 + [1] * 6 + [2] * 2 + [4] * 7 + [5] + [6] * 6 + [7] * 2 + [8] * 5),
+    2: (2, 5, [0] * 2 + [1] * 5 + [2] + [3] * 4 + [5] * 6 + [6] * 3 + [7] * 6 + [9] * 5),
+}
+
+
+def fixup_window(keys, K, rows, nbatch, B, rng):
+    """A window's inputs to ``bucket_fixup`` over ``keys`` (sorted): the
+    head flags in the chain layout of ``msm.chain_src``, scan values and
+    chain prefixes of rescaled random points with identities (arbitrary X,
+    Y) at some positions, and at the buckets that take a carry, in turn, a
+    finite carry, an identity, P == Q and P == -Q. Returns (scan, keys,
+    heads, summ) tensors, the host points (scan by flat position, summ by
+    chain) and the carry buckets."""
+    n = len(keys)
+    src = msm.chain_src(n, K, rows, rows == 1)
+    m = n // K
+    head = [1] + [int(keys[i] != keys[i - 1]) for i in range(1, n)]
+    heads = torch.tensor([head[i] for i in src.reshape(-1).tolist()],
+                         dtype=torch.int32).reshape(m, K)
+    keys_t = torch.tensor(keys, dtype=torch.int64)
+    pool = [ref.scalar_mul(rng.randrange(1, params.FR_MODULUS), ref.GENERATOR) for _ in range(6)]
+    scan_pts = [_rescale(pool[rng.randrange(6)], rng) for _ in range(n)]
+    scan_pts[5::7] = [_odd_identity(rng) for _ in scan_pts[5::7]]
+    summ_pts = [_rescale(pool[rng.randrange(6)], rng) for _ in range(K * rows)]
+    flat, chain_of, needs, live = g1_kernels.bucket_indices(keys_t, heads, K, rows, nbatch, B)
+    takers = [b for b in range(nbatch * B) if live[b] and needs[b] and chain_of[b] > 0]
+    assert len(takers) >= 4
+    for i, b in enumerate(takers):
+        tail = scan_pts[int(flat[b])]
+        if not tail[2]:
+            tail = scan_pts[int(flat[b])] = _rescale(pool[0], rng)
+        summ_pts[int(chain_of[b]) - 1] = (
+            _rescale(pool[1], rng), _odd_identity(rng), _rescale(tail, rng),
+            _rescale(ref.neg(tail), rng))[i % 4]
+    scan = tuple(t.reshape(24, m, K) for t in _coords(g1.encode_points(scan_pts)))
+    summ = _coords(g1.encode_points(summ_pts))
+    return (scan, keys_t, heads, summ), scan_pts, summ_pts, takers
+
+
+@pytest.mark.parametrize("nbatch", [1, 2])
+def test_bucket_fixup_plain_is_the_gathers_add_and_selects(nbatch):
+    """A window's bucket sums from its raw inputs (serial layout, nbatch 1 and
+    2): the G1 plain version equals the group route (index glue, gathers,
+    the add and selects as group calls) limb for limb, and every bucket is
+    its tail, plus the carry where its run crossed a chain start, or the
+    identity (g1.infinity's limbs) on the host."""
+    rng = random.Random(50 + nbatch)
+    nb_, B, keys = FIXUP_WINDOWS[nbatch]
+    K, rows = 8, 1
+    args, scan_pts, summ_pts, takers = fixup_window(keys, K, rows, nb_, B, rng)
+    got = g1_kernels.bucket_fixup_plain(*args, K, rows, nb_, B)
+    want = msm._bucket_sums(_loop_group(), *args, K, rows, nb_, B)
     _assert_limbs(_coords(got), want)
-    _assert_limbs(_coords(g1_kernels.bucket_fixup(scan, flat, carry, chain_of, needs_carry,
-                                                  live)), want)
+    _assert_limbs(_coords(g1_kernels.bucket_fixup(*args, K, rows, nb_, B)), want)
+    flat, chain_of, needs, live = g1_kernels.bucket_indices(*args[1:3], K, rows, nb_, B)
     out = g1.decode_points(got)
-    for b in range(flat.shape[0]):
+    inf = g1.infinity((1,))
+    for b in range(nb_ * B):
+        if not live[b]:
+            assert all(torch.equal(u[:, b:b + 1], v) for u, v in zip(_coords(got), _coords(inf)))
+            continue
         s = scan_pts[int(flat[b])]
-        if needs_carry[b]:
-            s = ref.add(s, carry_pts[int(chain_of[b])])
-        assert ref.affine(out[b]) == (ref.affine(s) if live[b] else ref.affine(ref.INFINITY)), b
-    inf = g1.infinity((2,))  # not live: g1.infinity's limbs
-    _assert_limbs((got.x[:, 7:], got.y[:, 7:], got.z[:, 7:]), _coords(inf))
+        if needs[b] and chain_of[b] > 0:
+            s = ref.add(s, summ_pts[int(chain_of[b]) - 1])
+        assert ref.affine(out[b]) == ref.affine(s), b
+    assert int(got.z[:, takers[3]].abs().sum()) == 0  # P == -Q: Z = 0
 
 
 def _mock3_group(**kw):
@@ -142,9 +191,10 @@ def _mock3_scan(xs, ys, flags, lanes, chunk):
 
 @pytest.mark.parametrize("serial", [False, True])
 def test_fused_body_routes_through_horner_and_bucket_fixup(serial):
-    """A group with ``horner`` and ``bucket_fixup`` takes one call of each a
-    window in place of the c + 2 adds of the loop; the result equals the
-    mock group's loop (which the JAX engine pins in tests/test_torch_msm.py)."""
+    """A group with ``horner_chain`` and ``bucket_fixup`` takes one chain call
+    a MSM and one fixup call a window in place of the c + 2 adds a window of
+    the loop; the result equals the mock group's loop (which the JAX engine
+    pins in tests/test_torch_msm.py)."""
     rng = random.Random(60)
     n, c, lanes, chunk = 16, 4, 2, 2
     x = torch.tensor([rng.randrange(1, MOCK_MOD) for _ in range(n)], dtype=torch.int32)
@@ -153,7 +203,7 @@ def test_fused_body_routes_through_horner_and_bucket_fixup(serial):
     scalars = [rng.randrange(params.FR_MODULUS) for _ in range(n)]
     packed = msm.signed_window_digits(torch.from_numpy(FR.encode(scalars, mont=False)), c)
     base = _mock3_group()
-    calls = {"horner": 0, "bucket_fixup": 0, "add": 0}
+    calls = {"horner_chain": 0, "bucket_fixup": 0, "add": 0}
 
     def add(a, b):
         calls["add"] += 1
@@ -161,15 +211,15 @@ def test_fused_body_routes_through_horner_and_bucket_fixup(serial):
 
     loop = dataclasses.replace(base, add=add)
 
-    def horner(acc, t, c_):
-        calls["horner"] += 1
-        return msm._horner(base, acc, t, c_)
+    def horner_chain(ts, c_):
+        calls["horner_chain"] += 1
+        return msm._horner_chain(base, ts, c_)
 
     def bucket_fixup(*args):
         calls["bucket_fixup"] += 1
         return msm._bucket_sums(base, *args)
 
-    fused = dataclasses.replace(loop, horner=horner, bucket_fixup=bucket_fixup)
+    fused = dataclasses.replace(loop, horner_chain=horner_chain, bucket_fixup=bucket_fixup)
 
     def scan(xs, ys, flags, lanes_, chunk_):  # serial chains: the wide scan with chunk 1
         return _mock3_scan(xs, ys, flags, lanes_, 1 if serial else chunk_)
@@ -182,7 +232,7 @@ def test_fused_body_routes_through_horner_and_bucket_fixup(serial):
     loop_adds, calls["add"] = calls["add"], 0
     got = run(fused)
     W = packed.shape[0]
-    assert calls["horner"] == calls["bucket_fixup"] == W
+    assert calls["horner_chain"] == 1 and calls["bucket_fixup"] == W
     assert loop_adds - calls["add"] == W * (c + 2)  # the suffix scans' adds remain
     _assert_limbs(got, want)
     assert int(got[1][0, 0]) == sum(k * v for k, v in zip(scalars, y)) % MOCK_MOD
@@ -190,10 +240,9 @@ def test_fused_body_routes_through_horner_and_bucket_fixup(serial):
 
 def test_g1_group_has_the_fused_entry_points():
     group = msm.g1_group("cpu")
-    assert group.horner is not None and group.bucket_fixup is not None
+    assert group.horner_chain is not None and group.bucket_fixup is not None
     assert group.seg_prefix is g1_kernels.seg_prefix
-    acc = g1.infinity((1,))
     t = g1.encode_points([ref.GENERATOR])
-    out = group.horner(_coords(acc), _coords(t), 2)
+    out = group.horner_chain([_coords(t), _coords(g1.infinity((1,)))], 2)
     assert ref.affine(g1.decode_points(g1.JacobianPoints(*out))[0]) == ref.affine(ref.GENERATOR)
     assert np.array_equal(out[2].numpy(), t.z.numpy())

@@ -159,12 +159,15 @@ def test_kernel_wrappers_reject_cpu_tensors():
     p = g1.infinity((4,))
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.add_kernel(p, p)
+    stack = tuple(t.unsqueeze(0) for t in (p.x, p.y, p.z))
     with pytest.raises(ValueError, match="CUDA"):
-        g1_kernels.horner_kernel(p, p, 3)
-    idx = torch.zeros(4, dtype=torch.int64)
-    mask = torch.ones(4, dtype=torch.bool)
+        g1_kernels.horner_chain_kernel(stack, 3)
+    keys = torch.zeros(4, dtype=torch.int64)
+    heads = torch.ones((2, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        g1_kernels.bucket_fixup_kernel((p.x, p.y, p.z), idx, (p.x, p.y, p.z), idx, mask, mask)
+        g1_kernels.bucket_fixup_kernel((p.x, p.y, p.z), keys, heads, (p.x, p.y, p.z), 2, 2, 1, 3)
+    with pytest.raises(ValueError, match="multiple"):
+        g1_kernels.bucket_fixup_kernel((p.x, p.y, p.z), keys, heads, (p.x, p.y, p.z), 3, 1, 1, 3)
     flag = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.seg_prefix_kernel(flag, p.x, p.y, p.z)
@@ -186,7 +189,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
     assert ntt.pass_kernel.launches == 0
     assert poseidon.permute_kernel.launches == puzzle.epoch_step_kernel.launches == 0
     assert g1_kernels.seg_prefix_kernel.launches == 0
-    assert g1_kernels.horner_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
+    assert g1_kernels.horner_chain_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
     assert msm_kernels.bucket_scan_fast_kernel.launches == 0
     assert msm_kernels.bucket_total_kernel.launches == 0
 
