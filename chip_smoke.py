@@ -6,13 +6,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
      and nvcc versions; build every kernel from snarkos_tpu_torch/csrc, one
-     nvcc per source, all at once; the dev SRS of degree 2^20 built on the
+     nvcc per source, all at once (each kernel's registers and spills from
+     ptxas, its local loads and stores counted in its SASS); the dev SRS of degree 2^20 built on the
      card (its first 2^20 points are the bases of phase 5).
   2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute and
      fr_epoch_step; B2 g1_add and its window-tail entry points
      g1_horner_chain and g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
-     B6 bucket_scan_fast, B7 jadd_bucket_total; the generic engine's lane
-     scan g1_lane_scan and g1_lane_carry) against its plain PyTorch
+     B6 bucket_scan_fast, B7 jadd_bucket_total; the generic engine's window
+     g1_lane_buckets and g1_lane_bucket_carry) against its plain PyTorch
      version on the card, at the paths' shapes and on real windows of their
      MSMs, with edge lanes; the comparison is exact (tolerance 0: the
      arithmetic is integer). B4-B7 add in another order than their plain
@@ -21,12 +22,15 @@ result line:
      their sweeps: B4 and B5 at every position, B6 at every position of a
      live bucket in an unflagged chain (elsewhere its values are don't-care)
      and its exception flags exactly, B7 at the total and at every suffix,
-     g1_lane_scan at every position and its lane aggregates (their flags and
-     first heads exactly) on real windows of the generic engine at m = 16
-     and 256 steps a lane, each team of its sweep; g1_lane_carry limb for
-     limb; both around B3 equal to the fold of the JAX order. At m = 4096
-     (msm_dist(2^24)'s window) the sweep is timed and sampled lanes are held
-     to the host's serial scan. g1_horner_chain (one launch a MSM) at the
+     g1_lane_buckets at every bucket and its lane aggregates (their flags,
+     first heads and carry keys exactly) on real windows of the generic
+     engine at m = 1, 16 and 256 positions a lane, each plan of its sweep,
+     with P == Q, P == -Q, identities, a run over lanes 60-63, a lane whose
+     last position starts a run and lanes with no tail planted;
+     g1_lane_bucket_carry limb for limb; both around B3 equal to the JAX
+     order (the lane fold and the tails' gather) at every bucket. At m =
+     4096 (msm_dist(2^24)'s window) the sweep is timed and the tails of
+     sampled lanes are held to the host's serial sums. g1_horner_chain (one launch a MSM) at the
      paths' (W, 24, 8), (W, 24, 16) c = 6 and (19, 24, 1) c = 14, with lane
      0's acc an identity with arbitrary X, Y through the top windows and the
      last add meeting P == Q and P == -Q, and its width-1 latency sweep over
@@ -62,8 +66,8 @@ result line:
   6. the generic engine: msm.msm over the first 2^16 dev SRS powers, each
      rescaled to a random z, every 64th the identity, every 97th scalar 0:
      the result equals (sum k_i tau^i) G over the non-identity lanes, and a
-     call launches g1_lane_scan, B3, g1_lane_carry and B7 W times each (W =
-     20 windows; m = 16 steps a lane), g1_horner_chain once and nothing
+     call launches g1_lane_buckets, B3, g1_lane_bucket_carry and B7 W times
+     each (W = 20 windows; m = 16 steps a lane), g1_horner_chain once and nothing
      else, no g1_add;
      points/s (median of 3).
   7. the verifier: check_binding's B1 launches; Puzzle.verify_batch over the
@@ -109,8 +113,8 @@ result line:
      tiled 16 times, scalars drawn on the card below 2^252, equal to
      (sum k_i tau^(i mod 2^20)) G (the 16 blocks' scalars folded by Fr adds
      on the card first), one call with its peak device memory. The generic
-     engine's launches are exact (W each of g1_lane_scan, B3,
-     g1_lane_carry and B7, one g1_horner_chain, no g1_add; at world 2 one
+     engine's launches are exact (W each of g1_lane_buckets, B3,
+     g1_lane_bucket_carry and B7, one g1_horner_chain, no g1_add; at world 2 one
      g1_add, the tree reduce). Host-clock times: ntt_dist beside ntt (medians of 3) with
      its steps apart, msm_dist(2^20) beside msm.msm (medians of 3),
      msm_dist(2^24) once. World 2 over gloo, two spawned ranks sharing the
@@ -156,6 +160,7 @@ import dataclasses
 import json
 import os
 import random
+import re
 import shutil
 import signal
 import statistics
@@ -176,10 +181,15 @@ WIDE_TEAM_SWEEP = (4, 8, 16, 32)  # B5's and B6's threads per chain
 # and the few also run at the c = 16 MSM's B = 2^15 + 1
 TOTAL_SWEEP = tuple((t, s) for t in (32, 64, 128, 256) for s in (1, 2, 4))
 TOTAL_SWEEP_WIDE = ((64, 1), (128, 1), (256, 1), (256, 2))
-# the lane scan's threads a lane at the generic engine's m = 16 (2^16), 256
-# (2^20) and 4096 (2^24) elements a lane
-LANE_SWEEP = {16: (2, 4, 8, 16, 32), 256: (8, 16, 32, 64, 128, 256),
-              4096: (16, 32, 64, 128, 256)}
+# g1_lane_buckets' plans (M members a lane, R threads a member, MB members a
+# block) at the generic engine's m = 1 (the verifier's padded MSMs), 16
+# (2^16), 256 (2^20) and 4096 (2^24) positions a lane
+LANE_SWEEP = {1: ((1, 1, 64), (1, 1, 32), (1, 4, 32)),
+              16: ((2, 1, 64), (1, 1, 64), (4, 1, 64), (2, 1, 128), (1, 4, 32), (2, 4, 32),
+                   (4, 4, 32)),
+              256: ((8, 1, 64), (4, 1, 64), (16, 1, 64), (8, 1, 128), (4, 4, 32), (8, 4, 32)),
+              4096: ((8, 1, 64), (4, 1, 64), (16, 1, 64), (8, 1, 128), (32, 1, 128), (16, 4, 32),
+                     (8, 4, 32))}
 # kernels that no path launches yet, with their next caller: held against
 # their plain versions, exempt from the "launched on no path" check, and a
 # failure if a path does launch them
@@ -187,7 +197,7 @@ NO_PATH_YET = {}
 # the generic engine's MSM (phase 6): 2^16 Jacobian bases, c = 13, K = 4096
 # lanes of m = 16 steps, W = 20 windows; the kernels it launches once a
 # window
-GENERIC_KERNELS = ["g1_lane_scan", "seg_prefix", "g1_lane_carry", "jadd_bucket_total",
+GENERIC_KERNELS = ["g1_lane_buckets", "seg_prefix", "g1_lane_bucket_carry", "jadd_bucket_total",
                    "g1_horner_chain"]
 # the window tail's latency sweep (phase 2): the chain at width 1 over W =
 # 8 windows for these c; the latency of one Fq product on a thread's chain
@@ -316,6 +326,47 @@ def _stop_children(grace_s: float = 5.0) -> list:
                     break
                 time.sleep(0.02)
     return stopped
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template argument from its mangled name: the
+    first length-prefixed identifier that names a kernel (else the last
+    one), then the first integral template argument."""
+    names, i = [], 0
+    while i < len(mangled):
+        num = re.match(r"\d+", mangled[i:])
+        if num:
+            j = i + len(num.group())
+            ident = mangled[j:j + int(num.group())]
+            if len(ident) == int(num.group()) and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                names.append(ident)
+                i = j + len(ident)
+                continue
+        i += 1
+    name = next((nm for nm in names if "kernel" in nm), names[-1] if names else mangled)
+    arg = re.search(r"IL[ib](\d+)E", mangled)
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def sass_local(build) -> dict:
+    """Each built kernel's local loads and stores (LDL, STL) in its SASS
+    (cuobjdump -sass), out-of-line callees included: {source: {kernel
+    (its name and template argument): (LDL, STL)}}."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = {}
+    for name in build.SOURCES:
+        text = subprocess.run([cuobjdump, "-sass", build.lib_path(name)], capture_output=True,
+                              text=True, check=True).stdout
+        kerns, fn = {}, None
+        for ln in text.splitlines():
+            head = re.search(r"Function : (\S+)", ln)
+            if head:
+                fn = _kernel_name(head.group(1))
+                kerns[fn] = [0, 0]
+            elif fn and re.search(r"\b(LDL|STL)\b", ln):
+                kerns[fn][0 if "LDL" in ln else 1] += 1
+        out[name] = {k: tuple(v) for k, v in kerns.items()}
+    return out
 
 
 def bound(nbytes: float, nops: float):
@@ -493,8 +544,12 @@ def main() -> int:
         regs[name] = lines
         for ln in lines:
             log(f"  {name}: {ln}")
+    local = sass_local(_build)
+    for name, kerns in local.items():
+        log(f"  {name} SASS local loads / stores: "
+            + "; ".join(f"{k} {ldl} / {stl}" for k, (ldl, stl) in kerns.items()))
     report.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
-                  build_s=build_s, ptxas=regs)
+                  build_s=build_s, ptxas=regs, sass_local=local)
     t0 = time.perf_counter()
     srs = PuzzleSRS.dev(LOG_N)
     torch.cuda.synchronize()
@@ -1176,21 +1231,24 @@ def main() -> int:
           "snarkos_tpu/ops/msm_pallas.py:303", b7, msm_kernels.bucket_total_kernel,
           compare=b7_compare, verify=no_total)
 
-    # The generic engine's chunked scan: g1_lane_scan and g1_lane_carry on
-    # real windows (keys sorted, the points gathered in that order) of the
-    # generic msm(2^16) (phase 6's bases: rescaled SRS powers, every 64th an
-    # identity; m = 16) and msm_dist(2^20) (the dev SRS powers, identities
-    # planted at every 1000th position; m = 256), K = 4096 lanes, with edges
-    # planted in chosen lanes: at lane offsets 0, s - 1 for each sub-run
-    # length s = ceil(m / T) of the sweep, and m - 2, a head followed by its
-    # copy (P == Q) or its negation (P == -Q), alternately; a head at the
-    # last position of one lane; a run over lanes 60-63, three of them
-    # whole, with no head.
-    # g1_lane_scan is held to its plain version at every position (the same
-    # points), its aggregates likewise and its aggregate flags and first
-    # heads exactly, at each team of the sweep (the path's first);
-    # g1_lane_carry limb for limb; the whole scan (the G1 group's lane_scan:
-    # both entries around one B3 prefix) against the fold of the JAX order.
+    # The generic engine's window: g1_lane_buckets and g1_lane_bucket_carry
+    # on real windows (the keys sorted, the points gathered in that order) of
+    # the verifier's padded MSMs with an identity witness (m = 1: 16 and 8
+    # of phase 6's bases, c = 4, K = n), the generic msm(2^16) (phase 6's
+    # bases: rescaled SRS powers, every 64th an identity; m = 16) and
+    # msm_dist(2^20) (the dev SRS powers, identities planted at every 1000th
+    # position; m = 256), K = 4096 lanes, with edges planted by changing the
+    # keys (they stay sorted): at lane offsets 0, s - 1 for each member
+    # length s of the sweep, and m - 2, a run start followed by its copy
+    # (P == Q) or its negation (P == -Q), alternately; a run starting at the
+    # last position of lane 5 and going on into lane 6; one run over lanes
+    # 60-63 (lanes 61 and 62 have no tail; at m = 1 lanes K - 6 to K - 3).
+    # g1_lane_buckets is held to its plain version at every bucket and
+    # lane aggregate (the same points) and its aggregate flags, first heads
+    # and carry keys exactly, at each plan of its sweep (the path's first);
+    # g1_lane_bucket_carry limb for limb; the whole (the G1 group's
+    # window_bucket_sums: both entries around one B3 prefix) against the
+    # JAX order (the lane fold and the tails' gather) at every bucket.
     NG = 1 << LOG_GENERIC
     gen_pts = [rescale(p) for p in srs.srs_ref.powers_g1[:NG]]  # z != 1
     for i in range(0, NG, 64):  # every 64th an identity
@@ -1201,49 +1259,66 @@ def main() -> int:
     gen_k = torch.from_numpy(gen_scalars).to(dev)
 
     def lane_window(points, keys):
-        """(flags (1, N), x, y, z) of a window: the points in the stable
-        order of ``keys``, a head where the key changes."""
+        """(keys (N,), x, y, z) of a window: the keys sorted, the points in
+        their stable order."""
         keys, order = torch.sort(keys, stable=True)
-        head = torch.cat([torch.ones(1, dtype=torch.int32, device=dev),
-                          (keys[1:] != keys[:-1]).to(torch.int32)]).unsqueeze(0)
-        return (head,) + tuple(t[..., order] for t in points)
+        return (keys,) + tuple(t[..., order] for t in points)
 
-    def plant_lane_edges(win, m, sweep):
+    def plant_lane_edges(win, m, sweep, B):
         """A copy of the window with the edges above: lanes 8 i + 1 for the
-        edge at offset i of the list (i < 7), lane 5's last position a head,
-        lanes 60-63 in one run (K >= 64)."""
-        fl, x, y, z = (t.clone() for t in win)
-        offs = [0] + sorted({-(-m // t) - 1 for t in sweep} - {0}) + [m - 2]
-        offs = [i for i in dict.fromkeys(offs) if 0 <= i < m - 1]
+        edge at offset i of the list (i < 7), lane 5's last position a run
+        start whose run goes on, lanes 60-63 in one run (K >= 64; K - 6 to
+        K - 3 for 16 <= K < 64)."""
+        keys, x, y, z = (t.clone() for t in win)
+        n = keys.shape[0]
+        K = n // m
+
+        def run_start(e):
+            """position e starts a run: the rest of its run moves up a key
+            (at most the next run's key: the keys stay sorted), and e + 1
+            joins it"""
+            if e > 0 and keys[e - 1] == keys[e]:
+                end = int(torch.searchsorted(keys, keys[e], right=True))
+                keys[e:end] += 1
+            keys[e + 1] = keys[e]
+
+        offs = [0] + sorted({-(-m // M) - 1 for M, _, _ in sweep} - {0}) + [m - 2]
+        offs = [i for i in dict.fromkeys(offs) if 0 <= i and (i < m - 1 or m == 1)]
         for idx, i in enumerate(offs):
             e = (8 * idx + 1) * m + i
-            fl[0, e], fl[0, e + 1] = 1, 0
+            run_start(e)
             x[:, e + 1], y[:, e + 1], z[:, e + 1] = x[:, e], y[:, e], z[:, e]
             if idx % 2:
                 y[:, e + 1] = fa.neg(FQ, y[:, e:e + 1])[:, 0]
-        fl[0, 6 * m - 1] = 1
-        fl[0, 60 * m + 1:64 * m] = 0
-        return (fl.contiguous(), x.contiguous(), y.contiguous(), z.contiguous()), offs
+        run_start(6 * m - 1)
+        if K >= 16:
+            j0 = 60 if K >= 64 else K - 6
+            keys[j0 * m + 1:(j0 + 4) * m] = keys[j0 * m]
+        if not bool((keys[1:] >= keys[:-1]).all()) or int(keys[-1]) >= B:
+            raise AssertionError("planting the lane edges unsorted the keys or passed B")
+        return (keys.contiguous(), x.contiguous(), y.contiguous(), z.contiguous()), offs
 
-    def lane_cost(fl, K):
-        """g1_lane_scan: flags and points read, points written once, the
-        lane outputs written; the serial scan's complete add a non-head
+    def lane_cost(keys, K, B):
+        """g1_lane_buckets: keys and points read once, the buckets and lane
+        outputs written once; the serial scan's complete add a non-head
         position (16 Fq products)."""
-        npos = fl.numel()
-        return ((4 + 2 * 72 * 4) * npos + (4 + 72 * 4 + 4) * K,
-                (npos - int(fl.sum())) * 16 * FQ_MUL_OPS)
+        n = keys.numel()
+        heads = 1 + int((keys[1:] != keys[:-1]).sum())
+        return ((8 + 72 * 4) * n + 72 * 4 * B + (4 + 72 * 4 + 8) * K,
+                (n - heads) * 16 * FQ_MUL_OPS)
 
-    def carry_cost(first, m, K):
-        """g1_lane_carry: the prefix and first heads read; at each position
-        before its lane's first head (lanes >= 1) the point read and
-        written, one complete add."""
-        n_c = int(first[1:].clamp(max=m).long().sum())
-        return (2 * 72 * 4 * n_c + (72 * 4 + 4) * K, 16 * n_c * FQ_MUL_OPS)
+    def carry_cost(carry_key, K):
+        """g1_lane_bucket_carry: the carry keys read; for each carried lane
+        the prefix and the bucket read, the bucket written, one complete
+        add."""
+        n_c = int((carry_key[1:] > 0).sum())
+        return (4 * K + 3 * 72 * 4 * n_c, 16 * n_c * FQ_MUL_OPS)
 
     def lane_compare(got, want):
-        if not (torch.equal(got[3], want[3]) and torch.equal(got[7], want[7])):
-            raise AssertionError("g1_lane_scan: aggregate flags or first heads differ from the "
-                                 "plain version's")
+        for i, what in ((3, "aggregate flags"), (7, "first heads"), (8, "carry keys")):
+            if not torch.equal(got[i], want[i]):
+                raise AssertionError(f"g1_lane_buckets: its {what} differ from the plain "
+                                     "version's")
         return max(affine_err(got[:3], want[:3]), affine_err(got[4:7], want[4:7]))
 
     lane_windows = {}
@@ -1252,127 +1327,143 @@ def main() -> int:
     ids20 = g1.JacobianPoints(bx.clone(), by.clone(),
                               fa.broadcast_const(FQ, 1, (N,), device=dev).contiguous())
     ids20.z[:, ::1000] = 0  # identities with the power's X, Y
-    for label, pts, keys, sweep in (
-            ("2^20", (ids20.x, ids20.y, ids20.z), k20_keys, LANE_SWEEP[256]),
-            ("2^16", coords(gen_base), gen_keys, LANE_SWEEP[16])):
-        m_l = pts[0].shape[-1] // GENERIC_K
-        win, offs = plant_lane_edges(lane_window(pts, keys), m_l, sweep)
-        tp = msm_kernels.lane_team(m_l)  # the path's team first
-        lane_windows[label] = (win, m_l, [tp] + [t for t in sweep if t != tp])
-        log(f"lane scan window of {label}: m = {m_l}, edges at lane offsets {offs}")
+    for label, pts, keys, m_l in (
+            ("2^20", (ids20.x, ids20.y, ids20.z), k20_keys, 256),
+            ("2^16", coords(gen_base), gen_keys, 16),
+            ("verifier 16", tuple(t[:, :16] for t in coords(gen_base)),
+             msm.window_digits(gen_k[:, :16], 4)[20].long(), 1),
+            ("verifier 8", tuple(t[:, 64:72] for t in coords(gen_base)),
+             msm.window_digits(gen_k[:, 64:72], 4)[30].long(), 1)):
+        n_l = pts[0].shape[-1]
+        B_l = 1 << msm.default_window_bits(n_l)
+        win, offs = plant_lane_edges(lane_window(pts, keys), m_l, LANE_SWEEP[m_l], B_l)
+        tp = msm_kernels.lane_plan(m_l)  # the path's plan first
+        lane_windows[label] = (win, n_l // m_l, B_l, [tp] + [p for p in LANE_SWEEP[m_l]
+                                                           if p != tp])
+        log(f"lane window of {label}: m = {m_l}, B = {B_l}, edges at lane offsets {offs}")
     del ids20
 
-    def lane_plain(win):
-        return g1_kernels.lane_scan_plain(*win, GENERIC_K)
-
-    lane_plains = {label: (lambda win=win: lane_plain(win))
-                   for label, (win, _, _) in lane_windows.items()}
-    check("g1_lane_scan", "snarkos_tpu_torch/csrc/lane_scan.cu",
+    lane_plains = {label: (lambda win=win, K_l=K_l, B_l=B_l:
+                           g1_kernels.lane_buckets_plain(*win, K_l, B_l))
+                   for label, (win, K_l, B_l, _) in lane_windows.items()}
+    check("g1_lane_buckets", "snarkos_tpu_torch/csrc/lane_scan.cu",
           "snarkos_tpu/ops/g1_pallas.py:125",
-          [(f"(24, {win[1].shape[-1]}) K={GENERIC_K} m={m_l} T={t} ({label})",
-            lambda win=win, t=t: g1_kernels.lane_scan_kernel(*win, GENERIC_K, t),
-            lane_plains[label], *lane_cost(win[0], GENERIC_K))
-           for label, (win, m_l, teams) in lane_windows.items() for t in teams],
-          g1_kernels.lane_scan_kernel, big=True, compare=lane_compare)
+          [(f"(24, {win[1].shape[-1]}) K={K_l} m={win[1].shape[-1] // K_l} B={B_l} "
+            f"plan={plan} ({label})",
+            lambda win=win, K_l=K_l, B_l=B_l, plan=plan:
+                g1_kernels.lane_buckets_kernel(*win, K_l, B_l, plan),
+            lane_plains[label], *lane_cost(win[0], K_l, B_l))
+           for label, (win, K_l, B_l, plans) in lane_windows.items() for plan in plans],
+          g1_kernels.lane_buckets_kernel, big=True, compare=lane_compare)
 
     carry_cases = []
-    for label, (win, m_l, _) in lane_windows.items():
-        ox, oy, oz, *agg, first = g1_kernels.lane_scan_kernel(*win, GENERIC_K,
-                                                              msm_kernels.lane_team(m_l))
+    for label, (win, K_l, B_l, plans) in lane_windows.items():
+        bxl, byl, bzl, *agg, _, ck = g1_kernels.lane_buckets_kernel(*win, K_l, B_l, plans[0])
         summ = tuple(t.contiguous() for t in g1_kernels.seg_prefix(tuple(agg))[1:])
-        scratch = (ox.clone(), oy.clone(), oz.clone())
+        scratch = (bxl.clone(), byl.clone(), bzl.clone())
         carry_cases.append((
-            f"(24, {win[1].shape[-1]}) K={GENERIC_K} m={m_l} ({label})",
-            lambda o=(ox, oy, oz), summ=summ, first=first, m_l=m_l:
-                g1_kernels.lane_carry_kernel(*(t.clone() for t in o), *summ, first, m_l),
-            lambda o=(ox, oy, oz), summ=summ, first=first, m_l=m_l:
-                g1_kernels.lane_carry_plain(*o, *summ, first, m_l),
-            *carry_cost(first, m_l, GENERIC_K),
-            lambda scratch=scratch, summ=summ, first=first, m_l=m_l:
-                g1_kernels.lane_carry_kernel(*scratch, *summ, first, m_l)))
-    check("g1_lane_carry", "snarkos_tpu_torch/csrc/lane_scan.cu",
-          "snarkos_tpu/ops/g1_pallas.py:125", carry_cases, g1_kernels.lane_carry_kernel,
-          big=True)
+            f"(24, {B_l}) K={K_l} m={win[1].shape[-1] // K_l}, {int((ck[1:] > 0).sum())} "
+            f"carries ({label})",
+            lambda o=(bxl, byl, bzl), summ=summ, ck=ck:
+                g1_kernels.lane_bucket_carry_kernel(*(t.clone() for t in o), *summ, ck),
+            lambda o=(bxl, byl, bzl), summ=summ, ck=ck:
+                g1_kernels.lane_bucket_carry_plain(*o, *summ, ck),
+            *carry_cost(ck, K_l),
+            lambda scratch=scratch, summ=summ, ck=ck:
+                g1_kernels.lane_bucket_carry_kernel(*scratch, *summ, ck)))
+    check("g1_lane_bucket_carry", "snarkos_tpu_torch/csrc/lane_scan.cu",
+          "snarkos_tpu/ops/g1_pallas.py:125", carry_cases,
+          g1_kernels.lane_bucket_carry_kernel, big=True)
     g1_cuda = msm.g1_group(dev)
-    fold_group = dataclasses.replace(g1_cuda, lane_scan=None)
-    for label, (win, m_l, _) in lane_windows.items():
-        whole = g1_cuda.lane_scan(win[0], win[1:], GENERIC_K)
-        fold = msm._fold_lanes(msm._default_seg_combine(fold_group), fold_group, win[0], win[1:],
-                               GENERIC_K)
-        log(f"the chunked scan of the {label} window (g1_lane_scan, B3, g1_lane_carry) == the "
-            f"fold of the JAX order at every position (max abs err of the affine forms "
+    jax_order = dataclasses.replace(g1_cuda, window_bucket_sums=None)
+    for label, (win, K_l, B_l, _) in lane_windows.items():
+        whole = g1_cuda.window_bucket_sums(win[0], win[1:], K_l, B_l)
+        fold = msm._window_bucket_sums(msm._default_seg_combine(jax_order), jax_order, win[0],
+                                       win[1:], K_l, B_l)
+        log(f"the {label} window's bucket sums (g1_lane_buckets, B3, g1_lane_bucket_carry) == "
+            f"the JAX order's at every bucket (max abs err of the affine forms "
             f"{affine_err(whole, fold)})")
     del lane_windows, lane_plains, carry_cases, whole, fold
 
     # msm_dist(2^24)'s window, m = 4096: the 2^20 dev SRS powers tiled 16
-    # times in the order of 13 random key bits, the edges planted as above.
-    # Each team of the sweep is timed; the plain fold would take minutes, so
+    # times in the order of 13 random key bits, identities (with the
+    # power's X, Y) at every 1000th position, the edges planted as above.
+    # Each plan of the sweep is timed; the plain fold would take minutes, so
     # sampled lanes (the first, the edge lanes, lane 5, the run over lanes
-    # 60-63) are held to the host's serial scan (crypto/ref/g1)
-    # at every position, lane-local after g1_lane_scan and whole after B3
-    # and g1_lane_carry, and every lane's aggregate to its own last
-    # position, its flag and first head to the flags.
+    # 60-63) are held to the host's serial scan (crypto/ref/g1): at every
+    # tail in them the bucket, lane-local after g1_lane_buckets and whole
+    # after B3 and g1_lane_bucket_carry, and each sampled lane's aggregate;
+    # every lane's flag, first head and carry key to the keys.
     n24 = 1 << DIST_MSM_LOG
+    B24 = 1 << GENERIC_C
     gen24 = torch.Generator(device=dev)
     gen24.manual_seed(DIST_MSM_LOG)
-    keys24, order24 = torch.sort(torch.randint(0, 1 << GENERIC_C, (n24,), generator=gen24,
-                                               device=dev), stable=True)
+    keys24, order24 = torch.sort(torch.randint(0, B24, (n24,), generator=gen24, device=dev),
+                                 stable=True)
     order24 = order24 % N
-    win24 = (torch.cat([torch.ones(1, dtype=torch.int32, device=dev),
-                        (keys24[1:] != keys24[:-1]).to(torch.int32)]).unsqueeze(0),
-             bx[:, order24], by[:, order24], fa.broadcast_const(FQ, 1, (n24,), device=dev))
+    win24 = (keys24, bx[:, order24], by[:, order24],
+             fa.broadcast_const(FQ, 1, (n24,), device=dev))
     del keys24, order24
     m24 = n24 // GENERIC_K
-    win24, offs24 = plant_lane_edges(win24, m24, LANE_SWEEP[4096])
-    team24 = msm_kernels.lane_team(m24)
+    win24, offs24 = plant_lane_edges(win24, m24, LANE_SWEEP[m24], B24)
+    win24[3][:, ::1000] = 0
+    plan24 = msm_kernels.lane_plan(m24)
     by_name = {k["name"]: k for k in kernels}
     ms24 = {}
-    for t in [team24] + [t for t in LANE_SWEEP[4096] if t != team24]:
-        ms24[t] = (cuda_ms(lambda t=t: g1_kernels.lane_scan_kernel(*win24, GENERIC_K, t), 3, 2),
-                   graph_ms(lambda t=t: g1_kernels.lane_scan_kernel(*win24, GENERIC_K, t), 3, 2))
-        b_ms, b_by = bound(*lane_cost(win24[0], GENERIC_K))
-        by_name["g1_lane_scan"]["shapes"].append({
-            "shape": f"(24, {n24}) K={GENERIC_K} m={m24} T={t} (2^24)", "ms": ms24[t][0],
-            "device_ms": ms24[t][1], "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by})
-        log(f"g1_lane_scan (24, {n24}) m={m24} T={t}: kernel {ms24[t][0]:.4f} ms (device "
-            f"{ms24[t][1]:.4f} ms), bound {b_ms:.5f} ms ({b_by})")
+    b_ms, b_by = bound(*lane_cost(win24[0], GENERIC_K, B24))
+    for plan in [plan24] + [p for p in LANE_SWEEP[m24] if p != plan24]:
+        fn24 = (lambda plan=plan:
+                g1_kernels.lane_buckets_kernel(*win24, GENERIC_K, B24, plan))
+        ms24[plan] = (cuda_ms(fn24, 3, 2), graph_ms(fn24, 3, 2))
+        by_name["g1_lane_buckets"]["shapes"].append({
+            "shape": f"(24, {n24}) K={GENERIC_K} m={m24} B={B24} plan={plan} (2^24)",
+            "ms": ms24[plan][0], "device_ms": ms24[plan][1], "plain_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by})
+        log(f"g1_lane_buckets (24, {n24}) m={m24} plan={plan}: kernel {ms24[plan][0]:.4f} ms "
+            f"(device {ms24[plan][1]:.4f} ms), bound {b_ms:.5f} ms ({b_by})")
         torch.cuda.empty_cache()
-    ox, oy, oz, agg_f, ax, ay, az, first24 = g1_kernels.lane_scan_kernel(*win24, GENERIC_K, team24)
-    f2 = win24[0].reshape(GENERIC_K, m24) != 0
-    want_first = torch.where(f2.any(1), f2.int().argmax(1), m24).to(torch.int32)
-    if not (torch.equal(first24, want_first)
-            and torch.equal(agg_f[0], f2.any(1).to(torch.int32))):
-        raise AssertionError("g1_lane_scan at 2^24: first heads or aggregate flags are wrong")
-    lasts = torch.arange(1, GENERIC_K + 1, device=dev) * m24 - 1
-    if affine_err((ax, ay, az), tuple(t[:, lasts] for t in (ox, oy, oz))) != 0:
-        raise AssertionError("g1_lane_scan at 2^24: an aggregate is not its lane's last value")
+    bx24, by24, bz24, agg_f, ax, ay, az, first24, ck24 = g1_kernels.lane_buckets_kernel(
+        *win24, GENERIC_K, B24, plan24)
+    keys_l = win24[0].reshape(GENERIC_K, m24)
+    heads_l = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                         win24[0][1:] != win24[0][:-1]]).reshape(GENERIC_K, m24)
+    tails_l = torch.cat([win24[0][1:] != win24[0][:-1],
+                         torch.ones(1, dtype=torch.bool, device=dev)]).reshape(GENERIC_K, m24)
+    want_first = torch.where(heads_l.any(1), heads_l.int().argmax(1), m24).to(torch.int32)
+    want_ck = torch.where(~heads_l[:, 0] & tails_l.any(1),
+                          keys_l[torch.arange(GENERIC_K, device=dev), tails_l.int().argmax(1)],
+                          -1).to(torch.int32)
+    if not (torch.equal(first24, want_first) and torch.equal(ck24, want_ck)
+            and torch.equal(agg_f[0], heads_l.any(1).to(torch.int32))):
+        raise AssertionError("g1_lane_buckets at 2^24: first heads, carry keys or aggregate "
+                             "flags are wrong")
     sample = sorted({0, 5} | {8 * i + 1 for i in range(len(offs24))} | {60, 61, 62, 63})
     span = (max(sample) + 1) * m24
-
-    def lanes_of(t):
-        return torch.cat([t[:, k * m24:(k + 1) * m24] for k in sample], dim=-1).cpu()
-
-    local24 = tuple(lanes_of(t) for t in (ox, oy, oz))
+    local24 = tuple(t.cpu() for t in (bx24, by24, bz24))
+    agg24 = tuple(t[:, sample].cpu() for t in (ax, ay, az))
     summ = tuple(t.contiguous() for t in g1_kernels.seg_prefix((agg_f, ax, ay, az))[1:])
-    b_ms, b_by = bound(*carry_cost(first24, m24, GENERIC_K))
-    c_ms = cuda_ms(lambda: g1_kernels.lane_carry_kernel(ox, oy, oz, *summ, first24, m24), 3, 2)
-    c_dev = graph_ms(lambda: g1_kernels.lane_carry_kernel(ox, oy, oz, *summ, first24, m24), 3, 2)
-    by_name["g1_lane_carry"]["shapes"].append({
-        "shape": f"(24, {n24}) K={GENERIC_K} m={m24} (2^24)", "ms": c_ms, "device_ms": c_dev,
-        "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by})
-    log(f"g1_lane_carry (24, {n24}) m={m24}: kernel {c_ms:.4f} ms (device {c_dev:.4f} ms), "
-        f"bound {b_ms:.5f} ms ({b_by})")
+    b_ms, b_by = bound(*carry_cost(ck24, GENERIC_K))
+    fn24 = lambda: g1_kernels.lane_bucket_carry_kernel(bx24, by24, bz24, *summ, ck24)
+    c_ms, c_dev = cuda_ms(fn24, 3, 2), graph_ms(fn24, 3, 2)
+    by_name["g1_lane_bucket_carry"]["shapes"].append({
+        "shape": f"(24, {B24}) K={GENERIC_K} m={m24}, {int((ck24[1:] > 0).sum())} carries "
+                 "(2^24)", "ms": c_ms, "device_ms": c_dev, "plain_ms": None, "bound_ms": b_ms,
+        "bound_by": b_by})
+    log(f"g1_lane_bucket_carry (24, {B24}) m={m24}: kernel {c_ms:.4f} ms (device {c_dev:.4f} "
+        f"ms), bound {b_ms:.5f} ms ({b_by})")
     # the timed launches added the carries again: one more clean pass
-    ox, oy, oz, agg_f, ax, ay, az, first24 = g1_kernels.lane_scan_kernel(*win24, GENERIC_K, team24)
+    bx24, by24, bz24, agg_f, ax, ay, az, first24, ck24 = g1_kernels.lane_buckets_kernel(
+        *win24, GENERIC_K, B24, plan24)
     summ = tuple(t.contiguous() for t in g1_kernels.seg_prefix((agg_f, ax, ay, az))[1:])
-    g1_kernels.lane_carry_kernel(ox, oy, oz, *summ, first24, m24)
-    whole24 = tuple(lanes_of(t) for t in (ox, oy, oz))
+    g1_kernels.lane_bucket_carry_kernel(bx24, by24, bz24, *summ, ck24)
+    whole24 = tuple(t.cpu() for t in (bx24, by24, bz24))
     host_pts = g1.decode_points(g1.JacobianPoints(*(t[:, :span] for t in win24[1:])))
-    heads24 = win24[0][0, :span].cpu().tolist()
-    del ox, oy, oz, agg_f, ax, ay, az, first24, summ, win24
+    keys_h = win24[0][:span + 1].cpu().tolist()
+    del bx24, by24, bz24, agg_f, ax, ay, az, first24, ck24, summ, win24, keys_l, heads_l, tails_l
     torch.cuda.empty_cache()
-    local_pts = g1.decode_points(g1.JacobianPoints(*local24))
-    whole_pts = g1.decode_points(g1.JacobianPoints(*whole24))
+    local_b = g1.decode_points(g1.JacobianPoints(*local24))
+    whole_b = g1.decode_points(g1.JacobianPoints(*whole24))
+    agg_h = g1.decode_points(g1.JacobianPoints(*agg24))
 
     def host_same(a, b):
         """Projective equality of two host Jacobian points (no inversion)."""
@@ -1384,21 +1475,26 @@ def main() -> int:
         return (a[0] * zb2 - b[0] * za2) % q == 0 and \
             (a[1] * zb2 * zb - b[1] * za2 * za) % q == 0
 
-    acc, at = ref_g1.INFINITY, 0
+    acc, tails_seen = ref_g1.INFINITY, 0
     for k in range(max(sample) + 1):  # the serial scan over the lanes up to the last sampled
         lacc = ref_g1.INFINITY
         for e in range(k * m24, (k + 1) * m24):
-            acc = host_pts[e] if heads24[e] else ref_g1.add(acc, host_pts[e])
-            lacc = host_pts[e] if heads24[e] else ref_g1.add(lacc, host_pts[e])
-            if k in sample:
-                if not (host_same(lacc, local_pts[at]) and host_same(acc, whole_pts[at])):
-                    raise AssertionError(f"the lane scan at 2^24, lane {k} position {e}: not "
-                                         "the host's serial scan")
-                at += 1
-    log(f"lane scan at 2^24 (m = {m24}, edges at lane offsets {offs24}): lanes {sample} equal the "
-        "host's serial scan at every position, lane-local and whole; every aggregate is its "
-        "lane's last value, the flags and first heads exact")
-    del host_pts, local_pts, whole_pts, local24, whole24
+            head = e == 0 or keys_h[e - 1] != keys_h[e]
+            acc = host_pts[e] if head else ref_g1.add(acc, host_pts[e])
+            lacc = host_pts[e] if head else ref_g1.add(lacc, host_pts[e])
+            if k in sample and keys_h[e + 1] != keys_h[e] and keys_h[e] > 0:
+                b = keys_h[e]
+                if not (host_same(lacc, local_b[b]) and host_same(acc, whole_b[b])):
+                    raise AssertionError(f"the window at 2^24, lane {k} tail {e} (bucket {b}): "
+                                         "not the host's serial sum")
+                tails_seen += 1
+        if k in sample and not host_same(lacc, agg_h[sample.index(k)]):
+            raise AssertionError(f"g1_lane_buckets at 2^24: lane {k}'s aggregate is not its "
+                                 "lane-local sum")
+    log(f"the window at 2^24 (m = {m24}, edges at lane offsets {offs24}): at the {tails_seen} "
+        f"tails of lanes {sample} the buckets equal the host's serial sums, lane-local and "
+        "whole; their aggregates likewise; every lane's flag, first head and carry key exact")
+    del host_pts, local_b, whole_b, agg_h, local24, whole24, agg24
 
     def run_path(label, fn, required, absent=(), exact=None, at_most=None):
         """Drive one path with every launch counter at 0 just before it; the
@@ -1431,7 +1527,7 @@ def main() -> int:
     def generic_counts(n, extra_adds=0):
         """The generic engine's launches on n points at c =
         default_window_bits(n), exactly and nothing else: a window's
-        g1_lane_scan, B3 prefix, g1_lane_carry and B7 total, the MSM's one
+        g1_lane_buckets, B3 prefix, g1_lane_bucket_carry and B7 total, the MSM's one
         Horner chain; plus the tree reduce's g1_add launches."""
         w = -(-msm.SCALAR_BITS // msm.default_window_bits(n))
         return {**{k["name"]: 0 for k in kernels},
@@ -1598,8 +1694,9 @@ def main() -> int:
         raise AssertionError(f"default_window_bits(2^{LOG_GENERIC}) != {GENERIC_C}")
     W_g = -(-msm.SCALAR_BITS // GENERIC_C)
     m_g = NG // GENERIC_K
-    # a window: one g1_lane_scan, one B3 prefix of the lane aggregates, one
-    # g1_lane_carry, one B7 total of the 2^c buckets; one Horner chain
+    # a window: one g1_lane_buckets, one B3 prefix of the lane aggregates,
+    # one g1_lane_bucket_carry, one B7 total of the 2^c buckets; one Horner
+    # chain
     got = run_path(f"msm(2^{LOG_GENERIC}, Jacobian bases)", lambda: msm.msm(gen_base, gen_k),
                    GENERIC_KERNELS, exact=generic_counts(NG))
     if affine_of(got) != times_g(s_gen):
@@ -1659,10 +1756,13 @@ def main() -> int:
                         lambda: kzg.batch_verify(srs_ref, openings),
                         ["bucket_scan_serial", "seg_prefix", "g1_horner_chain"],
                         absent=["g1_add", "jadd_bucket_total"], exact=tail_counts(2, W4))
+    # two generic MSMs (16 and 8 bases, c = 4): a window each of g1_lane_buckets,
+    # B3, g1_lane_bucket_carry and B7, a Horner chain each
+    W_v = -(-msm.SCALAR_BITS // msm.default_window_bits(2 * VERIFY_BATCH))
     gen_ok = run_path(f"batch_verify({VERIFY_BATCH} + identity witness)",
                       lambda: kzg.batch_verify(srs_ref, openings + [const]),
                       GENERIC_KERNELS, absent=["g1_add", "bucket_scan_serial", "g1_bucket_fixup"],
-                      exact={"g1_horner_chain": 2})
+                      exact={**{k: 2 * W_v for k in GENERIC_KERNELS}, "g1_horner_chain": 2})
     const_bad = (const[0], const[1], (const[2] + 1) % r, const[3])
     if not (fused_ok and gen_ok) or kzg.batch_verify(srs_ref, openings + [const_bad]):
         raise AssertionError("batch_verify: the fused or generic engine gave a wrong verdict")

@@ -31,7 +31,6 @@ using namespace snark;
 extern "C" int bucket_scan(const int32_t* xs, const int32_t* ys, const int32_t* flags, int32_t* ox,
                            int32_t* oy, int32_t* oz, int64_t m, int64_t K, int64_t chunk,
                            int64_t team, void* stream) {
-    return launch_team_scan<kWideComplete>(xs, ys, nullptr, flags, nullptr, ox, oy, oz, nullptr,
-                                     nullptr, nullptr, nullptr, nullptr, nullptr, m * K,
-                                     chunk * K, m / chunk, team, stream);
+    return launch_wide_scan_team<true>(xs, ys, flags, nullptr, ox, oy, oz, nullptr, m, K, chunk,
+                                       team, stream);
 }

@@ -35,7 +35,6 @@ extern "C" int bucket_scan_fast(const int32_t* xs, const int32_t* ys, const int3
                                 const int32_t* nonzero, int32_t* ox, int32_t* oy, int32_t* oz,
                                 int32_t* exc, int64_t m, int64_t K, int64_t chunk, int64_t team,
                                 void* stream) {
-    return launch_team_scan<kWideIncomplete>(xs, ys, nullptr, flags, nonzero, ox, oy, oz, exc,
-                                     nullptr, nullptr, nullptr, nullptr, nullptr, m * K,
-                                     chunk * K, m / chunk, team, stream);
+    return launch_wide_scan_team<false>(xs, ys, flags, nonzero, ox, oy, oz, exc, m, K, chunk,
+                                        team, stream);
 }

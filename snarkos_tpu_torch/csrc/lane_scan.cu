@@ -1,82 +1,684 @@
-// The generic MSM engine's chunked segmented scan (ops/msm.py
-// `_seg_scan_chunked`): the inclusive segmented scan of (head flag, Jacobian
-// point) pairs in sorted order, over n = K m positions seen as K lanes of m
-// consecutive elements, in two launches around one B3 prefix
+// The generic MSM engine's window (ops/msm.py `msm_generic`: the chunked
+// segmented scan `_seg_scan_chunked` of the sorted Jacobian points, then the
+// bucket sums at the runs' tails), in two launches around one B3 prefix
 // (seg_prefix.cu) of the K lane aggregates:
-//   g1_lane_scan   each lane's own segmented scan from the identity, written
-//                  at every position, by a team of T threads a lane
-//                  (wide_scan_team.cuh, kind kLanes: sub-run sums, a
-//                  Hillis-Steele scan over the team in shared memory, a
-//                  rescan from the previous member's carry); and per lane its
-//                  aggregate (the OR of its heads, its value at its last
-//                  position) and the index of its first head (m if none);
-//   g1_lane_carry  at each position of lane k >= 1 before the lane's first
-//                  head, the carry (the prefix's value of lane k - 1) plus the
-//                  lane-local value, in place. Fully parallel over positions.
-// The values are other Jacobian representatives of the serial scan's points
-// at every position (compare with g1.same_points); the carry step's add
-// gives g1.add's limbs.
+//   g1_lane_buckets       the sorted window (int64 keys (n,), x, y, z
+//                         (24, n)) as K lanes of m consecutive positions;
+//                         each lane walked once, and the only points written
+//                         are the bucket tails: at the last position of each
+//                         key's run the run's lane-local sum into the (24, B)
+//                         bucket arrays at that key's column (bucket 0 and
+//                         the empty buckets get the identity); per lane its
+//                         aggregate (the OR of its heads (1, K), its value at
+//                         its last position (24, K)), its first head (K,)
+//                         (m if none) and the key of its first tail where
+//                         that run began in an earlier lane (K,) (-1 if
+//                         none);
+//   g1_lane_bucket_carry  for each lane k >= 1 with such a key b > 0: bucket
+//                         b := B3's inclusive prefix at lane k - 1 + bucket
+//                         b, in place; at most one add a lane.
+// The bucket sums are other Jacobian representatives of the JAX order's
+// (the fold's value at each bucket's last position; compare with
+// g1.same_points); the flags, first heads and keys are exact.
 //
 // Replaces, at these call sites, the TPU kernel snarkos_tpu/ops/g1_pallas.py
 // `seg_combine` / `_seg_kernel` (lines 98-133, pallas_call at :125), which
-// the JAX engine launches 2 m times a window (snarkos_tpu/ops/msm.py:139-188):
-// m steps of the combine at width K for the lane aggregates, then m more
-// from the carries to emit every position. The port ran those steps as
-// B2's g1_add at width K plus three selects and a flag OR in PyTorch, and
-// stacked the steps; here a window is 2 launches and the prefix, and the
-// output is written once, straight into the (24, n) coordinate tensors.
+// the JAX engine launches 2 m times a window (snarkos_tpu/ops/msm.py:139-188,
+// 220-226): m steps of the combine at width K for the lane aggregates, m
+// more from the carries to emit every position, then a gather of the tails.
 //
 // Bound on this card: 32-bit integer multiplies, 16 Fq products of 300 word
-// products for each non-head position (the serial scan's adds), against 72
-// words a point read and written once. The team does about twice the adds
-// (phase 1 and the rescan), plus up to T log2 T a lane in the team scan and
-// one a position before a lane's first head in the carry pass. The team is
-// two elements a thread up to 256 threads (msm_kernels.lane_team, from the
-// sweep in PERF.md): at m = 16 (T = 8, about one wave of the card) a launch
-// takes about the latency of a team's 2 s + log2 T dependent adds
-// (s = m / T); at m = 256 and 4096 it is many waves of work.
-#include "wide_scan_team.cuh"
+// products for each non-head position (the serial scan's adds), against one
+// read of the points (288 bytes a position) and the keys. Before this
+// design (g1_lane_scan + g1_lane_carry, a Hillis-Steele team scan that
+// rescanned and wrote every position) a window took 9.75 + 1.52 ms of
+// device time at m = 256 and 198 + 13 ms at m = 4096, 17-20x its ops bound.
+//
+// Design. A lane is walked by M members (M a power of two), member t owning
+// the s = ceil(m / M) positions [t s, (t+1) s) of it. A member is one thread
+// (R = 1, the main path: the complete add on one thread, its temporaries in
+// registers, its operands in shared memory) or a team of R = 4 threads
+// (window_tail.cu's levels: a level's independent products on separate
+// threads, the temporaries in shared memory); `msm_kernels.lane_plan` picks
+// (M, R, members a block) from the sweep in PERF.md. A member
+//   1. stages its positions kTile at a time into shared memory (36 packed
+//      words a point, kBatch loads in flight a thread) with the keys around
+//      them, and walks them once from its first element: at a head the
+//      running sum restarts, else one complete add. At every tail (the next
+//      key differs) after its first head the sum is final: it goes straight
+//      into its bucket, with the identity into the empty buckets up to the
+//      next key. The tail before its first head (its "open" tail) waits
+//      for the carry; the sum there is kept;
+//   2. joins a work-efficient segmented scan of the members' (own head, sum)
+//      pairs in shared memory (an up-sweep and a down-sweep, log2 M levels
+//      each, at most one add a member a level: about 2 adds a member in
+//      all). The up-sweep's root is the lane aggregate; the down-sweep
+//      leaves each member its carry, the lane-local sum before its first
+//      position;
+//   3. adds its carry to its open tail's sum (one add; member 0's carry is
+//      the identity) and writes that bucket; where no head precedes the
+//      open tail in the lane, the run began in an earlier lane and the key
+//      goes to g1_lane_bucket_carry.
+// So a window is about one add a non-head position plus three a member,
+// with no rescan, and writes B + K points where the old pass wrote n. What
+// bounds it on the card is the number of adds in flight: shared memory per
+// member (752 bytes with R = 1 and kTile = 2, against 1,040 with 4-position
+// tiles) and registers allow 256 threads an SM; the plan sweep found one
+// thread an add and 8 members a lane fastest at m = 256 and 4096 (PERF.md,
+// PR 14).
+// The complete add's special cases (P == Q doubles, P == -Q gives Z = 0,
+// an identity operand passes the other through) are those of g1.cuh's
+// g1_add, in its select form, with its field ops in its order: the same
+// limbs. The steps stay out of line (__noinline__): with a G1 add inlined
+// into a scan loop, cicc of nvcc 12.9 crashes.
+#include "g1.cuh"
 
 using namespace snark;
 
-__global__ void g1_lane_carry_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                                     int32_t* __restrict__ oz, const int32_t* __restrict__ sx,
-                                     const int32_t* __restrict__ sy,
-                                     const int32_t* __restrict__ sz,
-                                     const int32_t* __restrict__ first_head, int64_t m,
-                                     int64_t K) {
-    const int64_t n = m * K;
-    const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (e >= n) return;
-    const int64_t k = e / m;
-    if (k == 0 || e - k * m >= first_head[k]) return;
-    Jac carry, local, o;
-    load_point(carry, sx, sy, sz, K, k - 1);
-    load_point(local, ox, oy, oz, n, e);
-    team_add_step(o, carry, local);
-    store_point(ox, oy, oz, o, n, e);
+namespace {
+
+constexpr int kTile = 2;                 // positions staged at a time
+constexpr int kBatch = 8;                // a thread's loads in flight while staging
+// threads a block at most: 256 for one thread a member (its add keeps the
+// temporaries in registers), 384 for teams (at most 168 registers: 3 blocks
+// of 128 an SM)
+constexpr int kMaxThreads1 = 256;
+constexpr int kMaxThreads4 = 384;
+constexpr int kPoint = 36;               // packed words of a point
+constexpr int kTemps = 12;               // a team's add temporaries, 12 words each
+
+// a member's shared words: the tile (after the walk, its first point is the
+// member's scan value), two running sums (ping-pong), the open prefix, the
+// team add's temporaries (none for R = 1: one thread keeps them in
+// registers), the tile's keys (kTile + 2, int32, and 2 of padding)
+template <int R>
+struct Layout {
+    static constexpr int tile = 0;
+    static constexpr int scan = tile;
+    static constexpr int acc = tile + kTile * kPoint;
+    static constexpr int open = acc + 2 * kPoint;
+    static constexpr int tmp = open + kPoint;
+    static constexpr int keys = tmp + (R == 1 ? 0 : 12 * kTemps);
+    static constexpr int words = keys + kTile + 4;
+};
+
+template <int R>
+__device__ __forceinline__ void team_sync(unsigned mask) {
+    if constexpr (R > 1) __syncwarp(mask);
 }
 
-// flags (1, n), x/y/z (24, n) -> ox/oy/oz (24, n) lane-local scans,
-// agg_flag (1, K), agg_x/y/z (24, K), first_head (K,) int32; n = m K.
-extern "C" int g1_lane_scan(const int32_t* flags, const int32_t* x, const int32_t* y,
-                            const int32_t* z, int32_t* ox, int32_t* oy, int32_t* oz,
-                            int32_t* agg_flag, int32_t* agg_x, int32_t* agg_y, int32_t* agg_z,
-                            int32_t* first_head, int64_t m, int64_t K, int64_t team,
-                            void* stream) {
-    return launch_team_scan<kLanes>(x, y, z, flags, nullptr, ox, oy, oz, nullptr, agg_flag, agg_x,
-                                    agg_y, agg_z, first_head, m * K, K, m, team, stream);
+template <int R>
+__device__ __forceinline__ unsigned member_mask() {
+    if constexpr (R == 1) {
+        return 1u << (threadIdx.x & 31u);
+    } else {
+        return ((1u << R) - 1u) << ((threadIdx.x & 31u) & ~static_cast<unsigned>(R - 1));
+    }
 }
 
-// ox/oy/oz (24, n) updated in place from the prefix sx/sy/sz (24, K) of the
-// lane aggregates and first_head (K,).
-extern "C" int g1_lane_carry(int32_t* ox, int32_t* oy, int32_t* oz, const int32_t* sx,
-                             const int32_t* sy, const int32_t* sz, const int32_t* first_head,
-                             int64_t m, int64_t K, void* stream) {
-    constexpr int threads = 128;
-    const int64_t blocks = (m * K + threads - 1) / threads;
-    g1_lane_carry_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(ox, oy, oz, sx, sy, sz,
-                                                                first_head, m, K);
+// o = a b over 12-word field elements in shared memory, on one thread's
+// registers (o may alias a or b).
+__device__ __noinline__ void mul_to(uint32_t* o, const uint32_t* a, const uint32_t* b) {
+    uint32_t x[12], y[12], z[12];
+    copy<Fq>(x, a);
+    copy<Fq>(y, b);
+    mont_mul<Fq>(z, x, y);
+    copy<Fq>(o, z);
+}
+
+struct Prod {
+    uint32_t* o;
+    const uint32_t* a;
+    const uint32_t* b;
+};
+
+// One level of a member: its k <= 4 independent products, product i on
+// thread i % R; then the member waits for all of them.
+template <int R>
+__device__ __forceinline__ void level(int r, unsigned mask, int k, Prod p0, Prod p1, Prod p2,
+                                      Prod p3) {
+    const Prod ps[4] = {p0, p1, p2, p3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        if (i < k && i % R == r) mul_to(ps[i].o, ps[i].a, ps[i].b);
+    team_sync<R>(mask);
+}
+
+__device__ __forceinline__ uint32_t* tmp(uint32_t* T, int i) { return T + 12 * i; }
+
+// o = 2 p (dbl-2009-l, as g1.cuh's g1_double); o may not alias p.
+template <int R>
+__device__ __noinline__ void member_double(uint32_t* o, const uint32_t* p, uint32_t* T, int r,
+                                           unsigned mask) {
+    const uint32_t *X = p, *Y = p + 12, *Z = p + 24;
+    uint32_t *A = tmp(T, 0), *Bq = tmp(T, 1), *YZ = tmp(T, 2), *XB = tmp(T, 3), *E = tmp(T, 4),
+             *C = tmp(T, 5), *D = tmp(T, 6), *F = tmp(T, 7), *DX = tmp(T, 8), *EDX = tmp(T, 9);
+    level<R>(r, mask, 3, {A, X, X}, {Bq, Y, Y}, {YZ, Y, Z}, Prod{});
+    if (r == 0) {
+        add<Fq>(XB, X, Bq);
+        mul3<Fq>(E, A);
+        dbl<Fq>(o + 24, YZ);                                      // z3 = 2 y z
+    }
+    team_sync<R>(mask);
+    level<R>(r, mask, 3, {C, Bq, Bq}, {D, XB, XB}, {F, E, E}, Prod{});
+    if (r == 0) {
+        sub<Fq>(D, D, A);
+        sub<Fq>(D, D, C);
+        dbl<Fq>(D, D);                                            // D = 2 ((x + B)^2 - A - C)
+        uint32_t t[12];
+        dbl<Fq>(t, D);
+        sub<Fq>(o, F, t);                                         // x3 = F - 2D
+        sub<Fq>(DX, D, o);
+    }
+    team_sync<R>(mask);
+    level<R>(r, mask, 1, {EDX, E, DX}, Prod{}, Prod{}, Prod{});
+    if (r == 0) {
+        uint32_t c8[12];
+        mul8<Fq>(c8, C);
+        sub<Fq>(o + 12, EDX, c8);                                 // y3 = E (D - x3) - 8C
+    }
+    team_sync<R>(mask);
+}
+
+// o = p + q (add-2007-bl in five levels and the special cases of g1.cuh's
+// g1_add); o may not alias p or q. The temporaries are reused as the
+// levels free them: 12 of them.
+template <int R>
+__device__ __noinline__ void member_add(uint32_t* o, const uint32_t* p, const uint32_t* q,
+                                        uint32_t* T, int r, unsigned mask) {
+    const uint32_t *X1 = p, *Y1 = p + 12, *Z1 = p + 24, *X2 = q, *Y2 = q + 12, *Z2 = q + 24;
+    uint32_t *Z1Z1 = tmp(T, 0), *Z2Z2 = tmp(T, 1), *S1 = tmp(T, 2), *S2 = tmp(T, 3),
+             *U1 = tmp(T, 4), *U2 = tmp(T, 5), *I = tmp(T, 6), *ZZ = tmp(T, 7),
+             *RR2 = tmp(T, 8), *J = tmp(T, 9), *V = tmp(T, 10), *VX = tmp(T, 11);
+    // S1, S2 start as Y1 Z2, Y2 Z1 and are multiplied in place
+    level<R>(r, mask, 4, {Z1Z1, Z1, Z1}, {Z2Z2, Z2, Z2}, {S1, Y1, Z2}, {S2, Y2, Z1});
+    level<R>(r, mask, 4, {U1, X1, Z2Z2}, {U2, X2, Z1Z1}, {S1, S1, Z2Z2}, {S2, S2, Z1Z1});
+    // the special cases, read by every thread of the member alike before the
+    // slots are reused
+    const bool p_inf = is_zero<Fq>(Z1);
+    const bool q_inf = is_zero<Fq>(Z2);
+    const bool x_eq = eq<Fq>(U1, U2);
+    const bool y_eq = eq<Fq>(S1, S2);
+    team_sync<R>(mask);
+    uint32_t *H = U2, *RR = S2, *H2 = I;
+    if (r == 0) {
+        sub<Fq>(H, U2, U1);
+        sub<Fq>(RR, S2, S1);
+        dbl<Fq>(RR, RR);
+        dbl<Fq>(H2, H);
+        add<Fq>(ZZ, Z1, Z2);
+    }
+    team_sync<R>(mask);
+    level<R>(r, mask, 3, {I, H2, H2}, {RR2, RR, RR}, {ZZ, ZZ, ZZ}, Prod{});  // i = (2h)^2
+    if (r == 0) {
+        sub<Fq>(ZZ, ZZ, Z1Z1);
+        sub<Fq>(ZZ, ZZ, Z2Z2);
+    }
+    team_sync<R>(mask);
+    level<R>(r, mask, 3, {J, H, I}, {V, U1, I}, {o + 24, ZZ, H}, Prod{});
+    if (r == 0) {
+        uint32_t t[12], v2[12];
+        sub<Fq>(t, RR2, J);
+        dbl<Fq>(v2, V);
+        sub<Fq>(o, t, v2);                                        // x3 = rr^2 - j - 2v
+        sub<Fq>(VX, V, o);
+    }
+    team_sync<R>(mask);
+    uint32_t *T5 = Z1Z1, *S1J = Z2Z2;
+    level<R>(r, mask, 2, {T5, RR, VX}, {S1J, S1, J}, Prod{}, Prod{});
+    if (r == 0) {
+        uint32_t t[12];
+        dbl<Fq>(t, S1J);
+        sub<Fq>(o + 12, T5, t);                                   // y3 = rr (v - x3) - 2 s1 j
+    }
+    team_sync<R>(mask);
+    if (!p_inf && !q_inf && x_eq) {
+        if (y_eq) {
+            member_double<R>(o, p, T, r, mask);
+        } else if (r == 0) {
+#pragma unroll
+            for (int k = 0; k < 12; ++k) o[24 + k] = 0;
+        }
+    }
+    if (r == 0 && (p_inf || q_inf)) {
+        const uint32_t* src = p_inf ? q : p;
+#pragma unroll 4
+        for (int k = 0; k < kPoint; ++k) o[k] = src[k];
+    }
+    team_sync<R>(mask);
+}
+
+// o = 2 p on one thread (g1.cuh's g1_double), the operand read from shared
+// memory as it is needed and the temporaries in registers; o may not alias p.
+__device__ __noinline__ void thread_double(uint32_t* o, const uint32_t* p) {
+    uint32_t A[12], Bq[12], C[12], D[12], E[12], t[12], x[12];
+    copy<Fq>(x, p);
+    sqr<Fq>(A, x);
+    copy<Fq>(t, p + 12);
+    sqr<Fq>(Bq, t);
+    sqr<Fq>(C, Bq);
+    add<Fq>(D, x, Bq);
+    sqr<Fq>(D, D);
+    sub<Fq>(D, D, A);
+    sub<Fq>(D, D, C);
+    dbl<Fq>(D, D);                      // D = 2 ((x + B)^2 - A - C)
+    mul3<Fq>(E, A);
+    sqr<Fq>(A, E);                      // F = E^2
+    dbl<Fq>(x, D);
+    sub<Fq>(x, A, x);                   // x3 = F - 2D
+    copy<Fq>(o, x);
+    sub<Fq>(t, D, x);
+    mont_mul<Fq>(t, E, t);
+    mul8<Fq>(C, C);
+    sub<Fq>(t, t, C);                   // y3 = E (D - x3) - 8C
+    copy<Fq>(o + 12, t);
+    copy<Fq>(t, p + 12);
+    copy<Fq>(x, p + 24);
+    mont_mul<Fq>(t, t, x);
+    dbl<Fq>(t, t);                      // z3 = 2 y z
+    copy<Fq>(o + 24, t);
+}
+
+// o = p + q on one thread (g1.cuh's g1_add, the same field ops in the same
+// order), the operands read from shared memory as they are needed and the
+// temporaries in registers; o may not alias p or q.
+__device__ __noinline__ void thread_add(uint32_t* o, const uint32_t* p, const uint32_t* q) {
+    uint32_t z1[12], z2[12], z1z1[12], z2z2[12], u1[12], s1[12], h[12], rr[12], t[12];
+    copy<Fq>(z1, p + 24);
+    copy<Fq>(z2, q + 24);
+    const bool p_inf = is_zero<Fq>(z1);
+    const bool q_inf = is_zero<Fq>(z2);
+    sqr<Fq>(z1z1, z1);
+    sqr<Fq>(z2z2, z2);
+    copy<Fq>(t, p + 12);
+    mont_mul<Fq>(s1, t, z2);
+    mont_mul<Fq>(s1, s1, z2z2);         // s1 = y1 z2 z2z2
+    copy<Fq>(t, q + 12);
+    mont_mul<Fq>(rr, t, z1);
+    mont_mul<Fq>(rr, rr, z1z1);         // s2 = y2 z1 z1z1
+    copy<Fq>(t, p);
+    mont_mul<Fq>(u1, t, z2z2);
+    copy<Fq>(t, q);
+    mont_mul<Fq>(h, t, z1z1);           // u2
+    const bool x_eq = eq<Fq>(u1, h);
+    const bool y_eq = eq<Fq>(s1, rr);
+    sub<Fq>(h, h, u1);                  // h = u2 - u1
+    sub<Fq>(rr, rr, s1);
+    dbl<Fq>(rr, rr);                    // rr = 2 (s2 - s1)
+    add<Fq>(t, z1, z2);
+    sqr<Fq>(t, t);
+    sub<Fq>(t, t, z1z1);
+    sub<Fq>(z1, t, z2z2);               // (z1 + z2)^2 - z1z1 - z2z2
+    uint32_t* i = z1z1;
+    uint32_t* j = z2z2;
+    dbl<Fq>(t, h);
+    sqr<Fq>(i, t);                      // i = (2h)^2
+    mont_mul<Fq>(j, h, i);
+    mont_mul<Fq>(u1, u1, i);            // v = u1 i
+    mont_mul<Fq>(t, z1, h);
+    copy<Fq>(o + 24, t);                // z3
+    sqr<Fq>(t, rr);
+    sub<Fq>(t, t, j);
+    dbl<Fq>(z2, u1);
+    sub<Fq>(t, t, z2);                  // x3 = rr^2 - j - 2v
+    copy<Fq>(o, t);
+    sub<Fq>(z2, u1, t);
+    mont_mul<Fq>(z2, rr, z2);
+    mont_mul<Fq>(j, s1, j);
+    dbl<Fq>(j, j);
+    sub<Fq>(t, z2, j);                  // y3 = rr (v - x3) - 2 s1 j
+    copy<Fq>(o + 12, t);
+    if (!p_inf && !q_inf && x_eq) {
+        if (y_eq) {
+            thread_double(o, p);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 12; ++k) o[24 + k] = 0;
+        }
+    }
+    if (p_inf || q_inf) {
+        const uint32_t* src = p_inf ? q : p;
+#pragma unroll 4
+        for (int k = 0; k < kPoint; ++k) o[k] = src[k];
+    }
+}
+
+// o = p + q by a member: one thread's registers, or a team's levels.
+template <int R>
+__device__ __forceinline__ void add_point(uint32_t* o, const uint32_t* p, const uint32_t* q,
+                                          uint32_t* T, int r, unsigned mask) {
+    if constexpr (R == 1) {
+        thread_add(o, p, q);
+    } else {
+        member_add<R>(o, p, q, T, r, mask);
+    }
+}
+
+template <int R>
+__device__ __forceinline__ void copy_point(uint32_t* dst, const uint32_t* src, int r,
+                                           unsigned mask) {
+    for (int k = r; k < kPoint; k += R) dst[k] = src[k];
+    team_sync<R>(mask);
+}
+
+template <int R>
+__device__ __forceinline__ void zero_point(uint32_t* dst, int r, unsigned mask) {
+    for (int k = r; k < kPoint; k += R) dst[k] = 0;
+    team_sync<R>(mask);
+}
+
+// A packed point into column c of (24, w) limb tensors, word k by thread
+// k % R.
+template <int R>
+__device__ __forceinline__ void store_col(int32_t* x, int32_t* y, int32_t* z, const uint32_t* src,
+                                          int64_t w, int64_t c, int r) {
+    for (int k = r; k < kPoint; k += R) {
+        int32_t* dst = k < 12 ? x : k < 24 ? y : z;
+        const int i = k % 12;
+        dst[(2 * i) * w + c] = static_cast<int32_t>(src[k] & 0xFFFFu);
+        dst[(2 * i + 1) * w + c] = static_cast<int32_t>(src[k] >> 16);
+    }
+}
+
+template <int R>
+__device__ __forceinline__ void load_col(uint32_t* dst, const int32_t* x, const int32_t* y,
+                                         const int32_t* z, int64_t w, int64_t c, int r) {
+    for (int k = r; k < kPoint; k += R) {
+        const int32_t* src = k < 12 ? x : k < 24 ? y : z;
+        const int i = k % 12;
+        const uint32_t lo = static_cast<uint32_t>(src[(2 * i) * w + c]) & 0xFFFFu;
+        const uint32_t hi = static_cast<uint32_t>(src[(2 * i + 1) * w + c]) & 0xFFFFu;
+        dst[k] = lo | (hi << 16);
+    }
+}
+
+// The identity (g1.infinity's limbs: X = Y = one, Z = 0) into buckets
+// [lo, hi) of (24, B), spread over the member's threads.
+template <int R>
+__device__ __forceinline__ void identity_cols(int32_t* bx, int32_t* by, int32_t* bz, int64_t B,
+                                              int64_t lo, int64_t hi, int r) {
+    for (int64_t b = lo; b < hi; ++b) {
+        for (int w = r; w < 72; w += R) {
+            const int row = w % 24;
+            const uint32_t one = FQ_ONE[row / 2];
+            const int32_t v = static_cast<int32_t>(row & 1 ? one >> 16 : one & 0xFFFFu);
+            (w < 24 ? bx : w < 48 ? by : bz)[row * B + b] = w < 48 ? v : 0;
+        }
+    }
+}
+
+// A tail's bucket: the point, or the identity for bucket 0.
+template <int R>
+__device__ __forceinline__ void write_bucket(int32_t* bx, int32_t* by, int32_t* bz, int64_t B,
+                                             int key, const uint32_t* v, int r) {
+    if (key == 0) {
+        identity_cols<R>(bx, by, bz, B, 0, 1, r);
+    } else {
+        store_col<R>(bx, by, bz, v, B, key, r);
+    }
+}
+
+// Lanes of m positions, M members a lane of s = ceil(m / M) positions, MB
+// members a block (MB / M lanes), R threads a member.
+template <int R>
+__global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buckets_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ x,
+                                    const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+                                    int32_t* __restrict__ bx, int32_t* __restrict__ by,
+                                    int32_t* __restrict__ bz, int32_t* __restrict__ agg_flag,
+                                    int32_t* __restrict__ ax, int32_t* __restrict__ ay,
+                                    int32_t* __restrict__ az, int32_t* __restrict__ first_head,
+                                    int32_t* __restrict__ carry_key, int64_t n, int64_t K,
+                                    int64_t m, int64_t B, int M) {
+    extern __shared__ uint32_t smem[];
+    const int MB = blockDim.x / R;
+    const int mb = threadIdx.x / R, r = threadIdx.x % R;
+    const int t = mb % M;
+    const int lane0 = mb - t;  // the lane's member 0 in the block
+    const int64_t l = static_cast<int64_t>(blockIdx.x) * (MB / M) + mb / M;
+    const bool live = l < K;
+    const unsigned mask = member_mask<R>();
+    using L = Layout<R>;
+    uint32_t* base = smem + static_cast<int64_t>(mb) * L::words;
+    int* own = reinterpret_cast<int*>(smem + static_cast<int64_t>(MB) * L::words);  // (MB,)
+    int* subtree = own + MB;  // (MB,) the up-sweep's subtree flags
+    uint32_t* tile = base + L::tile;
+    uint32_t* acc = base + L::acc;
+    uint32_t* open_sum = base + L::open;
+    uint32_t* scan = base + L::scan;
+    uint32_t* T = base + L::tmp;
+    int* kt = reinterpret_cast<int*>(base + L::keys);
+
+    const int64_t s = (m + M - 1) / M;
+    const int64_t i0 = live && t * s < m ? t * s : m;
+    const int64_t i1 = i0 + s < m ? i0 + s : m;
+    const int64_t lb = l * m;
+
+    // 1. the walk
+    int cur = 0;
+    bool own_head = false, open = true, has_open = false;
+    int open_key = -1;
+    int64_t first = m;
+    for (int64_t i = i0; i < i1; ++i) {
+        const int j = static_cast<int>((i - i0) % kTile);
+        team_sync<R>(mask);  // the last step's reads of the tile and the sums are done
+        if (j == 0) {
+            const int cnt = static_cast<int>(i1 - i < kTile ? i1 - i : kTile);
+            const int64_t e0 = lb + i;
+            // kBatch loads of each limb row in flight, then their stores
+            for (int p0 = r; p0 < kPoint * cnt; p0 += R * kBatch) {
+                uint32_t lo[kBatch], hi[kBatch];
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    const int p = p0 + u * R;
+                    if (p < kPoint * cnt) {
+                        const int k = p / cnt, jj = p % cnt;
+                        const int32_t* src = k < 12 ? x : k < 24 ? y : z;
+                        const int64_t at = (2 * (k % 12)) * n + e0 + jj;
+                        lo[u] = static_cast<uint32_t>(src[at]) & 0xFFFFu;
+                        hi[u] = static_cast<uint32_t>(src[at + n]) & 0xFFFFu;
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    const int p = p0 + u * R;
+                    if (p < kPoint * cnt) tile[(p % cnt) * kPoint + p / cnt] = lo[u] | (hi[u] << 16);
+                }
+            }
+            // keys of positions e0 - 1 .. e0 + cnt: -1 before the first, B
+            // after the last
+            for (int p = r; p < cnt + 2; p += R) {
+                const int64_t e = e0 - 1 + p;
+                kt[p] = e < 0 ? -1 : e >= n ? static_cast<int>(B) : static_cast<int>(keys[e]);
+            }
+            team_sync<R>(mask);
+        }
+        const uint32_t* q = tile + j * kPoint;
+        const int prev = kt[j], key = kt[j + 1], next = kt[j + 2];
+        const bool head = prev != key;
+        const bool tail = next != key;
+        uint32_t* a = acc + cur * kPoint;
+        if (head || i == i0) {  // a restart, or the first element (identity + q = q)
+            if (head) {
+                if (!own_head) first = i;
+                own_head = true;
+                open = false;
+            }
+            copy_point<R>(a, q, r, mask);
+        } else {
+            add_point<R>(acc + (cur ^ 1) * kPoint, a, q, T, r, mask);
+            cur ^= 1;
+            a = acc + cur * kPoint;
+        }
+        if (prev < 0) identity_cols<R>(bx, by, bz, B, 0, key, r);  // below the first key
+        if (tail) {
+            if (open) {
+                has_open = true;
+                open_key = key;
+                copy_point<R>(open_sum, a, r, mask);
+                open = false;
+            } else {
+                write_bucket<R>(bx, by, bz, B, key, a, r);
+            }
+            identity_cols<R>(bx, by, bz, B, key + 1, next, r);  // empty buckets up to the next key
+        }
+    }
+    if (i1 > i0) {
+        copy_point<R>(scan, acc + cur * kPoint, r, mask);
+    } else {
+        zero_point<R>(scan, r, mask);
+    }
+    if (r == 0) {
+        own[mb] = own_head ? 1 : 0;
+        subtree[mb] = own_head ? 1 : 0;
+    }
+    if (live && t == 0 && r == 0) carry_key[l] = -1;
+    __syncthreads();
+
+    // 2. the members' segmented scan: (f_a, v_a) then (f_b, v_b) gives
+    // (f_a | f_b, f_b ? v_b : v_a + v_b). Up-sweep: member t = 2d - 1 mod 2d
+    // takes in its left sibling's subtree at member t - d
+    for (int d = 1; d < M; d <<= 1) {
+        if (live && t % (2 * d) == 2 * d - 1) {
+            uint32_t* left = smem + static_cast<int64_t>(mb - d) * L::words + L::scan;
+            if (!subtree[mb]) {
+                add_point<R>(acc, left, scan, T, r, mask);
+                copy_point<R>(scan, acc, r, mask);
+            }
+            if (r == 0) subtree[mb] |= subtree[mb - d];
+        }
+        __syncthreads();
+    }
+    // the root is the lane aggregate; the carry into the lane is the identity
+    if (live && t == M - 1) {
+        if (r == 0) agg_flag[l] = subtree[mb];
+        store_col<R>(ax, ay, az, scan, K, l, r);
+        team_sync<R>(mask);
+        zero_point<R>(scan, r, mask);
+    }
+    __syncthreads();
+    // down-sweep: member t = 2d - 1 mod 2d holds the carry c into its
+    // subtree; the left half gets c, the right half c + (left sum), or the
+    // left sum alone where the left half holds a head
+    for (int d = M / 2; d >= 1; d >>= 1) {
+        if (live && t % (2 * d) == 2 * d - 1) {
+            uint32_t* left = smem + static_cast<int64_t>(mb - d) * L::words + L::scan;
+            if (subtree[mb - d]) {
+                copy_point<R>(acc, left, r, mask);
+            } else {
+                add_point<R>(acc, scan, left, T, r, mask);
+            }
+            copy_point<R>(left, scan, r, mask);
+            copy_point<R>(scan, acc, r, mask);
+        }
+        __syncthreads();
+    }
+
+    // 3. the open tail: carry + the open prefix's sum; the first member
+    // with a head of its own gives the lane's first head
+    if (live) {
+        bool before = false;  // a head in the lane before this member
+        for (int u = lane0; u < mb; ++u) before |= own[u] != 0;
+        if (has_open) {
+            const uint32_t* v = open_sum;
+            if (t > 0) {
+                add_point<R>(acc, scan, open_sum, T, r, mask);
+                v = acc;
+            }
+            write_bucket<R>(bx, by, bz, B, open_key, v, r);
+            if (!before && r == 0) carry_key[l] = open_key;
+        }
+        if (r == 0) {
+            if (own_head && !before) first_head[l] = static_cast<int32_t>(first);
+            if (t == M - 1 && !before && !own_head) first_head[l] = static_cast<int32_t>(m);
+        }
+    }
+}
+
+// One team of 4 threads a lane, 32 lanes a block.
+constexpr int kCarryTeam = 4;
+constexpr int kCarryLanes = 32;
+
+__global__ void __launch_bounds__(kCarryTeam * kCarryLanes)
+lane_bucket_carry_kernel(int32_t* __restrict__ bx, int32_t* __restrict__ by,
+                         int32_t* __restrict__ bz, const int32_t* __restrict__ sx,
+                         const int32_t* __restrict__ sy, const int32_t* __restrict__ sz,
+                         const int32_t* __restrict__ carry_key, int64_t K, int64_t B) {
+    __shared__ uint32_t scratch[kCarryLanes][3 * kPoint + 12 * kTemps];
+    const int r = threadIdx.x % kCarryTeam;
+    const int64_t k = static_cast<int64_t>(blockIdx.x) * kCarryLanes + threadIdx.x / kCarryTeam;
+    if (k < 1 || k >= K) return;  // the whole team
+    const int key = carry_key[k];
+    if (key <= 0) return;
+    const unsigned mask = member_mask<kCarryTeam>();
+    uint32_t* s = scratch[threadIdx.x / kCarryTeam];
+    load_col<kCarryTeam>(s, sx, sy, sz, K, k - 1, r);
+    load_col<kCarryTeam>(s + kPoint, bx, by, bz, B, key, r);
+    team_sync<kCarryTeam>(mask);
+    member_add<kCarryTeam>(s + 2 * kPoint, s, s + kPoint, s + 3 * kPoint, r, mask);
+    store_col<kCarryTeam>(bx, by, bz, s + 2 * kPoint, B, key, r);
+}
+
+template <int R>
+int launch_lane_buckets(const int64_t* keys, const int32_t* x, const int32_t* y, const int32_t* z,
+                        int32_t* bx, int32_t* by, int32_t* bz, int32_t* agg_flag, int32_t* ax,
+                        int32_t* ay, int32_t* az, int32_t* first_head, int32_t* carry_key,
+                        int64_t n, int64_t K, int64_t B, int M, int MB, cudaStream_t stream) {
+    const size_t smem = static_cast<size_t>(MB) * (Layout<R>::words * 4 + 2 * sizeof(int));
+    static size_t allowed = 48 * 1024;  // the largest dynamic shared memory set so far
+    if (smem > allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            lane_buckets_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) {
+            cudaGetLastError();  // not left for the next launch's check
+            return static_cast<int>(err);
+        }
+        allowed = smem;
+    }
+    const int64_t lanes_per_block = MB / M;
+    const int64_t blocks = (K + lanes_per_block - 1) / lanes_per_block;
+    lane_buckets_kernel<R><<<static_cast<unsigned>(blocks), MB * R, smem, stream>>>(
+        keys, x, y, z, bx, by, bz, agg_flag, ax, ay, az, first_head, carry_key, n, K, n / K, B,
+        M);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// keys (n,) int64 sorted, each < B; x/y/z (24, n) -> bx/by/bz (24, B),
+// agg_flag (1, K), ax/ay/az (24, K), first_head (K,), carry_key (K,) int32.
+// members: M a lane (a power of two up to block_members); threads: R a
+// member (1 or 4); block_members: MB a block (a multiple of M; MB <= 256
+// for R = 1, MB R <= 384 for R = 4).
+extern "C" int g1_lane_buckets(const int64_t* keys, const int32_t* x, const int32_t* y,
+                               const int32_t* z, int32_t* bx, int32_t* by, int32_t* bz,
+                               int32_t* agg_flag, int32_t* ax, int32_t* ay, int32_t* az,
+                               int32_t* first_head, int32_t* carry_key, int64_t n, int64_t K,
+                               int64_t B, int64_t members, int64_t threads, int64_t block_members,
+                               void* stream) {
+    const int64_t M = members, MB = block_members;
+    if (K < 1 || n % K != 0 || M < 1 || (M & (M - 1)) != 0 || MB % M != 0 ||
+        (threads != 1 && threads != 4) ||
+        MB * threads > (threads == 1 ? kMaxThreads1 : kMaxThreads4))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const int m_ = static_cast<int>(M), mb_ = static_cast<int>(MB);
+    if (threads == 1)
+        return launch_lane_buckets<1>(keys, x, y, z, bx, by, bz, agg_flag, ax, ay, az, first_head,
+                                      carry_key, n, K, B, m_, mb_, st);
+    return launch_lane_buckets<4>(keys, x, y, z, bx, by, bz, agg_flag, ax, ay, az, first_head,
+                                  carry_key, n, K, B, m_, mb_, st);
+}
+
+// bx/by/bz (24, B) updated in place from the prefix sx/sy/sz (24, K) of the
+// lane aggregates and carry_key (K,).
+extern "C" int g1_lane_bucket_carry(int32_t* bx, int32_t* by, int32_t* bz, const int32_t* sx,
+                                    const int32_t* sy, const int32_t* sz,
+                                    const int32_t* carry_key, int64_t K, int64_t B,
+                                    void* stream) {
+    const int64_t blocks = (K + kCarryLanes - 1) / kCarryLanes;
+    lane_bucket_carry_kernel<<<static_cast<unsigned>(blocks), kCarryTeam * kCarryLanes, 0,
+                               static_cast<cudaStream_t>(stream)>>>(bx, by, bz, sx, sy, sz,
+                                                                    carry_key, K, B);
     return static_cast<int>(cudaGetLastError());
 }

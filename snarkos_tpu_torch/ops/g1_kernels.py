@@ -22,14 +22,17 @@ per Hillis-Steele round by the MSM's prefix scans. Here B3 runs the whole
 prefix in one launch (``seg_prefix``), round for round the same function;
 ``seg_combine_plain`` stays as the plain round operator.
 
-The generic MSM engine's chunked segmented scan (K lanes of m consecutive
-elements) runs B3's operator 2 m times a window in the JAX package. Here it
-is two launches of ``csrc/lane_scan.cu`` around one B3 prefix of the lane
-aggregates: ``lane_scan`` (every lane's own scan from the identity, its
-aggregate and first head; a team of threads a lane) and ``lane_carry`` (the
-carry into each lane added where the lane's first run continues one from
-earlier lanes). Their plain versions are ``lane_scan_plain`` (the JAX
-engine's first pass, keeping every step) and ``lane_carry_plain``.
+The generic MSM engine's window (its chunked segmented scan over K lanes of
+m consecutive sorted elements and the bucket sums at the runs' tails) runs
+B3's operator 2 m times a window in the JAX package. Here it is two
+launches of ``csrc/lane_scan.cu`` around one B3 prefix of the lane
+aggregates: ``lane_buckets`` (each lane walked once; only the bucket tails
+are written, with each lane's aggregate, first head and the key of its
+first tail where that run began in an earlier lane) and
+``lane_bucket_carry`` (the carry into such a lane added to that bucket).
+Their plain versions are ``lane_buckets_plain`` (the JAX engine's first
+pass keeping every step, then the tails' gather) and
+``lane_bucket_carry_plain``.
 """
 
 from __future__ import annotations
@@ -218,96 +221,116 @@ def seg_prefix_kernel(flags, x, y, z):
 seg_prefix_kernel.launches = 0
 
 
-def lane_scan_plain(flags, x, y, z, K: int):
-    """Plain version of ``lane_scan``: lane k of the N = K m positions owns
-    [k m, (k+1) m); its segmented scan from (flag 0, the identity) with
-    ``seg_combine_plain``, m steps at width K as the JAX engine's first pass
-    runs them. Returns (x, y, z) (24, N) lane-local values at every position,
-    the aggregates (flag (1, K) int32, the OR of the lane's heads; x, y, z
-    (24, K), the value at its last position) and first_head (K,) int32, the
-    index of the lane's first head, m if it has none."""
+def lane_buckets_plain(keys, x, y, z, K: int, B: int):
+    """Plain version of ``lane_buckets``: the sorted window (keys (n,), x, y,
+    z (24, n)) as K lanes of m = n / K positions; each lane's segmented scan
+    from (flag 0, the identity) with ``seg_combine_plain``, m steps at width
+    K as the JAX engine's first pass runs them; then bucket b < B is the
+    lane-local value at the last position of key b (the identity where b is
+    0 or absent). Returns the buckets x, y, z (24, B), the lane aggregates
+    (flag (1, K), the OR of the lane's heads; x, y, z (24, K), the value at
+    its last position), first_head (K,) (the lane's first head, m if none)
+    and carry_key (K,) (the key of the lane's first tail where that run
+    began in an earlier lane, -1 if none), both int32."""
     n = x.shape[-1]
     m = n // K
-    f3 = flags.reshape(K, m)
+    keys = keys.long()
+    step = keys[1:] != keys[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=keys.device)
+    heads = torch.cat([one, step]).reshape(K, m)
+    tails = torch.cat([step, one]).reshape(K, m)
     p3 = tuple(t.reshape(_L, K, m) for t in (x, y, z))
     inf = g1.infinity((K,), device=x.device)
     state = (torch.zeros((1, K), dtype=torch.int32, device=x.device), inf.x, inf.y, inf.z)
     steps = []
     for j in range(m):
-        state = seg_combine_plain(state, (f3[:, j].unsqueeze(0),) + tuple(p[:, :, j] for p in p3))
+        state = seg_combine_plain(state, (heads[:, j].to(torch.int32).unsqueeze(0),)
+                                  + tuple(p[:, :, j] for p in p3))
         steps.append(state[1:])
-    out = tuple(torch.stack([st[i] for st in steps], dim=-1).reshape(_L, n) for i in range(3))
-    heads = f3 != 0
+    local = tuple(torch.stack([st[i] for st in steps], dim=-1).reshape(_L, n) for i in range(3))
+    bucket_ids = torch.arange(B, device=keys.device)
+    pos = torch.searchsorted(keys, bucket_ids, right=True) - 1
+    posc = pos.clamp(min=0)
+    live = (pos >= 0) & (keys[posc] == bucket_ids) & (bucket_ids > 0)
+    sums = g1.select_points(live, g1.JacobianPoints(*(t[:, posc] for t in local)),
+                            g1.infinity((B,), device=x.device))
     first = torch.where(heads.any(1), heads.int().argmax(1), m).to(torch.int32)
-    return (*out, *state, first)
+    first_tail = tails.int().argmax(1)
+    from_before = ~heads[:, 0] & tails.any(1)
+    carry_key = torch.where(from_before, keys.reshape(K, m)[torch.arange(K, device=keys.device), first_tail],
+                            -1).to(torch.int32)
+    return (sums.x, sums.y, sums.z, *state, first, carry_key)
 
 
-def lane_scan_kernel(flags, x, y, z, K: int, team: int):
-    """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_scan``: a team of
-    ``team`` threads a lane (a power of two up to 256; members past the
-    lane's end hold no elements). Its values are other Jacobian
-    representatives of the plain version's points; the aggregate flags and
-    first heads are exact."""
+def lane_buckets_kernel(keys, x, y, z, K: int, B: int, plan):
+    """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_buckets``. plan = (M
+    members a lane, a power of two; R threads a member, 1 or 4; MB members
+    a block, a multiple of M, at most 256 threads a block for R = 1 and 384
+    for R = 4, the kernel's launch bounds), as ``msm_kernels.lane_plan``
+    gives it. Its buckets and aggregates are other Jacobian representatives
+    of the plain version's points; the flags, first heads and carry keys
+    are exact."""
     n = x.shape[-1]
+    M, R, MB = plan
     if K < 1 or n % K:
-        raise ValueError(f"lane_scan: {n} positions are not a multiple of {K} lanes")
-    if team < 1 or team > 256 or team & (team - 1):
-        raise ValueError(f"lane_scan: team {team} is not a power of two up to 256")
-    _build.check(flags, (1, n), "lane_scan flags")
+        raise ValueError(f"lane_buckets: {n} positions are not a multiple of {K} lanes")
+    if M < 1 or M & (M - 1) or R not in (1, 4) or MB % M or MB * R > (256 if R == 1 else 384):
+        raise ValueError(f"lane_buckets: plan {plan} is not M a power of two, R 1 or 4 and MB a "
+                         "multiple of M with MB <= 256 (R = 1) or MB R <= 384 (R = 4)")
+    _build.check(keys, (n,), "lane_buckets keys", torch.int64)
     for t, what in zip((x, y, z), "xyz"):
-        _build.check(t, (_L, n), f"lane_scan {what}")
-    out = [torch.empty_like(x) for _ in range(3)]
-    agg = [torch.empty((1, K), dtype=torch.int32, device=x.device)] + [
-        torch.empty((_L, K), dtype=torch.int32, device=x.device) for _ in range(3)]
-    first = torch.empty(K, dtype=torch.int32, device=x.device)
+        _build.check(t, (_L, n), f"lane_buckets {what}")
+    dev = x.device
+    out = [torch.empty((_L, B), dtype=torch.int32, device=dev) for _ in range(3)]
+    agg = [torch.empty((1, K), dtype=torch.int32, device=dev)] + [
+        torch.empty((_L, K), dtype=torch.int32, device=dev) for _ in range(3)]
+    first = torch.empty(K, dtype=torch.int32, device=dev)
+    carry_key = torch.empty(K, dtype=torch.int32, device=dev)
     if n:
-        fn = _build.entry("lane_scan", "g1_lane_scan", 12, 3)
-        _build.launch(fn, (flags, x, y, z, *out, *agg, first), (n // K, K, team), x.device)
-        lane_scan_kernel.launches += 1
-    return (*out, *agg, first)
+        fn = _build.entry("lane_scan", "g1_lane_buckets", 13, 6)
+        _build.launch(fn, (keys, x, y, z, *out, *agg, first, carry_key), (n, K, B, M, R, MB), dev)
+        lane_buckets_kernel.launches += 1
+    return (*out, *agg, first, carry_key)
 
 
-lane_scan_kernel.launches = 0
+lane_buckets_kernel.launches = 0
 
 
-def lane_carry_plain(ox, oy, oz, sx, sy, sz, first_head, m: int):
-    """Plain version of ``lane_carry``: at each position e of lane k = e // m
-    >= 1 with e - k m < first_head[k], ``g1.add(carry, local)`` with the
-    carry (sx, sy, sz)[k - 1] (the inclusive prefix of the lane aggregates);
-    every other position as it is. Returns new tensors."""
-    n = ox.shape[-1]
-    pos = torch.arange(n, device=ox.device)
-    lane = pos // m
-    idx = ((lane > 0) & (pos - lane * m < first_head.long()[lane])).nonzero().squeeze(1)
-    carry = g1.JacobianPoints(*(s[:, lane[idx] - 1] for s in (sx, sy, sz)))
-    summed = g1.add(carry, g1.JacobianPoints(*(o[:, idx] for o in (ox, oy, oz))))
-    out = [o.clone() for o in (ox, oy, oz)]
+def lane_bucket_carry_plain(bx, by, bz, sx, sy, sz, carry_key):
+    """Plain version of ``lane_bucket_carry``: for each lane k >= 1 with
+    carry_key[k] = b > 0, bucket b becomes ``g1.add(carry, bucket b)`` with
+    the carry (sx, sy, sz)[k - 1] (the inclusive prefix of the lane
+    aggregates); every other bucket as it is. Returns new tensors."""
+    lanes = torch.arange(carry_key.shape[0], device=bx.device)
+    idx = ((lanes > 0) & (carry_key > 0)).nonzero().squeeze(1)
+    b = carry_key[idx].long()
+    carry = g1.JacobianPoints(*(s[:, idx - 1] for s in (sx, sy, sz)))
+    summed = g1.add(carry, g1.JacobianPoints(*(o[:, b] for o in (bx, by, bz))))
+    out = [o.clone() for o in (bx, by, bz)]
     for o, v in zip(out, (summed.x, summed.y, summed.z)):
-        o[:, idx] = v
+        o[:, b] = v
     return tuple(out)
 
 
-def lane_carry_kernel(ox, oy, oz, sx, sy, sz, first_head, m: int):
-    """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_carry``, updating
-    (ox, oy, oz) in place (they are returned); limb for limb the plain
-    version."""
-    n = ox.shape[-1]
-    if m < 1 or n % m:
-        raise ValueError(f"lane_carry: {n} positions are not a multiple of lanes of {m}")
-    K = n // m
-    for t, what in zip((ox, oy, oz), "xyz"):
-        _build.check(t, (_L, n), f"lane_carry {what}")
+def lane_bucket_carry_kernel(bx, by, bz, sx, sy, sz, carry_key):
+    """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_bucket_carry``,
+    updating (bx, by, bz) in place (they are returned); limb for limb the
+    plain version."""
+    B = bx.shape[-1]
+    K = carry_key.shape[0]
+    for t, what in zip((bx, by, bz), "xyz"):
+        _build.check(t, (_L, B), f"lane_bucket_carry {what}")
     for t, what in zip((sx, sy, sz), "xyz"):
-        _build.check(t, (_L, K), f"lane_carry prefix {what}")
-    _build.check(first_head, (K,), "lane_carry first_head")
-    if n:
-        fn = _build.entry("lane_scan", "g1_lane_carry", 7, 2)
-        _build.launch(fn, (ox, oy, oz, sx, sy, sz, first_head), (m, K), ox.device)
-        lane_carry_kernel.launches += 1
-    return ox, oy, oz
+        _build.check(t, (_L, K), f"lane_bucket_carry prefix {what}")
+    _build.check(carry_key, (K,), "lane_bucket_carry carry_key")
+    if K:
+        fn = _build.entry("lane_scan", "g1_lane_bucket_carry", 7, 2)
+        _build.launch(fn, (bx, by, bz, sx, sy, sz, carry_key), (K, B), bx.device)
+        lane_bucket_carry_kernel.launches += 1
+    return bx, by, bz
 
 
-lane_carry_kernel.launches = 0
+lane_bucket_carry_kernel.launches = 0
 
 
 def _contig(*ts):
@@ -364,21 +387,22 @@ def seg_prefix(state):
     return seg_prefix_kernel(*_contig(flags.expand(1, x.shape[-1]), x, y, z))
 
 
-def lane_scan(flags, x, y, z, K: int, team: int):
-    """Every lane's own segmented scan (module docstring): flags (1, N), x,
-    y, z (24, N), N = K m. Returns (x, y, z) at every position, the lane
-    aggregates (flag (1, K), x, y, z (24, K)) and first_head (K,).
-    ``g1_lane_scan`` on a CUDA tensor, the plain version on a CPU tensor."""
+def lane_buckets(keys, x, y, z, K: int, B: int, plan):
+    """A window's lane-local bucket sums and lane outputs (module
+    docstring): keys (n,) sorted, x, y, z (24, n), n = K m. Returns (x, y, z)
+    (24, B), the lane aggregates (flag (1, K), x, y, z (24, K)), first_head
+    and carry_key (K,). ``g1_lane_buckets`` on a CUDA tensor (``plan`` as
+    ``lane_buckets_kernel`` takes it), the plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return lane_scan_plain(flags, x, y, z, K)
-    return lane_scan_kernel(*_contig(flags, x, y, z), K, team)
+        return lane_buckets_plain(keys, x, y, z, K, B)
+    return lane_buckets_kernel(keys.long().contiguous(), *_contig(x, y, z), K, B, plan)
 
 
-def lane_carry(ox, oy, oz, sx, sy, sz, first_head, m: int):
+def lane_bucket_carry(bx, by, bz, sx, sy, sz, carry_key):
     """The carry into each lane (sx, sy, sz: the inclusive prefix of the
-    lane aggregates) added to the lane-local values where the lane's first
-    run continues one from earlier lanes. ``g1_lane_carry`` on a CUDA tensor
-    (in place), the plain version on a CPU tensor."""
-    if ox.device.type == "cpu":
-        return lane_carry_plain(ox, oy, oz, sx, sy, sz, first_head, m)
-    return lane_carry_kernel(*_contig(ox, oy, oz, sx, sy, sz, first_head), m)
+    lane aggregates) added to the bucket of the lane's first tail where
+    that run began in an earlier lane. ``g1_lane_bucket_carry`` on a CUDA
+    tensor (in place), the plain version on a CPU tensor."""
+    if bx.device.type == "cpu":
+        return lane_bucket_carry_plain(bx, by, bz, sx, sy, sz, carry_key)
+    return lane_bucket_carry_kernel(*_contig(bx, by, bz, sx, sy, sz, carry_key))

@@ -29,12 +29,12 @@ the card and their plain versions on the CPU.
 
 ``msm`` sends bases with z != 1 anywhere (identities included) to the generic
 engine, ``msm_generic``: unsigned c-bit windows over 2^c buckets, and per
-window a sort, a chunked segmented scan of the sorted Jacobian points as K
-lanes of m steps (for G1 on the card: ``g1_lane_scan``, a team of threads a
-lane, one B3 prefix of the lane aggregates and ``g1_lane_carry``; for other
-groups two m-step passes of the segmented combine around the prefix), the
-bucket sums at the runs' tails and T_w by kernel B7; after the loop the
-Horner chain by B2.
+window a sort and the bucket sums at the runs' tails of the sorted Jacobian
+points seen as K lanes of m steps (for G1 on the card: ``g1_lane_buckets``,
+each lane walked once by a few threads, one B3 prefix of the lane
+aggregates and ``g1_lane_bucket_carry``; for other groups two m-step passes
+of the segmented combine around the prefix and a gather of the tails),
+then T_w by kernel B7; after the loop the Horner chain by B2.
 """
 
 from __future__ import annotations
@@ -71,10 +71,10 @@ class GroupOps:
     # a window's bucket sums -> T_w = sum_{b>=1} b S_b, width 1, in one call
     # (``_weighted_bucket_total``); groups without it scan and sum
     bucket_total: Callable[[Any], Any] | None = None
-    # (flags, pts, K) -> the chunked segmented scan at every position in one
-    # call (``_seg_scan_chunked``); groups without it fold the lanes step by
-    # step
-    lane_scan: Callable[[torch.Tensor, Any, int], Any] | None = None
+    # (keys, pts, K, B) -> a window of the generic engine: its B bucket sums
+    # from the sorted keys and points in one call (``_window_bucket_sums``);
+    # groups without it fold the lanes step by step and gather the tails
+    window_bucket_sums: Callable[..., Any] | None = None
 
 
 def _default_seg_combine(group: GroupOps):
@@ -90,9 +90,9 @@ def _default_seg_combine(group: GroupOps):
 
 def g1_group(device) -> GroupOps:
     """BLS12-377 G1 in Jacobian coordinates: kernels B2 (add, horner_chain,
-    bucket_fixup), B3 (seg_prefix), B7 (bucket_total) and the lane scan
-    (``g1_lane_scan``, ``g1_lane_carry``) on the card, their plain versions
-    on the CPU."""
+    bucket_fixup), B3 (seg_prefix), B7 (bucket_total) and the generic
+    engine's window (``g1_lane_buckets``, ``g1_lane_bucket_carry``) on the
+    card, their plain versions on the CPU."""
 
     def coords(p):
         return (p.x, p.y, p.z)
@@ -120,19 +120,21 @@ def g1_group(device) -> GroupOps:
                      seg_prefix=g1_kernels.seg_prefix, horner_chain=horner_chain,
                      bucket_fixup=bucket_fixup,
                      bucket_total=bucket_total)
+    seg = _default_seg_combine(group)
 
-    def lane_scan(flags, pts, K):
-        """The chunked scan: on a CPU tensor its plain version, the lane fold
-        in the JAX engine's order; on a CUDA tensor ``g1_lane_scan``, one B3
-        prefix of the lane aggregates and ``g1_lane_carry``."""
-        if flags.device.type == "cpu":
-            return _fold_lanes(_default_seg_combine(group), group, flags, pts, K)
-        m = flags.shape[-1] // K
-        ox, oy, oz, *agg, first = g1_kernels.lane_scan(flags, *pts, K, msm_kernels.lane_team(m))
+    def window_bucket_sums(keys, pts, K, B):
+        """A window's bucket sums: on a CPU tensor its plain version, the
+        JAX engine's order (the lane fold and the tails' gather); on a CUDA
+        tensor ``g1_lane_buckets``, one B3 prefix of the lane aggregates and
+        ``g1_lane_bucket_carry``."""
+        if keys.device.type == "cpu":
+            return _window_bucket_sums(seg, group, keys, pts, K, B)
+        plan = msm_kernels.lane_plan(keys.shape[-1] // K)
+        bx, by, bz, *agg, _, carry_key = g1_kernels.lane_buckets(keys, *pts, K, B, plan)
         summ = g1_kernels.seg_prefix(tuple(agg))
-        return g1_kernels.lane_carry(ox, oy, oz, *summ[1:], first, m)
+        return g1_kernels.lane_bucket_carry(bx, by, bz, *summ[1:], carry_key)
 
-    return replace(group, lane_scan=lane_scan)
+    return replace(group, window_bucket_sums=window_bucket_sums)
 
 
 # --------------------------------------------------------------------------
@@ -418,18 +420,11 @@ def default_window_bits(n: int) -> int:
 
 def _seg_scan_chunked(seg, group: GroupOps, flags: torch.Tensor, pts, K: int):
     """Segmented inclusive scan of (flags (1, N), pts) along the trailing
-    axis, N % K == 0: lane k holds elements [k m, (k+1) m), m = N / K. One
-    ``group.lane_scan`` call where the group has it, else ``_fold_lanes``."""
-    if group.lane_scan is not None:
-        return group.lane_scan(flags, pts, K)
-    return _fold_lanes(seg, group, flags, pts, K)
-
-
-def _fold_lanes(seg, group: GroupOps, flags: torch.Tensor, pts, K: int):
-    """``_seg_scan_chunked`` as the JAX engine runs it: pass 1 folds each
-    lane with ``seg`` in m steps at width K, one prefix over the K lane
-    aggregates (``_hillis_steele_prefix``) gives the carries, and pass 2
-    folds again from the carries, keeping every step."""
+    axis, N % K == 0: lane k holds elements [k m, (k+1) m), m = N / K. As
+    the JAX engine runs it: pass 1 folds each lane with ``seg`` in m steps
+    at width K, one prefix over the K lane aggregates
+    (``_hillis_steele_prefix``) gives the carries, and pass 2 folds again
+    from the carries, keeping every step."""
     n = flags.shape[-1]
     m = n // K
     device = flags.device
@@ -462,40 +457,51 @@ def _fold_lanes(seg, group: GroupOps, flags: torch.Tensor, pts, K: int):
                  for i in range(len(pts)))
 
 
+def _window_bucket_sums(seg, group: GroupOps, keys: torch.Tensor, pts, K: int,
+                        num_buckets: int):
+    """A window's bucket sums from its sorted keys (N,) and the points in
+    that order: one ``group.window_bucket_sums`` call where the group has
+    it, else the JAX engine's order: the chunked segmented scan
+    (``_seg_scan_chunked``) and each bucket's value at the last occurrence
+    of its key, the identity where the bucket is 0 or empty."""
+    if group.window_bucket_sums is not None:
+        return group.window_bucket_sums(keys, pts, K, num_buckets)
+    device = keys.device
+    head = torch.cat([torch.ones(1, dtype=torch.int32, device=device),
+                      (keys[1:] != keys[:-1]).to(torch.int32)]).unsqueeze(0)
+    scanned = _seg_scan_chunked(seg, group, head, pts, K)
+    bucket_ids = torch.arange(num_buckets, device=device)
+    pos = torch.searchsorted(keys, bucket_ids, right=True) - 1
+    posc = pos.clamp(min=0)
+    live = (pos >= 0) & (keys[posc] == bucket_ids) & (bucket_ids > 0)
+    return group.select(live, tuple(t[..., posc] for t in scanned),
+                        group.identity(num_buckets))
+
+
 def msm_generic(group: GroupOps, points, scalar_limbs: torch.Tensor, c: int,
                 chunk_lanes: int = 4096):
     """Windowed-bucket MSM over any group elements. points: tuple of (.., N)
     tensors; scalar_limbs: (16, N) canonical Fr limbs; N a multiple of
     K = min(chunk_lanes, N). Per unsigned c-bit window, high to low: a
-    stable sort by digit, the chunked segmented scan of the sorted points
-    (``_seg_scan_chunked``), the bucket sums at each run's tail (bucket 0
-    weighted 0) and T_w = sum_b b S_b (``_weighted_bucket_total``, B = 2^c);
-    then the Horner chain acc = 2^c acc + T_w over the windows
-    (``_horner_chain``). Returns a width-1 element."""
+    stable sort by digit, the bucket sums at each run's tail of the sorted
+    points (``_window_bucket_sums``; bucket 0 weighted 0) and T_w = sum_b b
+    S_b (``_weighted_bucket_total``, B = 2^c); then the Horner chain
+    acc = 2^c acc + T_w over the windows (``_horner_chain``). Returns a
+    width-1 element."""
     n = scalar_limbs.shape[-1]
     K = min(chunk_lanes, n)
     if n % K:
         raise ValueError(f"msm_generic: {n} points are not a multiple of {K} lanes")
     num_buckets = 1 << c
-    device = scalar_limbs.device
     digits = window_digits(scalar_limbs, c)
     seg = _default_seg_combine(group)
-    bucket_ids = torch.arange(num_buckets, device=device)
     t_ws = [None] * digits.shape[0]  # window w's T_w, for the Horner chain after the loop
     for w in range(digits.shape[0] - 1, -1, -1):
         keys, order = torch.sort(digits[w].long(), stable=True)
         pts = tuple(t[..., order] for t in points)
-        head = torch.cat([torch.ones(1, dtype=torch.int32, device=device),
-                          (keys[1:] != keys[:-1]).to(torch.int32)]).unsqueeze(0)
-        scanned = _seg_scan_chunked(seg, group, head, pts, K)
-        # a bucket's sum sits at the last occurrence of its key
-        pos = torch.searchsorted(keys, bucket_ids, right=True) - 1
-        posc = pos.clamp(min=0)
-        live = (pos >= 0) & (keys[posc] == bucket_ids) & (bucket_ids > 0)
-        sums = group.select(live, tuple(t[..., posc] for t in scanned),
-                            group.identity(num_buckets))
+        sums = _window_bucket_sums(seg, group, keys, pts, K, num_buckets)
         # this window's (.., N) copies go before the next window makes its own
-        del pts, scanned
+        del pts
         t_ws[w] = _weighted_bucket_total(sums, group, seg, num_buckets)
     return _horner_chain(group, t_ws, c)
 

@@ -34,12 +34,14 @@ SERIAL_TEAM = 64
 FAST_TEAM = 8
 # threads that scan one wide chain together in B5 (PERF.md has the sweep)
 SCAN_TEAM = 16
-# the team of g1_lane_scan (csrc/lane_scan.cu), the generic engine's lane
-# scan: LANE_ELEMS elements a thread, at most LANE_TEAM threads a lane
-# (``lane_team``; PERF.md has the sweep at m = 16, 256 and 4096 elements a
-# lane, where T = 8, 128 and 256 were the fastest)
-LANE_TEAM = 256
-LANE_ELEMS = 2
+# the plan of g1_lane_buckets (csrc/lane_scan.cu), the generic engine's
+# window: LANE_ELEMS positions a member, at most LANE_MEMBERS members a lane,
+# LANE_THREADS threads a member, LANE_BLOCK members a block (``lane_plan``;
+# PERF.md has the sweep at m = 1, 16, 256 and 4096 positions a lane)
+LANE_ELEMS = 4
+LANE_MEMBERS = 8
+LANE_THREADS = 1
+LANE_BLOCK = 64
 LANES = 512
 CHUNK = 8
 # B7's threads a block and buckets a thread (PERF.md has the sweep)
@@ -65,16 +67,18 @@ def _zeros(n: int, device) -> g1.JacobianPoints:
 
 
 def team_size(team: int, steps: int) -> int:
-    """A scan team (B4-B6, the lane scan) cut to the power of two at or
+    """A scan team (B4-B6, the lane walk's members) cut to the power of two at or
     above a chain's ``steps`` elements: a thread with no elements only
     lengthens the carry scan."""
     return min(team, 1 << max(steps - 1, 0).bit_length())
 
 
-def lane_team(m: int) -> int:
-    """g1_lane_scan's threads a lane of m elements: LANE_ELEMS elements a
-    thread, cut by ``team_size`` to at most LANE_TEAM."""
-    return team_size(LANE_TEAM, -(-m // LANE_ELEMS))
+def lane_plan(m: int) -> tuple:
+    """g1_lane_buckets' plan for lanes of m positions: (M members a lane,
+    R threads a member, MB members a block), M the power of two at or
+    above m / LANE_ELEMS, at most LANE_MEMBERS; MB = max(M, LANE_BLOCK)."""
+    M = team_size(LANE_MEMBERS, -(-m // LANE_ELEMS))
+    return M, LANE_THREADS, max(M, LANE_BLOCK)
 
 
 def _stack(rows, shape):

@@ -195,25 +195,25 @@ def test_kernel_wrappers_reject_cpu_tensors():
 
 
 def test_lane_scan_wrappers_reject_cpu_tensors():
-    """The generic engine's lane-scan launchers take only what their kernels
-    take: CUDA tensors, K lanes that divide the positions, a team that is a
-    power of two up to 256; they never run the plain version."""
+    """The generic engine's window launchers (``g1_lane_buckets``,
+    ``g1_lane_bucket_carry``) take only what their kernels take: CUDA
+    tensors, K lanes that divide the positions, a plan of M members a lane
+    (a power of two), 1 or 4 threads a member and a block of a multiple of
+    M members; they never run the plain version."""
     from snarkos_tpu_torch.ops import g1, g1_kernels
 
     p = g1.infinity((8,))
-    flag = torch.zeros((1, 8), dtype=torch.int32)
-    first = torch.zeros(4, dtype=torch.int32)
+    keys = torch.zeros(8, dtype=torch.int64)
+    ck = torch.zeros(4, dtype=torch.int32)
     agg = g1.infinity((4,))
     with pytest.raises(ValueError, match="CUDA"):
-        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 4, 2)
+        g1_kernels.lane_buckets_kernel(keys, p.x, p.y, p.z, 4, 16, (1, 4, 32))
     with pytest.raises(ValueError, match="multiple"):
-        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 3, 2)
-    with pytest.raises(ValueError, match="team"):
-        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 4, 3)
-    with pytest.raises(ValueError, match="team"):
-        g1_kernels.lane_scan_kernel(flag, p.x, p.y, p.z, 4, 512)
+        g1_kernels.lane_buckets_kernel(keys, p.x, p.y, p.z, 3, 16, (1, 4, 32))
+    for plan in ((3, 4, 33), (2, 3, 32), (2, 4, 3), (32, 4, 512)):
+        with pytest.raises(ValueError, match="plan"):
+            g1_kernels.lane_buckets_kernel(keys, p.x, p.y, p.z, 4, 16, plan)
     with pytest.raises(ValueError, match="CUDA"):
-        g1_kernels.lane_carry_kernel(p.x, p.y, p.z, agg.x, agg.y, agg.z, first, 2)
-    with pytest.raises(ValueError, match="multiple"):
-        g1_kernels.lane_carry_kernel(p.x, p.y, p.z, agg.x, agg.y, agg.z, first, 3)
-    assert g1_kernels.lane_scan_kernel.launches == g1_kernels.lane_carry_kernel.launches == 0
+        g1_kernels.lane_bucket_carry_kernel(p.x, p.y, p.z, agg.x, agg.y, agg.z, ck)
+    assert g1_kernels.lane_buckets_kernel.launches == 0
+    assert g1_kernels.lane_bucket_carry_kernel.launches == 0

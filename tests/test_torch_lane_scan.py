@@ -1,17 +1,20 @@
-"""The generic MSM engine's chunked segmented scan as the port runs it on the
-card (``csrc/lane_scan.cu``: ``g1_lane_scan``, one B3 prefix of the lane
-aggregates, ``g1_lane_carry``), on the CPU.
+"""The generic MSM engine's window as the port runs it on the card
+(``csrc/lane_scan.cu``: ``g1_lane_buckets``, one B3 prefix of the lane
+aggregates, ``g1_lane_bucket_carry``), on the CPU.
 
-A model of the two kernels, thread by thread (the team scan of
-``wide_scan_team.cuh`` at kind ``kLanes``: sub-run sums, the segmented
-Hillis-Steele scan over the team, the lane outputs, the rescan from the
-previous member's carry; then the carry pass, one thread a position), is
-held against a serial segmented scan, the port's lane fold and the JAX
-package's ``_seg_scan_chunked`` (its default combine) on integers mod a
-prime, and against the plain versions of the two entries on G1's plain
-additions. A model with a broken carry must disagree. The routing: on a CPU
-tensor ``g1_group(...).lane_scan`` is the plain version, the old fold, limb
-for limb."""
+A model of the two kernels, thread by thread where the threads differ and
+member by member elsewhere (the tile staging's index math; each member's
+walk, which writes the final tails and the empty buckets and keeps its
+open tail; the members' up-sweep and down-sweep; the one add for a
+member's open tail; then the carry pass, one team a lane), is held against
+the serial bucket sums, the port's plain hook (the JAX order: the lane fold
+and the tails' gather) and the JAX package's ``_seg_scan_chunked`` plus the
+tails' gather on integers mod a prime, and against the plain versions of
+the two entries on G1's plain additions. Models whose carry comes from the
+wrong lane or the wrong member, or lands on a bucket whose run began inside
+the lane, must disagree. The routing: on a CPU tensor
+``g1_group(...).window_bucket_sums`` is the plain version, the JAX order,
+limb for limb."""
 
 import dataclasses
 import random
@@ -33,6 +36,8 @@ torch.set_num_threads(1)
 
 P = 1_000_003
 Q = params.FQ_MODULUS
+TILE = 8  # lane_scan.cu's kTile
+POINT = 36  # packed words of a point
 
 
 class ModOps:
@@ -46,14 +51,10 @@ class ModOps:
     def add(a, b):
         return ((a[0] + b[0]) % P,)
 
-    @staticmethod
-    def same(a, b):
-        return (a[0] == b[0])[0]
-
 
 class G1Ops:
-    """G1's plain additions; the identity is all-zero limbs, as the kernels
-    start their scans from."""
+    """G1's plain additions; the identity is all-zero limbs, as the kernel
+    resets its scan values."""
 
     @staticmethod
     def identity(n):
@@ -64,10 +65,6 @@ class G1Ops:
         out = g1.add(g1.JacobianPoints(*a), g1.JacobianPoints(*b))
         return (out.x, out.y, out.z)
 
-    @staticmethod
-    def same(a, b):
-        return g1.same_points(g1.JacobianPoints(*a), g1.JacobianPoints(*b))
-
 
 def _select(mask, a, b):
     return tuple(torch.where(mask.unsqueeze(0), x, y) for x, y in zip(a, b))
@@ -77,102 +74,190 @@ def _gather(p, idx):
     return tuple(t[:, idx] for t in p)
 
 
-def _lane_scan_model(ops, flags, pts, K, T):
-    """``g1_lane_scan`` as the kernel runs it, vectorised over the K T
-    threads (member t of lane c is thread c T + t; how the kernel packs the
-    teams into blocks changes no value). Returns the lane-local values at
-    every position, the aggregates (flag (1, K), values) and first_head (K,)
-    int32."""
-    n = flags.shape[-1]
+def _put(dst, idx, src, mask):
+    """dst[:, idx[mask]] = src[:, mask], in place."""
+    for d, v in zip(dst, src):
+        d[:, idx[mask]] = v[:, mask]
+
+
+def _bucket_identity(ops, B):
+    """The identity the kernel writes into a bucket: g1.infinity's limbs
+    for G1, 0 on Z_P."""
+    if ops is G1Ops:
+        inf = g1.infinity((B,))
+        return (inf.x.clone(), inf.y.clone(), inf.z.clone())
+    return ops.identity(B)
+
+
+def _staging(cnt, R):
+    """The (thread r, word k, position jj) loads of a tile of cnt positions
+    as the kernel enumerates them: pair p = r, r + R, ... < 36 cnt is word
+    k = p // cnt of position jj = p % cnt."""
+    return [(p % R, p // cnt, p % cnt) for p in range(POINT * cnt)]
+
+
+def _lane_buckets_model(ops, keys, pts, K, B, M, broken=None):
+    """``g1_lane_buckets`` as the kernel runs it, vectorised over the K M
+    members (member t of lane l; how the kernel packs members into blocks
+    and threads changes no value). Every bucket must be written exactly
+    once. ``broken="member"`` gives an open tail the carry of the member
+    before (a mutation the tests must catch). Returns the buckets, the
+    aggregates (flag (1, K), values), first_head and carry_key (K,)."""
+    n = keys.shape[0]
     m = n // K
-    s = -(-m // T)
-    threads = K * T
-    c_of = torch.arange(K).repeat_interleave(T)
-    t_of = torch.arange(T).repeat(K)
-    head_at = flags[0] != 0
-    # past the lane's end: no elements
+    s = -(-m // M)
+    members = K * M
+    lane = torch.arange(K).repeat_interleave(M)
+    t_of = torch.arange(M).repeat(K)
     i0 = torch.where(t_of * s < m, t_of * s, m)
     i1 = torch.clamp(i0 + s, max=m)
+    kp = torch.cat([torch.tensor([-1]), keys, torch.tensor([B])])  # sentinels at -1 and n
 
-    def scan(acc, out=None):
-        own = torch.zeros(threads, dtype=torch.bool)
-        first = i1.clone()
-        for i in range(s):
-            elem = i0 + i
-            valid = elem < i1
-            e = c_of * m + elem.clamp(max=m - 1)
-            q = _gather(pts, e)
-            reset = valid & head_at[e]
-            first = torch.where(reset & ~own, elem, first)
-            own |= reset
-            acc = _select(reset, q, _select(valid, ops.add(acc, q), acc))
-            if out is not None:
-                for o, v in zip(out, acc):
-                    o[:, e[valid]] = v[:, valid]
-        return acc, own, first
+    buckets = _bucket_identity(ops, B)
+    writes = torch.zeros(B, dtype=torch.int64)
+    ident_b = _bucket_identity(ops, 1)
 
-    # 1. sub-run sums from the identity
-    F, own, first = scan(ops.identity(threads))
-    # 2. inclusive segmented Hillis-Steele over the team
-    H = own.clone()
+    def write(b, vals=None):
+        writes[b] += 1
+        src = ident_b if vals is None or b == 0 else vals
+        for d, v in zip(buckets, src):
+            d[:, b] = v[:, 0]
+
+    acc = ops.identity(members)
+    own = torch.zeros(members, dtype=torch.bool)
+    open_ = torch.ones(members, dtype=torch.bool)
+    has_open = torch.zeros(members, dtype=torch.bool)
+    open_key = torch.full((members,), -1)
+    open_sum = ops.identity(members)
+    first = torch.full((members,), m)
+    # 1. the walk: step i of every member at once
+    for i in range(s):
+        idx = i0 + i
+        valid = idx < i1
+        e = lane * m + idx.clamp(max=m - 1)
+        prev, key, nxt = kp[e], kp[e + 1], kp[e + 2]
+        head = valid & (prev != key)
+        tail = valid & (nxt != key)
+        q = _gather(pts, e)
+        first = torch.where(head & ~own, idx, first)
+        own |= head
+        open_ &= ~head
+        start = valid & (head | (idx == i0))
+        acc = _select(start, q, _select(valid, ops.add(acc, q), acc))
+        for u in (valid & (prev < 0)).nonzero().squeeze(1).tolist():
+            for b in range(int(key[u])):
+                write(b)
+        ot = tail & open_
+        has_open |= ot
+        open_key = torch.where(ot, key, open_key)
+        open_sum = _select(ot, acc, open_sum)
+        open_ &= ~ot
+        for u in (tail & ~ot).nonzero().squeeze(1).tolist():
+            write(int(key[u]), _gather(acc, [u]))
+        for u in tail.nonzero().squeeze(1).tolist():
+            for b in range(int(key[u]) + 1, int(nxt[u])):
+                write(b)
+    scan = _select(i1 > i0, acc, ops.identity(members))
+    # 2. the members' segmented scan: the up-sweep, the aggregate, the
+    # down-sweep
+    sub = own.clone()
+    me = torch.arange(members)
     d = 1
-    while d < T:
-        upd = (t_of >= d) & ~H
-        src = (torch.arange(threads) - d).clamp(min=0)
-        F = _select(upd, ops.add(_gather(F, src), F), F)
-        H = torch.where(upd, H[src], H)
+    while d < M:
+        act = t_of % (2 * d) == 2 * d - 1
+        left = (me - d).clamp(min=0)
+        scan = _select(act & ~sub, ops.add(_gather(scan, left), scan), scan)
+        sub = torch.where(act, sub | sub[left], sub)
         d <<= 1
-    # the lane outputs: the first member with a head of its own writes the
-    # lane's first head, member T - 1 the aggregate (and m if no head)
-    prev = (torch.arange(threads) - 1).clamp(min=0)
-    writer = own & ((t_of == 0) | ~H[prev])
+    root = (t_of == M - 1).nonzero().squeeze(1)
+    agg_flag = sub[root].to(torch.int32).unsqueeze(0)
+    agg = _gather(scan, root)
+    scan = _select(t_of == M - 1, ops.identity(members), scan)
+    d = M // 2
+    while d >= 1:
+        act = t_of % (2 * d) == 2 * d - 1
+        left = (me - d).clamp(min=0)
+        lv = _gather(scan, left)
+        right = _select(sub[left], lv, ops.add(scan, lv))
+        new = tuple(t.clone() for t in scan)
+        _put(new, me, right, act)
+        _put(new, left, scan, act)
+        scan = new
+        d //= 2
+    # 3. the open tails and the lane outputs
+    own_l = own.reshape(K, M).to(torch.int64)
+    before = (own_l.cumsum(1) - own_l).reshape(-1) > 0
+    carry = scan
+    if broken == "member":
+        carry = _gather(scan, (me - 1).clamp(min=0))
+    value = _select(t_of > 0, ops.add(carry, open_sum), open_sum)
+    carry_key = torch.full((K,), -1, dtype=torch.int32)
     first_head = torch.full((K,), m, dtype=torch.int32)
-    first_head[c_of[writer]] = first[writer].to(torch.int32)
-    last = t_of == T - 1
-    agg_flag = H[last].to(torch.int32).unsqueeze(0)
-    agg = _gather(F, last.nonzero().squeeze(1))
-    # 3. rescan from member t - 1's value, writing every position
-    carry = _select(t_of > 0, _gather(F, prev), ops.identity(threads))
-    out = tuple(torch.zeros((v.shape[0], n), dtype=v.dtype) for v in pts)
-    scan(carry, out)
-    return out, agg_flag, agg, first_head
+    for u in has_open.nonzero().squeeze(1).tolist():
+        write(int(open_key[u]), _gather(value, [u]))
+        if not before[u]:
+            carry_key[lane[u]] = int(open_key[u])
+    for u in (own & ~before).nonzero().squeeze(1).tolist():
+        first_head[lane[u]] = int(first[u])
+    assert writes.tolist() == [1] * B, "a bucket was not written exactly once"
+    return buckets, agg_flag, agg, first_head, carry_key
 
 
-def _lane_carry_model(ops, local, summ, first_head, m, broken=None):
-    """``g1_lane_carry``, one thread a position e of lane k = e // m: for
-    k >= 1 and e - k m < first_head[k], carry (the prefix at lane k - 1) +
-    local. ``broken``: "lane" takes the carry of lane k itself, "first"
-    ignores the first head (a mutation the tests must catch)."""
-    n = local[0].shape[-1]
-    e = torch.arange(n)
-    k = e // m
-    src = k if broken == "lane" else (k - 1).clamp(min=0)
-    before = torch.ones(n, dtype=torch.bool) if broken == "first" else \
-        e - k * m < first_head.long()[k]
-    need = (k > 0) & before
-    return _select(need, ops.add(_gather(summ, src), local), local)
+def _carry_model(ops, buckets, summ, carry_key, broken=None):
+    """``g1_lane_bucket_carry``, one team a lane k: for k >= 1 and
+    carry_key[k] = b > 0, bucket b := summ[k - 1] + bucket b. ``broken``:
+    "lane" takes the prefix of lane k itself, "inside" also carries into a
+    lane's first tail whose run began inside the lane (mutations the tests
+    must catch; the latter needs ``inside_keys``, see ``_chunked_model``)."""
+    out = tuple(t.clone() for t in buckets)
+    for k, b in enumerate(carry_key.tolist()):
+        if k < 1 or b <= 0:
+            continue
+        src = k if broken == "lane" else k - 1
+        v = ops.add(_gather(summ, [src]), _gather(out, [b]))
+        for o, x in zip(out, v):
+            o[:, b] = x[:, 0]
+    return out
+
+
+def _first_tail_keys(keys, K):
+    """Each lane's first tail's key (-1 if the lane has none), whether or
+    not that run began in an earlier lane."""
+    m = keys.shape[0] // K
+    tails = torch.cat([keys[1:] != keys[:-1], torch.tensor([True])]).reshape(K, m)
+    first = tails.int().argmax(1)
+    return torch.where(tails.any(1), keys.reshape(K, m)[torch.arange(K), first], -1)
 
 
 def _seg_prefix_mod(flags, vals):
     """B3's function on Z_P: the port's Hillis-Steele round loop."""
-    group = msm.GroupOps(identity=ModOps.identity, add=ModOps.add,
-                         select=lambda mask, a, b: _select(mask, a, b))
+    group = _mod_group()
     return msm._hillis_steele_prefix(msm._default_seg_combine(group), group,
                                      (flags,) + tuple(vals), flags.shape[-1], len(vals))
 
 
-def _chunked_model(ops, prefix, flags, pts, K, T, broken=None):
-    local, agg_flag, agg, first = _lane_scan_model(ops, flags, pts, K, T)
+def _chunked_model(ops, prefix, keys, pts, K, B, M, broken=None):
+    buckets, agg_flag, agg, first, carry_key = _lane_buckets_model(ops, keys, pts, K, B, M,
+                                                                  broken)
+    if broken == "inside":
+        carry_key = _first_tail_keys(keys, K).to(torch.int32)
     summ = prefix(agg_flag, agg)[1:]
-    return _lane_carry_model(ops, local, summ, first, flags.shape[-1] // K, broken), \
-        (local, agg_flag, agg, first)
+    return _carry_model(ops, buckets, summ, carry_key, broken), \
+        (buckets, agg_flag, agg, first, carry_key)
 
 
-def _serial(flags, vals):
-    out, acc = [], 0
-    for f, v in zip(flags, vals):
-        acc = v if f else (acc + v) % P
-        out.append(acc)
+def _mod_group():
+    return msm.GroupOps(identity=ModOps.identity, add=ModOps.add,
+                        select=lambda mask, a, b: _select(mask, a, b))
+
+
+def _serial_sums(keys, vals, B):
+    """The bucket sums by a serial walk: bucket b the sum of its run, 0 for
+    bucket 0 and the empty ones."""
+    out = [0] * B
+    for k, v in zip(keys, vals):
+        out[k] = (out[k] + v) % P
+    out[0] = 0
     return out
 
 
@@ -192,68 +277,140 @@ def _jax_mod_group():
     return jmsm.GroupOps(identity=identity, add=add, select=select, gather=gather)
 
 
-# per case: lanes K, elements a lane m, team T, heads (positions) or a rule
+def _jax_sums(keys, vals, K, B):
+    """The JAX engine's order: its ``_seg_scan_chunked`` with the default
+    combine, then each bucket's value at its last position
+    (snarkos_tpu/ops/msm.py:220-226)."""
+    jgroup = _jax_mod_group()
+    k = np.array(keys, dtype=np.int32)
+    head = np.concatenate([[1], (k[1:] != k[:-1]).astype(np.int32)])[None]
+    scanned = jmsm._seg_scan_chunked(jmsm._default_seg_combine(jgroup), jgroup,
+                                     jnp.asarray(head), (jnp.asarray(np.array([vals],
+                                                                             np.int32)),), K)
+    ids = np.arange(B)
+    pos = np.searchsorted(k, ids, side="right") - 1
+    posc = np.clip(pos, 0, None)
+    live = (pos >= 0) & (k[posc] == ids) & (ids > 0)
+    return np.where(live, np.asarray(scanned[0])[0][posc], 0).tolist()
+
+
+def _keys_of(runs):
+    """Sorted keys from (key, length) runs."""
+    return [k for k, ln in runs for _ in range(ln)]
+
+
+# per case: lanes K, positions a lane m, members a lane M, buckets B, runs
 MOD_CASES = {
-    "heads only at 0": (4, 8, 4, [0]),
-    "a head at every step": (4, 8, 4, "all"),
-    "heads at lane starts": (4, 8, 4, [0, 8, 16, 24]),
-    # a run from lane 0 over lanes 1 and 2 into lane 3; lane 3's first head
-    # mid-lane, and lane 1 has none
-    "runs across lanes": (4, 8, 4, [0, 3, 29, 30]),
-    # s = 2: sub-runs [0-1] [2-3] [4-5]; heads at sub-run boundaries
-    "T does not divide m": (3, 6, 4, [0, 2, 5, 10, 16]),
-    # s = 1, members 6-7 own no elements
-    "T > m": (4, 6, 8, [0, 7, 20]),
-    "m = 1": (8, 1, 1, [0, 3, 4]),
-    "m = 1, T > m": (8, 1, 4, [0, 5]),
+    # one run over every lane: no tail before the last position
+    "one run": (4, 8, 4, 8, [(3, 32)]),
+    "a run a position": (4, 8, 4, 64, [(k + 1, 1) for k in range(32)]),
+    "runs at lane starts": (4, 8, 2, 8, [(k, 8) for k in range(4)]),
+    # a run from lane 0 over lanes 1 and 2 into lane 3 (lane 1 and 2 have no
+    # tail), lane 3's first tail mid-lane; bucket 0 at the start
+    "runs across lanes": (4, 8, 4, 16, [(0, 3), (2, 26), (5, 1), (9, 2)]),
+    # s = 2: members [0-1] [2-3] [4-5] and one with none; runs end at member
+    # ends and inside them
+    "M does not divide m": (3, 6, 4, 16, [(1, 2), (2, 3), (4, 5), (7, 1), (8, 7)]),
+    # s = 1, members 6-7 own no positions
+    "M > m": (4, 6, 8, 32, [(2, 7), (3, 13), (6, 4)]),
+    "m = 1": (8, 1, 1, 16, [(1, 3), (4, 1), (5, 4)]),
+    # a head at lane 1's last position whose run goes on into lane 2; a run
+    # starting at a lane's first position
+    "a head at a lane's end": (4, 4, 2, 16, [(1, 7), (2, 5), (12, 4)]),
+    # the first key above 0 and gaps between keys: identities below and
+    # between them, and above the last
+    "gaps and empty buckets": (2, 8, 4, 32, [(5, 6), (6, 2), (17, 7), (20, 1)]),
 }
 
 
 def _mod_case(name):
-    K, m, T, heads = MOD_CASES[name]
-    n = K * m
+    K, m, M, B, runs = MOD_CASES[name]
+    keys = _keys_of(runs)
+    assert len(keys) == K * m and keys == sorted(keys) and keys[-1] < B
     rng = random.Random(name)
-    vals = [rng.randrange(P) for _ in range(n)]
-    flags = [1] * n if heads == "all" else [int(e in heads) for e in range(n)]
-    return K, m, T, flags, vals
+    vals = [rng.randrange(P) for _ in range(K * m)]
+    return K, m, M, B, keys, vals
 
 
 @pytest.mark.parametrize("name", sorted(MOD_CASES))
-def test_lane_scan_model_matches_fold_and_jax(name):
-    K, m, T, flags, vals = _mod_case(name)
-    ft = torch.tensor([flags], dtype=torch.int32)
+def test_lane_buckets_model_matches_serial_and_plain(name):
+    K, m, M, B, keys, vals = _mod_case(name)
+    kt = torch.tensor(keys)
     vt = (torch.tensor([vals], dtype=torch.int64),)
-    got, (local, agg_flag, agg, first) = _chunked_model(ModOps, _seg_prefix_mod, ft, vt, K, T)
-    want = _serial(flags, vals)
+    got, (local, agg_flag, agg, first, carry_key) = _chunked_model(
+        ModOps, _seg_prefix_mod, kt, vt, K, B, M)
+    want = _serial_sums(keys, vals, B)
     assert got[0][0].tolist() == want
-    # the lane outputs are each lane's own scan, its heads' OR and first head
+    # the lane outputs: each lane's heads' OR, its own sum from its first
+    # position, its first head, the key of a first tail that continues a run
     for k in range(K):
-        lf, lv = flags[k * m:(k + 1) * m], vals[k * m:(k + 1) * m]
-        lane = _serial([1] + lf[1:], lv)  # from the identity: element 0 whatever its flag
-        assert local[0][0, k * m:(k + 1) * m].tolist() == lane
-        assert int(agg_flag[0, k]) == max(lf) and int(agg[0][0, k]) == lane[-1]
-        assert int(first[k]) == (lf.index(1) if 1 in lf else m)
-    # the port's lane fold (a group without lane_scan) and the JAX engine's
-    group = msm.GroupOps(identity=ModOps.identity, add=ModOps.add,
-                         select=lambda mask, a, b: _select(mask, a, b))
-    fold = msm._seg_scan_chunked(msm._default_seg_combine(group), group, ft, vt, K)
-    assert fold[0][0].tolist() == want
-    jgroup = _jax_mod_group()
-    jwant = jmsm._seg_scan_chunked(jmsm._default_seg_combine(jgroup), jgroup,
-                                   jnp.asarray(np.array([flags], dtype=np.int32)),
-                                   (jnp.asarray(np.array([vals], dtype=np.int32)),), K)
-    assert np.asarray(jwant[0])[0].tolist() == want
+        lk, lv = keys[k * m:(k + 1) * m], vals[k * m:(k + 1) * m]
+        heads = [e == 0 or keys[e - 1] != keys[e] for e in range(k * m, (k + 1) * m)]
+        lane_sum = 0
+        for h, v in zip(heads, lv):
+            lane_sum = v if h else (lane_sum + v) % P
+        assert int(agg_flag[0, k]) == int(any(heads)) and int(agg[0][0, k]) == lane_sum
+        assert int(first[k]) == (heads.index(True) if any(heads) else m)
+        tails = [e == K * m - 1 or keys[e + 1] != keys[e] for e in range(k * m, (k + 1) * m)]
+        want_key = lk[tails.index(True)] if any(tails) and not heads[0] else -1
+        assert int(carry_key[k]) == want_key
+    # the port's plain hook (a group without it runs the JAX order)
+    group = _mod_group()
+    plain = msm._window_bucket_sums(msm._default_seg_combine(group), group, kt, vt, K, B)
+    assert plain[0][0].tolist() == want
 
 
-@pytest.mark.parametrize("broken", ["lane", "first"])
-def test_lane_scan_model_with_a_broken_carry_fails(broken):
-    """The carry taken from the wrong lane, or added past the lane's first
-    head: the comparison above catches it."""
-    K, m, T, flags, vals = _mod_case("runs across lanes")
-    ft = torch.tensor([flags], dtype=torch.int32)
+@pytest.mark.parametrize("name", ["runs across lanes", "M does not divide m", "m = 1",
+                                  "gaps and empty buckets"])
+def test_lane_buckets_model_matches_jax(name):
+    """The model's bucket sums equal the JAX engine's order: its
+    ``_seg_scan_chunked`` and the tails' gather."""
+    K, m, M, B, keys, vals = _mod_case(name)
+    got, _ = _chunked_model(ModOps, _seg_prefix_mod, torch.tensor(keys),
+                            (torch.tensor([vals], dtype=torch.int64),), K, B, M)
+    assert got[0][0].tolist() == _jax_sums(keys, vals, K, B) == _serial_sums(keys, vals, B)
+
+
+@pytest.mark.parametrize("broken,case", [("lane", "runs across lanes"),
+                                         ("member", "runs across lanes"),
+                                         ("inside", "runs at lane starts")])
+def test_lane_buckets_model_with_a_broken_carry_fails(broken, case):
+    """The carry taken from the wrong lane or the wrong member, or added to
+    a bucket whose run began inside the lane: the comparison above catches
+    it."""
+    K, m, M, B, keys, vals = _mod_case(case)
+    kt = torch.tensor(keys)
     vt = (torch.tensor([vals], dtype=torch.int64),)
-    got, _ = _chunked_model(ModOps, _seg_prefix_mod, ft, vt, K, T, broken=broken)
-    assert got[0][0].tolist() != _serial(flags, vals)
+    good, _ = _chunked_model(ModOps, _seg_prefix_mod, kt, vt, K, B, M)
+    assert good[0][0].tolist() == _serial_sums(keys, vals, B)
+    got, _ = _chunked_model(ModOps, _seg_prefix_mod, kt, vt, K, B, M, broken=broken)
+    assert got[0][0].tolist() != _serial_sums(keys, vals, B)
+
+
+@pytest.mark.parametrize("R", [1, 4])
+def test_tile_staging_loads_each_word_once(R):
+    """A tile of cnt positions (up to kTile) is loaded word by word exactly
+    once over the member's R threads, and with R = 4 the threads of a load
+    read neighbouring positions of one limb row; the keys around the tile
+    carry the sentinels -1 before position 0 and B after position n - 1."""
+    for cnt in range(1, TILE + 1):
+        loads = _staging(cnt, R)
+        assert sorted((k, jj) for _, k, jj in loads) == \
+            [(k, jj) for k in range(POINT) for jj in range(cnt)]
+        by_thread = [[(k, jj) for r, k, jj in loads if r == rr] for rr in range(R)]
+        assert max(map(len, by_thread)) - min(map(len, by_thread)) <= 1
+        if R == 4 and cnt == TILE:
+            for step in range(len(by_thread[0])):
+                row = {by_thread[r][step][0] for r in range(R)}
+                cols = [by_thread[r][step][1] for r in range(R)]
+                assert len(row) == 1 and cols == list(range(cols[0], cols[0] + R))
+    n, B, e0, cnt = 10, 16, 0, 4
+    keys = list(range(n))
+    kt = [-1 if e < 0 else B if e >= n else keys[e] for e in range(e0 - 1, e0 + cnt + 1)]
+    assert kt[0] == -1 and kt[1:] == keys[:cnt + 1]
+    e0 = n - 3
+    kt = [-1 if e < 0 else B if e >= n else keys[e] for e in range(e0 - 1, e0 + 3 + 1)]
+    assert kt == keys[e0 - 1:] + [B]
 
 
 def _multiples(n, seed):
@@ -276,10 +433,10 @@ def _rescale(p, rng):
 
 def _g1_case(K, m, seed):
     """N = K m rescaled points with the edges of the complete add inside
-    runs: a head P then P (a doubling) at 0 | 1, a head P then -P (the
-    identity) at 5 | 6, an identity with arbitrary X, Y at N - 3; heads at
-    0, 5 and 2 m + m / 2 + 1 where that is below N, so that some lane has
-    none and its run comes from the lane before."""
+    runs: a run start P then P (a doubling) at 0 | 1, a run start P then -P
+    (the identity) at 5 | 6, an identity with arbitrary X, Y at N - 3; keys
+    with runs starting at 0, 5 and 2 m + m / 2 + 1, so that some lane has
+    no head and its run comes from the lane before; bucket 0 first."""
     n = K * m
     rng = random.Random(seed)
     pool = _multiples(6, seed)
@@ -287,87 +444,97 @@ def _g1_case(K, m, seed):
     pts[1] = _rescale(pts[0], rng)
     pts[6] = _rescale(ref.neg(pts[5]), rng)
     pts[n - 3] = (rng.randrange(Q), rng.randrange(Q), 0)
-    heads = [int(e in (0, 5, 2 * m + m // 2 + 1)) for e in range(n)]
-    return g1.encode_points(pts), heads, pts
+    starts = [0, 5, 2 * m + m // 2 + 1]
+    keys = [sum(1 for s in starts if s <= e) * 2 - 2 for e in range(n)]
+    return g1.encode_points(pts), keys, pts
 
 
 def _g1_prefix(agg_flag, agg):
     return g1_kernels.seg_prefix_plain((agg_flag,) + tuple(agg))
 
 
-@pytest.mark.parametrize("K,m,T", [(4, 4, 2), (2, 8, 16)])
-def test_lane_scan_model_g1(K, m, T):
+@pytest.mark.parametrize("K,m,M", [(4, 4, 2), (2, 8, 8)])
+def test_lane_buckets_model_g1(K, m, M):
     """Real G1 at N = 16: the model against the plain entries (the same
-    points at every position and in the aggregates, the flags and first
-    heads exactly; the carry pass limb for limb) and the whole against the
-    lane fold and the host's serial scan."""
-    enc, heads, pts = _g1_case(K, m, 10 * K + T)
-    flags = torch.tensor([heads], dtype=torch.int32)
+    points in every bucket and aggregate, the flags, first heads and carry
+    keys exactly; the carry pass limb for limb) and the whole against the
+    JAX order (the hook's plain version) and the host's serial sums."""
+    B = 8
+    enc, keys, pts = _g1_case(K, m, 10 * K + M)
+    kt = torch.tensor(keys)
     xyz = (enc.x, enc.y, enc.z)
-    got, (local, agg_flag, agg, first) = _chunked_model(G1Ops, _g1_prefix, flags, xyz, K, T)
-    plain = g1_kernels.lane_scan_plain(flags, *xyz, K)
-    assert bool(G1Ops.same(local, plain[:3]).all())
+    got, (local, agg_flag, agg, first, carry_key) = _chunked_model(
+        G1Ops, _g1_prefix, kt, xyz, K, B, M)
+    plain = g1_kernels.lane_buckets_plain(kt, *xyz, K, B)
+    same = lambda a, b: bool(g1.same_points(g1.JacobianPoints(*a), g1.JacobianPoints(*b)).all())
+    assert same(local, plain[:3]) and same(agg, plain[4:7])
     assert torch.equal(agg_flag, plain[3]) and torch.equal(first, plain[7])
-    assert bool(G1Ops.same(agg, plain[4:7]).all())
-    summ = _g1_prefix(agg_flag, agg)
-    carried = g1_kernels.lane_carry_plain(*local, *summ[1:], first, m)
-    for a, b in zip(_lane_carry_model(G1Ops, local, summ[1:], first, m), carried):
+    assert torch.equal(carry_key, plain[8])
+    summ = _g1_prefix(agg_flag, agg)[1:]
+    carried = g1_kernels.lane_bucket_carry_plain(*local, *summ, carry_key)
+    for a, b in zip(_carry_model(G1Ops, local, summ, carry_key), carried):
         assert torch.equal(a, b)
-    group = dataclasses.replace(msm.g1_group("cpu"), lane_scan=None)
-    fold = msm._seg_scan_chunked(msm._default_seg_combine(group), group, flags, xyz, K)
-    assert bool(G1Ops.same(got, fold).all())
+    hook = msm.g1_group("cpu").window_bucket_sums(kt, xyz, K, B)
+    assert same(got, hook)
     out = g1.decode_points(g1.JacobianPoints(*got))
-    acc = ref.INFINITY
-    for e in range(K * m):
-        acc = pts[e] if heads[e] else ref.add(acc, pts[e])
-        assert ref.affine(out[e]) == ref.affine(acc), e
-    assert any(not p[2] for p in out), "no P + (-P) in the case"
+    want = [ref.INFINITY] * B
+    for k, p in zip(keys, pts):
+        want[k] = ref.add(want[k], p)
+    want[0] = ref.INFINITY
+    for b in range(B):
+        assert ref.affine(out[b]) == ref.affine(want[b]), b
 
 
-def test_g1_group_lane_scan_is_the_fold_on_cpu():
-    """On a CPU tensor the G1 group's lane_scan is the plain version: the
-    lane fold, limb for limb; the entries' plain versions composed through
-    their dispatchers give the same points."""
-    K, m = 4, 4
-    enc, heads, _ = _g1_case(K, m, 5)
-    flags = torch.tensor([heads], dtype=torch.int32)
+def test_g1_group_window_is_the_jax_order_on_cpu():
+    """On a CPU tensor the G1 group's window_bucket_sums is the plain
+    version: the JAX order (the lane fold and the tails' gather), limb for
+    limb; the entries' plain versions composed through their dispatchers
+    give the same points."""
+    K, m, B = 4, 4, 8
+    enc, keys, _ = _g1_case(K, m, 5)
+    kt = torch.tensor(keys)
     xyz = (enc.x, enc.y, enc.z)
     group = msm.g1_group("cpu")
-    assert group.lane_scan is not None
+    assert group.window_bucket_sums is not None
     seg = msm._default_seg_combine(group)
-    got = msm._seg_scan_chunked(seg, group, flags, xyz, K)
-    old = dataclasses.replace(group, lane_scan=None)
-    want = msm._seg_scan_chunked(msm._default_seg_combine(old), old, flags, xyz, K)
+    got = msm._window_bucket_sums(seg, group, kt, xyz, K, B)
+    old = dataclasses.replace(group, window_bucket_sums=None)
+    want = msm._window_bucket_sums(msm._default_seg_combine(old), old, kt, xyz, K, B)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    ox, oy, oz, *agg, first = g1_kernels.lane_scan(flags, *xyz, K, 2)
+    bx, by, bz, *agg, _, carry_key = g1_kernels.lane_buckets(kt, *xyz, K, B, None)
     summ = g1_kernels.seg_prefix(tuple(agg))
-    composed = g1_kernels.lane_carry(ox, oy, oz, *summ[1:], first, m)
-    assert bool(G1Ops.same(composed, got).all())
+    composed = g1_kernels.lane_bucket_carry(bx, by, bz, *summ[1:], carry_key)
+    assert bool(g1.same_points(g1.JacobianPoints(*composed), g1.JacobianPoints(*got)).all())
 
 
-def test_seg_scan_chunked_takes_group_lane_scan():
-    """A group's lane_scan replaces the fold, one call with (flags, pts, K);
-    without one the fold runs (the mock groups, msm_dist's custom ones)."""
+def test_msm_generic_takes_group_window_bucket_sums():
+    """A group's window_bucket_sums replaces the chunked scan and the
+    gather, one call a window with (keys, pts, K, B); without one the JAX
+    order runs (the mock groups, msm_dist's custom ones)."""
     calls = []
+    base = _mod_group()
 
-    def lane_scan(flags, pts, K):
-        calls.append((flags, pts, K))
-        return "whole scan"
+    def window_bucket_sums(keys, pts, K, B):
+        calls.append((keys.tolist(), K, B))
+        return msm._window_bucket_sums(msm._default_seg_combine(base), base, keys, pts, K, B)
 
-    base = msm.GroupOps(identity=ModOps.identity, add=ModOps.add,
-                        select=lambda mask, a, b: _select(mask, a, b))
-    flags = torch.tensor([[1, 0, 0, 1, 0, 0, 0, 0]], dtype=torch.int32)
-    vals = (torch.tensor([[5, 7, 11, 13, 17, 19, 23, 29]], dtype=torch.int64),)
-    group = dataclasses.replace(base, lane_scan=lane_scan)
-    assert msm._seg_scan_chunked(None, group, flags, vals, 2) == "whole scan"
-    assert len(calls) == 1 and calls[0][1] is vals and calls[0][2] == 2
-    out = msm._seg_scan_chunked(msm._default_seg_combine(base), base, flags, vals, 2)
-    assert out[0].tolist() == [[5, 12, 23, 13, 30, 49, 72, 101]]
+    group = dataclasses.replace(base, window_bucket_sums=window_bucket_sums)
+    rng = random.Random(3)
+    n, c = 8, 4
+    scalars = [rng.randrange(params.FR_MODULUS) for _ in range(n)]
+    xs = [rng.randrange(P) for _ in range(n)]
+    from snarkos_tpu_torch.ops.fieldspec import FR
+    limbs = torch.from_numpy(FR.encode(scalars, mont=False))
+    got = msm.msm_generic(group, (torch.tensor([xs], dtype=torch.int64),), limbs, c, 4)
+    assert len(calls) == -(-msm.SCALAR_BITS // c)
+    assert all(K == 4 and B == 1 << c and keys == sorted(keys) for keys, K, B in calls)
+    assert int(got[0][0, 0]) == sum(k * x for k, x in zip(scalars, xs)) % P
 
 
-@pytest.mark.parametrize("m,T", [(1, 1), (6, 4), (16, 8), (256, 128), (4096, 256), (1 << 14, 256)])
-def test_lane_team(m, T):
-    """g1_lane_scan's team: two elements a thread (the power of two at or
-    above m / 2), at most 256 threads a lane."""
-    assert msm_kernels.lane_team(m) == T
+@pytest.mark.parametrize("m,plan", [(1, (1, 1, 64)), (16, (4, 1, 64)), (256, (8, 1, 64)),
+                                    (4096, (8, 1, 64)), (6, (2, 1, 64)), (1 << 14, (8, 1, 64))])
+def test_lane_plan(m, plan):
+    """g1_lane_buckets' plan: the power of two at or above m / 4 members a
+    lane, at most 8, one thread a member, 64 members a block."""
+    assert msm_kernels.lane_plan(m) == plan
