@@ -181,15 +181,13 @@ WIDE_TEAM_SWEEP = (4, 8, 16, 32)  # B5's and B6's threads per chain
 # and the few also run at the c = 16 MSM's B = 2^15 + 1
 TOTAL_SWEEP = tuple((t, s) for t in (32, 64, 128, 256) for s in (1, 2, 4))
 TOTAL_SWEEP_WIDE = ((64, 1), (128, 1), (256, 1), (256, 2))
-# g1_lane_buckets' plans (M members a lane, R threads a member, MB members a
-# block) at the generic engine's m = 1 (the verifier's padded MSMs), 16
-# (2^16), 256 (2^20) and 4096 (2^24) positions a lane
-LANE_SWEEP = {1: ((1, 1, 64), (1, 1, 32), (1, 4, 32)),
-              16: ((2, 1, 64), (1, 1, 64), (4, 1, 64), (2, 1, 128), (1, 4, 32), (2, 4, 32),
-                   (4, 4, 32)),
-              256: ((8, 1, 64), (4, 1, 64), (16, 1, 64), (8, 1, 128), (4, 4, 32), (8, 4, 32)),
-              4096: ((8, 1, 64), (4, 1, 64), (16, 1, 64), (8, 1, 128), (32, 1, 128), (16, 4, 32),
-                     (8, 4, 32))}
+# g1_lane_buckets' plans (M members a lane, MB members a block) at the
+# generic engine's m = 1 (the verifier's padded MSMs), 16 (2^16), 256 (2^20)
+# and 4096 (2^24) positions a lane
+LANE_SWEEP = {1: ((1, 64), (1, 32)),
+              16: ((2, 64), (1, 64), (4, 64), (2, 128)),
+              256: ((8, 64), (4, 64), (16, 64), (8, 128)),
+              4096: ((8, 64), (4, 64), (16, 64), (8, 128), (32, 128))}
 # kernels that no path launches yet, with their next caller: held against
 # their plain versions, exempt from the "launched on no path" check, and a
 # failure if a path does launch them
@@ -1282,7 +1280,7 @@ def main() -> int:
                 keys[e:end] += 1
             keys[e + 1] = keys[e]
 
-        offs = [0] + sorted({-(-m // M) - 1 for M, _, _ in sweep} - {0}) + [m - 2]
+        offs = [0] + sorted({-(-m // M) - 1 for M, _ in sweep} - {0}) + [m - 2]
         offs = [i for i in dict.fromkeys(offs) if 0 <= i and (i < m - 1 or m == 1)]
         for idx, i in enumerate(offs):
             e = (8 * idx + 1) * m + i

@@ -35,17 +35,15 @@
 // device time at m = 256 and 198 + 13 ms at m = 4096, 17-20x its ops bound.
 //
 // Design. A lane is walked by M members (M a power of two), member t owning
-// the s = ceil(m / M) positions [t s, (t+1) s) of it. A member is one thread
-// (R = 1, the main path: the complete add on one thread, its temporaries in
-// registers, its operands in shared memory) or a team of R = 4 threads
-// (window_tail.cu's levels: a level's independent products on separate
-// threads, the temporaries in shared memory); `msm_kernels.lane_plan` picks
-// (M, R, members a block) from the sweep in PERF.md. A member
+// the s = ceil(m / M) positions [t s, (t+1) s) of it. A member is one
+// thread: the complete add on that thread, its temporaries in registers, its
+// operands in shared memory; `msm_kernels.lane_plan` picks (M, members a
+// block) from the sweep in PERF.md. A member
 //   1. stages its positions kTile at a time into shared memory (36 packed
-//      words a point, kBatch loads in flight a thread) with the keys around
-//      them, and walks them once from its first element: at a head the
-//      running sum restarts, else one complete add. At every tail (the next
-//      key differs) after its first head the sum is final: it goes straight
+//      words a point, kBatch loads in flight) with the keys around them, and
+//      walks them once from its first element: at a head the running sum
+//      restarts, else one complete add. At every tail (the next key
+//      differs) after its first head the sum is final: it goes straight
 //      into its bucket, with the identity into the empty buckets up to the
 //      next key. The tail before its first head (its "open" tail) waits
 //      for the carry; the sum there is kept;
@@ -62,10 +60,13 @@
 // So a window is about one add a non-head position plus three a member,
 // with no rescan, and writes B + K points where the old pass wrote n. What
 // bounds it on the card is the number of adds in flight: shared memory per
-// member (752 bytes with R = 1 and kTile = 2, against 1,040 with 4-position
-// tiles) and registers allow 256 threads an SM; the plan sweep found one
-// thread an add and 8 members a lane fastest at m = 256 and 4096 (PERF.md,
-// PR 14).
+// member (752 bytes with kTile = 2, against 1,040 with 4-position tiles) and
+// registers allow 256 threads an SM; the sweep found one thread an add (over
+// window_tail.cu's teams of 4, a level's products side by side) and 8
+// members a lane fastest at m = 16, 256 and 4096, and within 0.010 ms of
+// the teams at m = 1 (PERF.md, PR 14).
+// g1_lane_bucket_carry's one add a lane is a team of 4 threads
+// (team_add), as window_tail.cu's.
 // The complete add's special cases (P == Q doubles, P == -Q gives Z = 0,
 // an identity operand passes the other through) are those of g1.cuh's
 // g1_add, in its select form, with its field ops in its order: the same
@@ -79,41 +80,31 @@ namespace {
 
 constexpr int kTile = 2;                 // positions staged at a time
 constexpr int kBatch = 8;                // a thread's loads in flight while staging
-// threads a block at most: 256 for one thread a member (its add keeps the
-// temporaries in registers), 384 for teams (at most 168 registers: 3 blocks
-// of 128 an SM)
-constexpr int kMaxThreads1 = 256;
-constexpr int kMaxThreads4 = 384;
+// threads (members) a block at most: the add keeps its temporaries in
+// registers, 255 of them
+constexpr int kMaxThreads = 256;
 constexpr int kPoint = 36;               // packed words of a point
 constexpr int kTemps = 12;               // a team's add temporaries, 12 words each
 
 // a member's shared words: the tile (after the walk, its first point is the
 // member's scan value), two running sums (ping-pong), the open prefix, the
-// team add's temporaries (none for R = 1: one thread keeps them in
-// registers), the tile's keys (kTile + 2, int32, and 2 of padding)
-template <int R>
+// tile's keys (kTile + 2, int32, and 2 of padding)
 struct Layout {
     static constexpr int tile = 0;
     static constexpr int scan = tile;
     static constexpr int acc = tile + kTile * kPoint;
     static constexpr int open = acc + 2 * kPoint;
-    static constexpr int tmp = open + kPoint;
-    static constexpr int keys = tmp + (R == 1 ? 0 : 12 * kTemps);
+    static constexpr int keys = open + kPoint;
     static constexpr int words = keys + kTile + 4;
 };
 
-template <int R>
-__device__ __forceinline__ void team_sync(unsigned mask) {
-    if constexpr (R > 1) __syncwarp(mask);
-}
+// g1_lane_bucket_carry's team: kTeam threads an add
+constexpr int kTeam = 4;
 
-template <int R>
-__device__ __forceinline__ unsigned member_mask() {
-    if constexpr (R == 1) {
-        return 1u << (threadIdx.x & 31u);
-    } else {
-        return ((1u << R) - 1u) << ((threadIdx.x & 31u) & ~static_cast<unsigned>(R - 1));
-    }
+__device__ __forceinline__ void team_sync(unsigned mask) { __syncwarp(mask); }
+
+__device__ __forceinline__ unsigned team_mask() {
+    return ((1u << kTeam) - 1u) << ((threadIdx.x & 31u) & ~static_cast<unsigned>(kTeam - 1));
 }
 
 // o = a b over 12-word field elements in shared memory, on one thread's
@@ -132,35 +123,33 @@ struct Prod {
     const uint32_t* b;
 };
 
-// One level of a member: its k <= 4 independent products, product i on
-// thread i % R; then the member waits for all of them.
-template <int R>
+// One level of a team: its k <= 4 independent products, product i on
+// thread i % kTeam; then the team waits for all of them.
 __device__ __forceinline__ void level(int r, unsigned mask, int k, Prod p0, Prod p1, Prod p2,
                                       Prod p3) {
     const Prod ps[4] = {p0, p1, p2, p3};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-        if (i < k && i % R == r) mul_to(ps[i].o, ps[i].a, ps[i].b);
-    team_sync<R>(mask);
+        if (i < k && i % kTeam == r) mul_to(ps[i].o, ps[i].a, ps[i].b);
+    team_sync(mask);
 }
 
 __device__ __forceinline__ uint32_t* tmp(uint32_t* T, int i) { return T + 12 * i; }
 
-// o = 2 p (dbl-2009-l, as g1.cuh's g1_double); o may not alias p.
-template <int R>
-__device__ __noinline__ void member_double(uint32_t* o, const uint32_t* p, uint32_t* T, int r,
+// o = 2 p by a team (dbl-2009-l, as g1.cuh's g1_double); o may not alias p.
+__device__ __noinline__ void team_double(uint32_t* o, const uint32_t* p, uint32_t* T, int r,
                                            unsigned mask) {
     const uint32_t *X = p, *Y = p + 12, *Z = p + 24;
     uint32_t *A = tmp(T, 0), *Bq = tmp(T, 1), *YZ = tmp(T, 2), *XB = tmp(T, 3), *E = tmp(T, 4),
              *C = tmp(T, 5), *D = tmp(T, 6), *F = tmp(T, 7), *DX = tmp(T, 8), *EDX = tmp(T, 9);
-    level<R>(r, mask, 3, {A, X, X}, {Bq, Y, Y}, {YZ, Y, Z}, Prod{});
+    level(r, mask, 3, {A, X, X}, {Bq, Y, Y}, {YZ, Y, Z}, Prod{});
     if (r == 0) {
         add<Fq>(XB, X, Bq);
         mul3<Fq>(E, A);
         dbl<Fq>(o + 24, YZ);                                      // z3 = 2 y z
     }
-    team_sync<R>(mask);
-    level<R>(r, mask, 3, {C, Bq, Bq}, {D, XB, XB}, {F, E, E}, Prod{});
+    team_sync(mask);
+    level(r, mask, 3, {C, Bq, Bq}, {D, XB, XB}, {F, E, E}, Prod{});
     if (r == 0) {
         sub<Fq>(D, D, A);
         sub<Fq>(D, D, C);
@@ -170,36 +159,35 @@ __device__ __noinline__ void member_double(uint32_t* o, const uint32_t* p, uint3
         sub<Fq>(o, F, t);                                         // x3 = F - 2D
         sub<Fq>(DX, D, o);
     }
-    team_sync<R>(mask);
-    level<R>(r, mask, 1, {EDX, E, DX}, Prod{}, Prod{}, Prod{});
+    team_sync(mask);
+    level(r, mask, 1, {EDX, E, DX}, Prod{}, Prod{}, Prod{});
     if (r == 0) {
         uint32_t c8[12];
         mul8<Fq>(c8, C);
         sub<Fq>(o + 12, EDX, c8);                                 // y3 = E (D - x3) - 8C
     }
-    team_sync<R>(mask);
+    team_sync(mask);
 }
 
-// o = p + q (add-2007-bl in five levels and the special cases of g1.cuh's
-// g1_add); o may not alias p or q. The temporaries are reused as the
-// levels free them: 12 of them.
-template <int R>
-__device__ __noinline__ void member_add(uint32_t* o, const uint32_t* p, const uint32_t* q,
+// o = p + q by a team (add-2007-bl in five levels and the special cases of
+// g1.cuh's g1_add); o may not alias p or q. The temporaries are reused as
+// the levels free them: 12 of them.
+__device__ __noinline__ void team_add(uint32_t* o, const uint32_t* p, const uint32_t* q,
                                         uint32_t* T, int r, unsigned mask) {
     const uint32_t *X1 = p, *Y1 = p + 12, *Z1 = p + 24, *X2 = q, *Y2 = q + 12, *Z2 = q + 24;
     uint32_t *Z1Z1 = tmp(T, 0), *Z2Z2 = tmp(T, 1), *S1 = tmp(T, 2), *S2 = tmp(T, 3),
              *U1 = tmp(T, 4), *U2 = tmp(T, 5), *I = tmp(T, 6), *ZZ = tmp(T, 7),
              *RR2 = tmp(T, 8), *J = tmp(T, 9), *V = tmp(T, 10), *VX = tmp(T, 11);
     // S1, S2 start as Y1 Z2, Y2 Z1 and are multiplied in place
-    level<R>(r, mask, 4, {Z1Z1, Z1, Z1}, {Z2Z2, Z2, Z2}, {S1, Y1, Z2}, {S2, Y2, Z1});
-    level<R>(r, mask, 4, {U1, X1, Z2Z2}, {U2, X2, Z1Z1}, {S1, S1, Z2Z2}, {S2, S2, Z1Z1});
-    // the special cases, read by every thread of the member alike before the
+    level(r, mask, 4, {Z1Z1, Z1, Z1}, {Z2Z2, Z2, Z2}, {S1, Y1, Z2}, {S2, Y2, Z1});
+    level(r, mask, 4, {U1, X1, Z2Z2}, {U2, X2, Z1Z1}, {S1, S1, Z2Z2}, {S2, S2, Z1Z1});
+    // the special cases, read by every thread of the team alike before the
     // slots are reused
     const bool p_inf = is_zero<Fq>(Z1);
     const bool q_inf = is_zero<Fq>(Z2);
     const bool x_eq = eq<Fq>(U1, U2);
     const bool y_eq = eq<Fq>(S1, S2);
-    team_sync<R>(mask);
+    team_sync(mask);
     uint32_t *H = U2, *RR = S2, *H2 = I;
     if (r == 0) {
         sub<Fq>(H, U2, U1);
@@ -208,14 +196,14 @@ __device__ __noinline__ void member_add(uint32_t* o, const uint32_t* p, const ui
         dbl<Fq>(H2, H);
         add<Fq>(ZZ, Z1, Z2);
     }
-    team_sync<R>(mask);
-    level<R>(r, mask, 3, {I, H2, H2}, {RR2, RR, RR}, {ZZ, ZZ, ZZ}, Prod{});  // i = (2h)^2
+    team_sync(mask);
+    level(r, mask, 3, {I, H2, H2}, {RR2, RR, RR}, {ZZ, ZZ, ZZ}, Prod{});  // i = (2h)^2
     if (r == 0) {
         sub<Fq>(ZZ, ZZ, Z1Z1);
         sub<Fq>(ZZ, ZZ, Z2Z2);
     }
-    team_sync<R>(mask);
-    level<R>(r, mask, 3, {J, H, I}, {V, U1, I}, {o + 24, ZZ, H}, Prod{});
+    team_sync(mask);
+    level(r, mask, 3, {J, H, I}, {V, U1, I}, {o + 24, ZZ, H}, Prod{});
     if (r == 0) {
         uint32_t t[12], v2[12];
         sub<Fq>(t, RR2, J);
@@ -223,18 +211,18 @@ __device__ __noinline__ void member_add(uint32_t* o, const uint32_t* p, const ui
         sub<Fq>(o, t, v2);                                        // x3 = rr^2 - j - 2v
         sub<Fq>(VX, V, o);
     }
-    team_sync<R>(mask);
+    team_sync(mask);
     uint32_t *T5 = Z1Z1, *S1J = Z2Z2;
-    level<R>(r, mask, 2, {T5, RR, VX}, {S1J, S1, J}, Prod{}, Prod{});
+    level(r, mask, 2, {T5, RR, VX}, {S1J, S1, J}, Prod{}, Prod{});
     if (r == 0) {
         uint32_t t[12];
         dbl<Fq>(t, S1J);
         sub<Fq>(o + 12, T5, t);                                   // y3 = rr (v - x3) - 2 s1 j
     }
-    team_sync<R>(mask);
+    team_sync(mask);
     if (!p_inf && !q_inf && x_eq) {
         if (y_eq) {
-            member_double<R>(o, p, T, r, mask);
+            team_double(o, p, T, r, mask);
         } else if (r == 0) {
 #pragma unroll
             for (int k = 0; k < 12; ++k) o[24 + k] = 0;
@@ -245,7 +233,7 @@ __device__ __noinline__ void member_add(uint32_t* o, const uint32_t* p, const ui
 #pragma unroll 4
         for (int k = 0; k < kPoint; ++k) o[k] = src[k];
     }
-    team_sync<R>(mask);
+    team_sync(mask);
 }
 
 // o = 2 p on one thread (g1.cuh's g1_double), the operand read from shared
@@ -343,28 +331,12 @@ __device__ __noinline__ void thread_add(uint32_t* o, const uint32_t* p, const ui
     }
 }
 
-// o = p + q by a member: one thread's registers, or a team's levels.
-template <int R>
-__device__ __forceinline__ void add_point(uint32_t* o, const uint32_t* p, const uint32_t* q,
-                                          uint32_t* T, int r, unsigned mask) {
-    if constexpr (R == 1) {
-        thread_add(o, p, q);
-    } else {
-        member_add<R>(o, p, q, T, r, mask);
-    }
+__device__ __forceinline__ void copy_point(uint32_t* dst, const uint32_t* src) {
+    for (int k = 0; k < kPoint; ++k) dst[k] = src[k];
 }
 
-template <int R>
-__device__ __forceinline__ void copy_point(uint32_t* dst, const uint32_t* src, int r,
-                                           unsigned mask) {
-    for (int k = r; k < kPoint; k += R) dst[k] = src[k];
-    team_sync<R>(mask);
-}
-
-template <int R>
-__device__ __forceinline__ void zero_point(uint32_t* dst, int r, unsigned mask) {
-    for (int k = r; k < kPoint; k += R) dst[k] = 0;
-    team_sync<R>(mask);
+__device__ __forceinline__ void zero_point(uint32_t* dst) {
+    for (int k = 0; k < kPoint; ++k) dst[k] = 0;
 }
 
 // A packed point into column c of (24, w) limb tensors, word k by thread
@@ -393,12 +365,11 @@ __device__ __forceinline__ void load_col(uint32_t* dst, const int32_t* x, const 
 }
 
 // The identity (g1.infinity's limbs: X = Y = one, Z = 0) into buckets
-// [lo, hi) of (24, B), spread over the member's threads.
-template <int R>
+// [lo, hi) of (24, B).
 __device__ __forceinline__ void identity_cols(int32_t* bx, int32_t* by, int32_t* bz, int64_t B,
-                                              int64_t lo, int64_t hi, int r) {
+                                              int64_t lo, int64_t hi) {
     for (int64_t b = lo; b < hi; ++b) {
-        for (int w = r; w < 72; w += R) {
+        for (int w = 0; w < 72; ++w) {
             const int row = w % 24;
             const uint32_t one = FQ_ONE[row / 2];
             const int32_t v = static_cast<int32_t>(row & 1 ? one >> 16 : one & 0xFFFFu);
@@ -408,45 +379,40 @@ __device__ __forceinline__ void identity_cols(int32_t* bx, int32_t* by, int32_t*
 }
 
 // A tail's bucket: the point, or the identity for bucket 0.
-template <int R>
 __device__ __forceinline__ void write_bucket(int32_t* bx, int32_t* by, int32_t* bz, int64_t B,
-                                             int key, const uint32_t* v, int r) {
+                                             int key, const uint32_t* v) {
     if (key == 0) {
-        identity_cols<R>(bx, by, bz, B, 0, 1, r);
+        identity_cols(bx, by, bz, B, 0, 1);
     } else {
-        store_col<R>(bx, by, bz, v, B, key, r);
+        store_col<1>(bx, by, bz, v, B, key, 0);
     }
 }
 
 // Lanes of m positions, M members a lane of s = ceil(m / M) positions, MB
-// members a block (MB / M lanes), R threads a member.
-template <int R>
-__global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buckets_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ x,
-                                    const int32_t* __restrict__ y, const int32_t* __restrict__ z,
-                                    int32_t* __restrict__ bx, int32_t* __restrict__ by,
-                                    int32_t* __restrict__ bz, int32_t* __restrict__ agg_flag,
-                                    int32_t* __restrict__ ax, int32_t* __restrict__ ay,
-                                    int32_t* __restrict__ az, int32_t* __restrict__ first_head,
-                                    int32_t* __restrict__ carry_key, int64_t n, int64_t K,
-                                    int64_t m, int64_t B, int M) {
+// members (threads) a block (MB / M lanes).
+__global__ void __launch_bounds__(kMaxThreads)
+lane_buckets_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ y, const int32_t* __restrict__ z,
+                    int32_t* __restrict__ bx, int32_t* __restrict__ by, int32_t* __restrict__ bz,
+                    int32_t* __restrict__ agg_flag, int32_t* __restrict__ ax,
+                    int32_t* __restrict__ ay, int32_t* __restrict__ az,
+                    int32_t* __restrict__ first_head, int32_t* __restrict__ carry_key, int64_t n,
+                    int64_t K, int64_t m, int64_t B, int M) {
     extern __shared__ uint32_t smem[];
-    const int MB = blockDim.x / R;
-    const int mb = threadIdx.x / R, r = threadIdx.x % R;
+    const int MB = blockDim.x;
+    const int mb = threadIdx.x;
     const int t = mb % M;
     const int lane0 = mb - t;  // the lane's member 0 in the block
     const int64_t l = static_cast<int64_t>(blockIdx.x) * (MB / M) + mb / M;
     const bool live = l < K;
-    const unsigned mask = member_mask<R>();
-    using L = Layout<R>;
-    uint32_t* base = smem + static_cast<int64_t>(mb) * L::words;
-    int* own = reinterpret_cast<int*>(smem + static_cast<int64_t>(MB) * L::words);  // (MB,)
+    uint32_t* base = smem + static_cast<int64_t>(mb) * Layout::words;
+    int* own = reinterpret_cast<int*>(smem + static_cast<int64_t>(MB) * Layout::words);  // (MB,)
     int* subtree = own + MB;  // (MB,) the up-sweep's subtree flags
-    uint32_t* tile = base + L::tile;
-    uint32_t* acc = base + L::acc;
-    uint32_t* open_sum = base + L::open;
-    uint32_t* scan = base + L::scan;
-    uint32_t* T = base + L::tmp;
-    int* kt = reinterpret_cast<int*>(base + L::keys);
+    uint32_t* tile = base + Layout::tile;
+    uint32_t* acc = base + Layout::acc;
+    uint32_t* open_sum = base + Layout::open;
+    uint32_t* scan = base + Layout::scan;
+    int* kt = reinterpret_cast<int*>(base + Layout::keys);
 
     const int64_t s = (m + M - 1) / M;
     const int64_t i0 = live && t * s < m ? t * s : m;
@@ -460,16 +426,15 @@ __global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buc
     int64_t first = m;
     for (int64_t i = i0; i < i1; ++i) {
         const int j = static_cast<int>((i - i0) % kTile);
-        team_sync<R>(mask);  // the last step's reads of the tile and the sums are done
         if (j == 0) {
             const int cnt = static_cast<int>(i1 - i < kTile ? i1 - i : kTile);
             const int64_t e0 = lb + i;
             // kBatch loads of each limb row in flight, then their stores
-            for (int p0 = r; p0 < kPoint * cnt; p0 += R * kBatch) {
+            for (int p0 = 0; p0 < kPoint * cnt; p0 += kBatch) {
                 uint32_t lo[kBatch], hi[kBatch];
 #pragma unroll
                 for (int u = 0; u < kBatch; ++u) {
-                    const int p = p0 + u * R;
+                    const int p = p0 + u;
                     if (p < kPoint * cnt) {
                         const int k = p / cnt, jj = p % cnt;
                         const int32_t* src = k < 12 ? x : k < 24 ? y : z;
@@ -480,17 +445,16 @@ __global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buc
                 }
 #pragma unroll
                 for (int u = 0; u < kBatch; ++u) {
-                    const int p = p0 + u * R;
+                    const int p = p0 + u;
                     if (p < kPoint * cnt) tile[(p % cnt) * kPoint + p / cnt] = lo[u] | (hi[u] << 16);
                 }
             }
             // keys of positions e0 - 1 .. e0 + cnt: -1 before the first, B
             // after the last
-            for (int p = r; p < cnt + 2; p += R) {
+            for (int p = 0; p < cnt + 2; ++p) {
                 const int64_t e = e0 - 1 + p;
                 kt[p] = e < 0 ? -1 : e >= n ? static_cast<int>(B) : static_cast<int>(keys[e]);
             }
-            team_sync<R>(mask);
         }
         const uint32_t* q = tile + j * kPoint;
         const int prev = kt[j], key = kt[j + 1], next = kt[j + 2];
@@ -503,35 +467,33 @@ __global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buc
                 own_head = true;
                 open = false;
             }
-            copy_point<R>(a, q, r, mask);
+            copy_point(a, q);
         } else {
-            add_point<R>(acc + (cur ^ 1) * kPoint, a, q, T, r, mask);
+            thread_add(acc + (cur ^ 1) * kPoint, a, q);
             cur ^= 1;
             a = acc + cur * kPoint;
         }
-        if (prev < 0) identity_cols<R>(bx, by, bz, B, 0, key, r);  // below the first key
+        if (prev < 0) identity_cols(bx, by, bz, B, 0, key);  // below the first key
         if (tail) {
             if (open) {
                 has_open = true;
                 open_key = key;
-                copy_point<R>(open_sum, a, r, mask);
+                copy_point(open_sum, a);
                 open = false;
             } else {
-                write_bucket<R>(bx, by, bz, B, key, a, r);
+                write_bucket(bx, by, bz, B, key, a);
             }
-            identity_cols<R>(bx, by, bz, B, key + 1, next, r);  // empty buckets up to the next key
+            identity_cols(bx, by, bz, B, key + 1, next);  // empty buckets up to the next key
         }
     }
     if (i1 > i0) {
-        copy_point<R>(scan, acc + cur * kPoint, r, mask);
+        copy_point(scan, acc + cur * kPoint);
     } else {
-        zero_point<R>(scan, r, mask);
+        zero_point(scan);
     }
-    if (r == 0) {
-        own[mb] = own_head ? 1 : 0;
-        subtree[mb] = own_head ? 1 : 0;
-    }
-    if (live && t == 0 && r == 0) carry_key[l] = -1;
+    own[mb] = own_head ? 1 : 0;
+    subtree[mb] = own_head ? 1 : 0;
+    if (live && t == 0) carry_key[l] = -1;
     __syncthreads();
 
     // 2. the members' segmented scan: (f_a, v_a) then (f_b, v_b) gives
@@ -539,21 +501,20 @@ __global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buc
     // takes in its left sibling's subtree at member t - d
     for (int d = 1; d < M; d <<= 1) {
         if (live && t % (2 * d) == 2 * d - 1) {
-            uint32_t* left = smem + static_cast<int64_t>(mb - d) * L::words + L::scan;
+            uint32_t* left = smem + static_cast<int64_t>(mb - d) * Layout::words + Layout::scan;
             if (!subtree[mb]) {
-                add_point<R>(acc, left, scan, T, r, mask);
-                copy_point<R>(scan, acc, r, mask);
+                thread_add(acc, left, scan);
+                copy_point(scan, acc);
             }
-            if (r == 0) subtree[mb] |= subtree[mb - d];
+            subtree[mb] |= subtree[mb - d];
         }
         __syncthreads();
     }
     // the root is the lane aggregate; the carry into the lane is the identity
     if (live && t == M - 1) {
-        if (r == 0) agg_flag[l] = subtree[mb];
-        store_col<R>(ax, ay, az, scan, K, l, r);
-        team_sync<R>(mask);
-        zero_point<R>(scan, r, mask);
+        agg_flag[l] = subtree[mb];
+        store_col<1>(ax, ay, az, scan, K, l, 0);
+        zero_point(scan);
     }
     __syncthreads();
     // down-sweep: member t = 2d - 1 mod 2d holds the carry c into its
@@ -561,14 +522,14 @@ __global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buc
     // left sum alone where the left half holds a head
     for (int d = M / 2; d >= 1; d >>= 1) {
         if (live && t % (2 * d) == 2 * d - 1) {
-            uint32_t* left = smem + static_cast<int64_t>(mb - d) * L::words + L::scan;
+            uint32_t* left = smem + static_cast<int64_t>(mb - d) * Layout::words + Layout::scan;
             if (subtree[mb - d]) {
-                copy_point<R>(acc, left, r, mask);
+                copy_point(acc, left);
             } else {
-                add_point<R>(acc, scan, left, T, r, mask);
+                thread_add(acc, scan, left);
             }
-            copy_point<R>(left, scan, r, mask);
-            copy_point<R>(scan, acc, r, mask);
+            copy_point(left, scan);
+            copy_point(scan, acc);
         }
         __syncthreads();
     }
@@ -581,53 +542,59 @@ __global__ void __launch_bounds__(R == 1 ? kMaxThreads1 : kMaxThreads4) lane_buc
         if (has_open) {
             const uint32_t* v = open_sum;
             if (t > 0) {
-                add_point<R>(acc, scan, open_sum, T, r, mask);
+                thread_add(acc, scan, open_sum);
                 v = acc;
             }
-            write_bucket<R>(bx, by, bz, B, open_key, v, r);
-            if (!before && r == 0) carry_key[l] = open_key;
+            write_bucket(bx, by, bz, B, open_key, v);
+            if (!before) carry_key[l] = open_key;
         }
-        if (r == 0) {
-            if (own_head && !before) first_head[l] = static_cast<int32_t>(first);
-            if (t == M - 1 && !before && !own_head) first_head[l] = static_cast<int32_t>(m);
-        }
+        if (own_head && !before) first_head[l] = static_cast<int32_t>(first);
+        if (t == M - 1 && !before && !own_head) first_head[l] = static_cast<int32_t>(m);
     }
 }
 
-// One team of 4 threads a lane, 32 lanes a block.
-constexpr int kCarryTeam = 4;
+// One team a lane, 32 lanes a block.
 constexpr int kCarryLanes = 32;
 
-__global__ void __launch_bounds__(kCarryTeam * kCarryLanes)
+__global__ void __launch_bounds__(kTeam * kCarryLanes)
 lane_bucket_carry_kernel(int32_t* __restrict__ bx, int32_t* __restrict__ by,
                          int32_t* __restrict__ bz, const int32_t* __restrict__ sx,
                          const int32_t* __restrict__ sy, const int32_t* __restrict__ sz,
                          const int32_t* __restrict__ carry_key, int64_t K, int64_t B) {
     __shared__ uint32_t scratch[kCarryLanes][3 * kPoint + 12 * kTemps];
-    const int r = threadIdx.x % kCarryTeam;
-    const int64_t k = static_cast<int64_t>(blockIdx.x) * kCarryLanes + threadIdx.x / kCarryTeam;
+    const int r = threadIdx.x % kTeam;
+    const int64_t k = static_cast<int64_t>(blockIdx.x) * kCarryLanes + threadIdx.x / kTeam;
     if (k < 1 || k >= K) return;  // the whole team
     const int key = carry_key[k];
     if (key <= 0) return;
-    const unsigned mask = member_mask<kCarryTeam>();
-    uint32_t* s = scratch[threadIdx.x / kCarryTeam];
-    load_col<kCarryTeam>(s, sx, sy, sz, K, k - 1, r);
-    load_col<kCarryTeam>(s + kPoint, bx, by, bz, B, key, r);
-    team_sync<kCarryTeam>(mask);
-    member_add<kCarryTeam>(s + 2 * kPoint, s, s + kPoint, s + 3 * kPoint, r, mask);
-    store_col<kCarryTeam>(bx, by, bz, s + 2 * kPoint, B, key, r);
+    const unsigned mask = team_mask();
+    uint32_t* s = scratch[threadIdx.x / kTeam];
+    load_col<kTeam>(s, sx, sy, sz, K, k - 1, r);
+    load_col<kTeam>(s + kPoint, bx, by, bz, B, key, r);
+    team_sync(mask);
+    team_add(s + 2 * kPoint, s, s + kPoint, s + 3 * kPoint, r, mask);
+    store_col<kTeam>(bx, by, bz, s + 2 * kPoint, B, key, r);
 }
 
-template <int R>
-int launch_lane_buckets(const int64_t* keys, const int32_t* x, const int32_t* y, const int32_t* z,
-                        int32_t* bx, int32_t* by, int32_t* bz, int32_t* agg_flag, int32_t* ax,
-                        int32_t* ay, int32_t* az, int32_t* first_head, int32_t* carry_key,
-                        int64_t n, int64_t K, int64_t B, int M, int MB, cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(MB) * (Layout<R>::words * 4 + 2 * sizeof(int));
+}  // namespace
+
+// keys (n,) int64 sorted, each < B; x/y/z (24, n) -> bx/by/bz (24, B),
+// agg_flag (1, K), ax/ay/az (24, K), first_head (K,), carry_key (K,) int32.
+// members: M a lane (a power of two up to block_members); block_members: MB
+// a block (a multiple of M, at most 256).
+extern "C" int g1_lane_buckets(const int64_t* keys, const int32_t* x, const int32_t* y,
+                               const int32_t* z, int32_t* bx, int32_t* by, int32_t* bz,
+                               int32_t* agg_flag, int32_t* ax, int32_t* ay, int32_t* az,
+                               int32_t* first_head, int32_t* carry_key, int64_t n, int64_t K,
+                               int64_t B, int64_t members, int64_t block_members, void* stream) {
+    const int64_t M = members, MB = block_members;
+    if (K < 1 || n % K != 0 || M < 1 || (M & (M - 1)) != 0 || MB % M != 0 || MB > kMaxThreads)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = static_cast<size_t>(MB) * (Layout::words * 4 + 2 * sizeof(int));
     static size_t allowed = 48 * 1024;  // the largest dynamic shared memory set so far
     if (smem > allowed) {
         const cudaError_t err = cudaFuncSetAttribute(
-            lane_buckets_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            lane_buckets_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (err != cudaSuccess) {
             cudaGetLastError();  // not left for the next launch's check
@@ -635,39 +602,12 @@ int launch_lane_buckets(const int64_t* keys, const int32_t* x, const int32_t* y,
         }
         allowed = smem;
     }
-    const int64_t lanes_per_block = MB / M;
-    const int64_t blocks = (K + lanes_per_block - 1) / lanes_per_block;
-    lane_buckets_kernel<R><<<static_cast<unsigned>(blocks), MB * R, smem, stream>>>(
+    const int64_t blocks = (K + MB / M - 1) / (MB / M);
+    lane_buckets_kernel<<<static_cast<unsigned>(blocks), static_cast<unsigned>(MB), smem,
+                          static_cast<cudaStream_t>(stream)>>>(
         keys, x, y, z, bx, by, bz, agg_flag, ax, ay, az, first_head, carry_key, n, K, n / K, B,
-        M);
+        static_cast<int>(M));
     return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// keys (n,) int64 sorted, each < B; x/y/z (24, n) -> bx/by/bz (24, B),
-// agg_flag (1, K), ax/ay/az (24, K), first_head (K,), carry_key (K,) int32.
-// members: M a lane (a power of two up to block_members); threads: R a
-// member (1 or 4); block_members: MB a block (a multiple of M; MB <= 256
-// for R = 1, MB R <= 384 for R = 4).
-extern "C" int g1_lane_buckets(const int64_t* keys, const int32_t* x, const int32_t* y,
-                               const int32_t* z, int32_t* bx, int32_t* by, int32_t* bz,
-                               int32_t* agg_flag, int32_t* ax, int32_t* ay, int32_t* az,
-                               int32_t* first_head, int32_t* carry_key, int64_t n, int64_t K,
-                               int64_t B, int64_t members, int64_t threads, int64_t block_members,
-                               void* stream) {
-    const int64_t M = members, MB = block_members;
-    if (K < 1 || n % K != 0 || M < 1 || (M & (M - 1)) != 0 || MB % M != 0 ||
-        (threads != 1 && threads != 4) ||
-        MB * threads > (threads == 1 ? kMaxThreads1 : kMaxThreads4))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const auto st = static_cast<cudaStream_t>(stream);
-    const int m_ = static_cast<int>(M), mb_ = static_cast<int>(MB);
-    if (threads == 1)
-        return launch_lane_buckets<1>(keys, x, y, z, bx, by, bz, agg_flag, ax, ay, az, first_head,
-                                      carry_key, n, K, B, m_, mb_, st);
-    return launch_lane_buckets<4>(keys, x, y, z, bx, by, bz, agg_flag, ax, ay, az, first_head,
-                                  carry_key, n, K, B, m_, mb_, st);
 }
 
 // bx/by/bz (24, B) updated in place from the prefix sx/sy/sz (24, K) of the
@@ -677,7 +617,7 @@ extern "C" int g1_lane_bucket_carry(int32_t* bx, int32_t* by, int32_t* bz, const
                                     const int32_t* carry_key, int64_t K, int64_t B,
                                     void* stream) {
     const int64_t blocks = (K + kCarryLanes - 1) / kCarryLanes;
-    lane_bucket_carry_kernel<<<static_cast<unsigned>(blocks), kCarryTeam * kCarryLanes, 0,
+    lane_bucket_carry_kernel<<<static_cast<unsigned>(blocks), kTeam * kCarryLanes, 0,
                                static_cast<cudaStream_t>(stream)>>>(bx, by, bz, sx, sy, sz,
                                                                     carry_key, K, B);
     return static_cast<int>(cudaGetLastError());

@@ -264,19 +264,18 @@ def lane_buckets_plain(keys, x, y, z, K: int, B: int):
 
 def lane_buckets_kernel(keys, x, y, z, K: int, B: int, plan):
     """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_buckets``. plan = (M
-    members a lane, a power of two; R threads a member, 1 or 4; MB members
-    a block, a multiple of M, at most 256 threads a block for R = 1 and 384
-    for R = 4, the kernel's launch bounds), as ``msm_kernels.lane_plan``
-    gives it. Its buckets and aggregates are other Jacobian representatives
+    members a lane, a power of two; MB members a block, one thread each, a
+    multiple of M, at most 256, the kernel's launch bounds), as
+    ``msm_kernels.lane_plan`` gives it. Its buckets and aggregates are other Jacobian representatives
     of the plain version's points; the flags, first heads and carry keys
     are exact."""
     n = x.shape[-1]
-    M, R, MB = plan
+    M, MB = plan
     if K < 1 or n % K:
         raise ValueError(f"lane_buckets: {n} positions are not a multiple of {K} lanes")
-    if M < 1 or M & (M - 1) or R not in (1, 4) or MB % M or MB * R > (256 if R == 1 else 384):
-        raise ValueError(f"lane_buckets: plan {plan} is not M a power of two, R 1 or 4 and MB a "
-                         "multiple of M with MB <= 256 (R = 1) or MB R <= 384 (R = 4)")
+    if M < 1 or M & (M - 1) or MB % M or MB > 256:
+        raise ValueError(f"lane_buckets: plan {plan} is not M a power of two and MB a multiple "
+                         "of M, at most 256")
     _build.check(keys, (n,), "lane_buckets keys", torch.int64)
     for t, what in zip((x, y, z), "xyz"):
         _build.check(t, (_L, n), f"lane_buckets {what}")
@@ -287,8 +286,8 @@ def lane_buckets_kernel(keys, x, y, z, K: int, B: int, plan):
     first = torch.empty(K, dtype=torch.int32, device=dev)
     carry_key = torch.empty(K, dtype=torch.int32, device=dev)
     if n:
-        fn = _build.entry("lane_scan", "g1_lane_buckets", 13, 6)
-        _build.launch(fn, (keys, x, y, z, *out, *agg, first, carry_key), (n, K, B, M, R, MB), dev)
+        fn = _build.entry("lane_scan", "g1_lane_buckets", 13, 5)
+        _build.launch(fn, (keys, x, y, z, *out, *agg, first, carry_key), (n, K, B, M, MB), dev)
         lane_buckets_kernel.launches += 1
     return (*out, *agg, first, carry_key)
 

@@ -36,11 +36,10 @@ FAST_TEAM = 8
 SCAN_TEAM = 16
 # the plan of g1_lane_buckets (csrc/lane_scan.cu), the generic engine's
 # window: LANE_ELEMS positions a member, at most LANE_MEMBERS members a lane,
-# LANE_THREADS threads a member, LANE_BLOCK members a block (``lane_plan``;
-# PERF.md has the sweep at m = 1, 16, 256 and 4096 positions a lane)
+# LANE_BLOCK members (one thread each) a block (``lane_plan``; PERF.md has the
+# sweep at m = 1, 16, 256 and 4096 positions a lane)
 LANE_ELEMS = 4
 LANE_MEMBERS = 8
-LANE_THREADS = 1
 LANE_BLOCK = 64
 LANES = 512
 CHUNK = 8
@@ -75,10 +74,10 @@ def team_size(team: int, steps: int) -> int:
 
 def lane_plan(m: int) -> tuple:
     """g1_lane_buckets' plan for lanes of m positions: (M members a lane,
-    R threads a member, MB members a block), M the power of two at or
-    above m / LANE_ELEMS, at most LANE_MEMBERS; MB = max(M, LANE_BLOCK)."""
+    MB members a block), M the power of two at or above m / LANE_ELEMS, at
+    most LANE_MEMBERS; MB = max(M, LANE_BLOCK)."""
     M = team_size(LANE_MEMBERS, -(-m // LANE_ELEMS))
-    return M, LANE_THREADS, max(M, LANE_BLOCK)
+    return M, max(M, LANE_BLOCK)
 
 
 def _stack(rows, shape):

@@ -17,7 +17,9 @@ the lane, must disagree. The routing: on a CPU tensor
 limb for limb."""
 
 import dataclasses
+import os
 import random
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,7 @@ import torch
 from snarkos_tpu.crypto import params
 from snarkos_tpu.crypto.ref import g1 as ref
 from snarkos_tpu.ops import msm as jmsm
-from snarkos_tpu_torch.ops import g1, g1_kernels, msm, msm_kernels
+from snarkos_tpu_torch.ops import _build, g1, g1_kernels, msm, msm_kernels
 from snarkos_tpu_torch.ops.fieldspec import FQ
 
 # the plain versions run many small tensor ops: intra-op threads only add
@@ -36,7 +38,11 @@ torch.set_num_threads(1)
 
 P = 1_000_003
 Q = params.FQ_MODULUS
-TILE = 8  # lane_scan.cu's kTile
+with open(os.path.join(_build.CSRC, "lane_scan.cu")) as _f:
+    _SRC = _f.read()
+# the kernel's staging constants: positions a tile, loads in flight
+TILE = int(re.search(r"constexpr int kTile = (\d+);", _SRC).group(1))
+BATCH = int(re.search(r"constexpr int kBatch = (\d+);", _SRC).group(1))
 POINT = 36  # packed words of a point
 
 
@@ -89,11 +95,14 @@ def _bucket_identity(ops, B):
     return ops.identity(B)
 
 
-def _staging(cnt, R):
-    """The (thread r, word k, position jj) loads of a tile of cnt positions
-    as the kernel enumerates them: pair p = r, r + R, ... < 36 cnt is word
-    k = p // cnt of position jj = p % cnt."""
-    return [(p % R, p // cnt, p % cnt) for p in range(POINT * cnt)]
+def _staging(cnt):
+    """The batches of (word k, position jj, tile slot) loads of a tile of
+    cnt positions as the member's thread issues them: batch p0 = 0, BATCH,
+    ... loads pairs p = p0 .. p0 + BATCH - 1 below 36 cnt, pair p being
+    word k = p // cnt of position jj = p % cnt, stored at slot jj 36 + k."""
+    return [[(p // cnt, p % cnt, (p % cnt) * POINT + p // cnt)
+             for p in range(p0, min(p0 + BATCH, POINT * cnt))]
+            for p0 in range(0, POINT * cnt, BATCH)]
 
 
 def _lane_buckets_model(ops, keys, pts, K, B, M, broken=None):
@@ -387,27 +396,27 @@ def test_lane_buckets_model_with_a_broken_carry_fails(broken, case):
     assert got[0][0].tolist() != _serial_sums(keys, vals, B)
 
 
-@pytest.mark.parametrize("R", [1, 4])
-def test_tile_staging_loads_each_word_once(R):
-    """A tile of cnt positions (up to kTile) is loaded word by word exactly
-    once over the member's R threads, and with R = 4 the threads of a load
-    read neighbouring positions of one limb row; the keys around the tile
-    carry the sentinels -1 before position 0 and B after position n - 1."""
-    for cnt in range(1, TILE + 1):
-        loads = _staging(cnt, R)
-        assert sorted((k, jj) for _, k, jj in loads) == \
-            [(k, jj) for k in range(POINT) for jj in range(cnt)]
-        by_thread = [[(k, jj) for r, k, jj in loads if r == rr] for rr in range(R)]
-        assert max(map(len, by_thread)) - min(map(len, by_thread)) <= 1
-        if R == 4 and cnt == TILE:
-            for step in range(len(by_thread[0])):
-                row = {by_thread[r][step][0] for r in range(R)}
-                cols = [by_thread[r][step][1] for r in range(R)]
-                assert len(row) == 1 and cols == list(range(cols[0], cols[0] + R))
-    n, B, e0, cnt = 10, 16, 0, 4
+@pytest.mark.parametrize("cnt", range(1, TILE + 1))
+def test_tile_staging_loads_each_word_once(cnt):
+    """A tile of cnt positions (up to kTile, the last tile of a member may
+    be short) is loaded word by word exactly once, BATCH loads in flight,
+    into distinct slots (position jj's 36 words from slot 36 jj); a batch
+    reads the positions of a limb row side by side; the keys around the
+    tile carry the sentinels -1 before position 0 and B after position
+    n - 1."""
+    batches = _staging(cnt)
+    loads = [ld for b in batches for ld in b]
+    assert sorted((k, jj) for k, jj, _ in loads) == \
+        [(k, jj) for k in range(POINT) for jj in range(cnt)]
+    assert sorted(slot for _, _, slot in loads) == list(range(POINT * cnt))
+    assert all(len(b) == BATCH for b in batches[:-1]) and 0 < len(batches[-1]) <= BATCH
+    for b in batches:
+        for (k0, j0, _), (k1, j1, _) in zip(b, b[1:]):
+            assert (k1, j1) == ((k0, j0 + 1) if j0 + 1 < cnt else (k0 + 1, 0))
+    n, B, e0, w = 10, 16, 0, 4
     keys = list(range(n))
-    kt = [-1 if e < 0 else B if e >= n else keys[e] for e in range(e0 - 1, e0 + cnt + 1)]
-    assert kt[0] == -1 and kt[1:] == keys[:cnt + 1]
+    kt = [-1 if e < 0 else B if e >= n else keys[e] for e in range(e0 - 1, e0 + w + 1)]
+    assert kt[0] == -1 and kt[1:] == keys[:w + 1]
     e0 = n - 3
     kt = [-1 if e < 0 else B if e >= n else keys[e] for e in range(e0 - 1, e0 + 3 + 1)]
     assert kt == keys[e0 - 1:] + [B]
@@ -532,9 +541,9 @@ def test_msm_generic_takes_group_window_bucket_sums():
     assert int(got[0][0, 0]) == sum(k * x for k, x in zip(scalars, xs)) % P
 
 
-@pytest.mark.parametrize("m,plan", [(1, (1, 1, 64)), (16, (4, 1, 64)), (256, (8, 1, 64)),
-                                    (4096, (8, 1, 64)), (6, (2, 1, 64)), (1 << 14, (8, 1, 64))])
+@pytest.mark.parametrize("m,plan", [(1, (1, 64)), (16, (4, 64)), (256, (8, 64)),
+                                    (4096, (8, 64)), (6, (2, 64)), (1 << 14, (8, 64))])
 def test_lane_plan(m, plan):
     """g1_lane_buckets' plan: the power of two at or above m / 4 members a
-    lane, at most 8, one thread a member, 64 members a block."""
+    lane, at most 8, and 64 members (one thread each) a block."""
     assert msm_kernels.lane_plan(m) == plan
