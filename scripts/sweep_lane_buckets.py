@@ -5,10 +5,9 @@
 
 Builds copies of ``csrc/lane_scan.cu`` into ``build/lane_sweep/`` (one nvcc
 each, all started together, with the package's flags), each with one or two
-of its constants changed: kTile (positions a member stages at a time),
-kBatch (a thread's loads in flight while staging) and kMaxThreads (the
-kernel's launch bound: 384 caps registers at 168, room for more warps an SM
-where shared memory allows). For each build it reports ptxas's registers,
+of its constants changed: kTile (positions a member stages at a time) and
+kMaxThreads (the kernel's launch bound: 384 caps registers at 168, room for
+more warps an SM where shared memory allows). For each build it reports ptxas's registers,
 stack and spills and the local loads and stores (LDL, STL) of
 ``lane_buckets_kernel`` in its machine code (``cuobjdump -sass``).
 
@@ -40,7 +39,6 @@ VARIANTS = {
     "kTile=1": {"kTile": 1},
     "kTile=4": {"kTile": 4},
     "kTile=8": {"kTile": 8},
-    "kBatch=1": {"kBatch": 1},
     "kMaxThreads=384": {"kMaxThreads": 384},
     "kTile=1 kMaxThreads=384": {"kTile": 1, "kMaxThreads": 384},
 }

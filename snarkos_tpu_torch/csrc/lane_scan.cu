@@ -40,13 +40,13 @@
 // operands in shared memory; `msm_kernels.lane_plan` picks (M, members a
 // block) from the sweep in PERF.md. A member
 //   1. stages its positions kTile at a time into shared memory (36 packed
-//      words a point, kBatch loads in flight) with the keys around them, and
-//      walks them once from its first element: at a head the running sum
-//      restarts, else one complete add. At every tail (the next key
-//      differs) after its first head the sum is final: it goes straight
-//      into its bucket, with the identity into the empty buckets up to the
-//      next key. The tail before its first head (its "open" tail) waits
-//      for the carry; the sum there is kept;
+//      words a point) with the keys around them, and walks them once from
+//      its first element: at a head the running sum restarts, else one
+//      complete add. At every tail (the next key differs) after its first
+//      head the sum is final: it goes straight into its bucket, with the
+//      identity into the empty buckets up to the next key. The tail before
+//      its first head (its "open" tail) waits for the carry; the sum there
+//      is kept;
 //   2. joins a work-efficient segmented scan of the members' (own head, sum)
 //      pairs in shared memory (an up-sweep and a down-sweep, log2 M levels
 //      each, at most one add a member a level: about 2 adds a member in
@@ -64,7 +64,7 @@
 // registers allow 256 threads an SM; the sweep found one thread an add (over
 // window_tail.cu's teams of 4, a level's products side by side) and 8
 // members a lane fastest at m = 16, 256 and 4096, and within 0.010 ms of
-// the teams at m = 1 (PERF.md, PR 14).
+// the teams at m = 1 (PERF.md has the sweep).
 // g1_lane_bucket_carry's one add a lane is a team of 4 threads
 // (team_add), as window_tail.cu's.
 // The complete add's special cases (P == Q doubles, P == -Q gives Z = 0,
@@ -79,7 +79,6 @@ using namespace snark;
 namespace {
 
 constexpr int kTile = 2;                 // positions staged at a time
-constexpr int kBatch = 8;                // a thread's loads in flight while staging
 // threads (members) a block at most: the add keeps its temporaries in
 // registers, 255 of them
 constexpr int kMaxThreads = 256;
@@ -429,25 +428,13 @@ lane_buckets_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict_
         if (j == 0) {
             const int cnt = static_cast<int>(i1 - i < kTile ? i1 - i : kTile);
             const int64_t e0 = lb + i;
-            // kBatch loads of each limb row in flight, then their stores
-            for (int p0 = 0; p0 < kPoint * cnt; p0 += kBatch) {
-                uint32_t lo[kBatch], hi[kBatch];
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                    const int p = p0 + u;
-                    if (p < kPoint * cnt) {
-                        const int k = p / cnt, jj = p % cnt;
-                        const int32_t* src = k < 12 ? x : k < 24 ? y : z;
-                        const int64_t at = (2 * (k % 12)) * n + e0 + jj;
-                        lo[u] = static_cast<uint32_t>(src[at]) & 0xFFFFu;
-                        hi[u] = static_cast<uint32_t>(src[at + n]) & 0xFFFFu;
-                    }
-                }
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                    const int p = p0 + u;
-                    if (p < kPoint * cnt) tile[(p % cnt) * kPoint + p / cnt] = lo[u] | (hi[u] << 16);
-                }
+            // word k of position jj, a limb row's cnt positions side by side
+            for (int p = 0; p < kPoint * cnt; ++p) {
+                const int k = p / cnt, jj = p % cnt;
+                const int32_t* src = k < 12 ? x : k < 24 ? y : z;
+                const int64_t at = (2 * (k % 12)) * n + e0 + jj;
+                tile[jj * kPoint + k] = (static_cast<uint32_t>(src[at]) & 0xFFFFu) |
+                                        ((static_cast<uint32_t>(src[at + n]) & 0xFFFFu) << 16);
             }
             // keys of positions e0 - 1 .. e0 + cnt: -1 before the first, B
             // after the last

@@ -40,9 +40,8 @@ P = 1_000_003
 Q = params.FQ_MODULUS
 with open(os.path.join(_build.CSRC, "lane_scan.cu")) as _f:
     _SRC = _f.read()
-# the kernel's staging constants: positions a tile, loads in flight
+# the kernel's positions a tile
 TILE = int(re.search(r"constexpr int kTile = (\d+);", _SRC).group(1))
-BATCH = int(re.search(r"constexpr int kBatch = (\d+);", _SRC).group(1))
 POINT = 36  # packed words of a point
 
 
@@ -96,13 +95,11 @@ def _bucket_identity(ops, B):
 
 
 def _staging(cnt):
-    """The batches of (word k, position jj, tile slot) loads of a tile of
-    cnt positions as the member's thread issues them: batch p0 = 0, BATCH,
-    ... loads pairs p = p0 .. p0 + BATCH - 1 below 36 cnt, pair p being
-    word k = p // cnt of position jj = p % cnt, stored at slot jj 36 + k."""
-    return [[(p // cnt, p % cnt, (p % cnt) * POINT + p // cnt)
-             for p in range(p0, min(p0 + BATCH, POINT * cnt))]
-            for p0 in range(0, POINT * cnt, BATCH)]
+    """The (word k, position jj, tile slot) loads of a tile of cnt
+    positions as the member's thread issues them: pair p = 0 .. 36 cnt - 1
+    is word k = p // cnt of position jj = p % cnt, stored at slot
+    jj 36 + k."""
+    return [(p // cnt, p % cnt, (p % cnt) * POINT + p // cnt) for p in range(POINT * cnt)]
 
 
 def _lane_buckets_model(ops, keys, pts, K, B, M, broken=None):
@@ -399,20 +396,16 @@ def test_lane_buckets_model_with_a_broken_carry_fails(broken, case):
 @pytest.mark.parametrize("cnt", range(1, TILE + 1))
 def test_tile_staging_loads_each_word_once(cnt):
     """A tile of cnt positions (up to kTile, the last tile of a member may
-    be short) is loaded word by word exactly once, BATCH loads in flight,
-    into distinct slots (position jj's 36 words from slot 36 jj); a batch
-    reads the positions of a limb row side by side; the keys around the
-    tile carry the sentinels -1 before position 0 and B after position
-    n - 1."""
-    batches = _staging(cnt)
-    loads = [ld for b in batches for ld in b]
+    be short) is loaded word by word exactly once into distinct slots
+    (position jj's 36 words from slot 36 jj); consecutive loads read the
+    positions of a limb row side by side; the keys around the tile carry
+    the sentinels -1 before position 0 and B after position n - 1."""
+    loads = _staging(cnt)
     assert sorted((k, jj) for k, jj, _ in loads) == \
         [(k, jj) for k in range(POINT) for jj in range(cnt)]
     assert sorted(slot for _, _, slot in loads) == list(range(POINT * cnt))
-    assert all(len(b) == BATCH for b in batches[:-1]) and 0 < len(batches[-1]) <= BATCH
-    for b in batches:
-        for (k0, j0, _), (k1, j1, _) in zip(b, b[1:]):
-            assert (k1, j1) == ((k0, j0 + 1) if j0 + 1 < cnt else (k0 + 1, 0))
+    for (k0, j0, _), (k1, j1, _) in zip(loads, loads[1:]):
+        assert (k1, j1) == ((k0, j0 + 1) if j0 + 1 < cnt else (k0 + 1, 0))
     n, B, e0, w = 10, 16, 0, 4
     keys = list(range(n))
     kt = [-1 if e < 0 else B if e >= n else keys[e] for e in range(e0 - 1, e0 + w + 1)]
