@@ -10,7 +10,7 @@ result line:
      ptxas, its local loads and stores counted in its SASS); the dev SRS of degree 2^20 built on the
      card (its first 2^20 points are the bases of phase 5).
   2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute and
-     fr_epoch_step; B2 g1_add and its window-tail entry points
+     fr_epoch_program; B2 g1_add and its window-tail entry points
      g1_horner_chain and g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
      B6 bucket_scan_fast, B7 jadd_bucket_total; the generic engine's window
      g1_lane_buckets and g1_lane_bucket_carry) against its plain PyTorch
@@ -37,7 +37,14 @@ result line:
      c (ms = a + b c, beside the chain figure); g1_bucket_fixup on real
      windows of b8, b16 and the 2^20 MSM (keys, heads, scan and B3 prefix as
      the engine makes them), each also with P == Q, P == -Q and identity
-     carries planted.
+     carries planted. B1's sponge (fr_poseidon_permute) as hash_fixed runs
+     it at b8, b16 and 2^22 (there lanes [0, 2^16) and the last 2^16
+     compared), one permutation of a given state at (3, 16, 32768), (3, 16,
+     65536), (3, 16, 2^22) (its plain version once, timed by that call) and
+     (5, 16, 4096), edge states 0, 1, p - 1 in lanes 0-2, and the rate-4
+     sponge over 5 inputs squeezing 3; B1's epoch program
+     (fr_epoch_program, the 12 steps in one launch) at b8 and b16 against
+     12 epoch_step_plain, every selector present at every step.
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
      of 3 at the 2^20 shapes, for the Poseidon permutation and the Horner
      chain), CUDA events
@@ -51,7 +58,7 @@ result line:
      C = p(tau) G and W = q(tau) G computed on the host from the coefficients
      and the known dev tau, and against prove_batch of one nonce. Then
      solutions/s at batch 8 (median of 3 timed calls). A call must launch
-     fr_poseidon_permute once, fr_epoch_step 12 times, mont_mul at most 80
+     fr_poseidon_permute once, fr_epoch_program once, mont_mul at most 80
      times, g1_horner_chain twice (once a multi-MSM) and g1_bucket_fixup
      86 times (once a window; here and at batch 16).
   4. prove_batch over 16 nonces (the wide-chain engine, B5): nonces 0-7 equal
@@ -101,9 +108,11 @@ result line:
      the device time of each pass at 2^22; the sweep of plans, tiles and
      block sizes at 2^22 and 2^20. The pipeline of entry.entry()
      (Poseidon, ntt, square) at 2^10 equal limb for limb to the host
-     composition, then at 2^22 (one permutation, len(plan) passes, one
+     composition, then at 2^22 (one sponge launch, len(plan) passes, one
      mont_mul) against the host Poseidon at 8 lanes and the plain ntt and
-     square; its wall time (median of 3).
+     square; its wall time (median of 3); its hash_fixed alone is one
+     fr_poseidon_permute launch and dispatches no torch op but its
+     output's allocation.
  10. the multi-device layer (snarkos_tpu_torch/parallel/). World 1 over
      NCCL, in this process: ntt_dist and intt_dist at 2^22 (N1 = N2 =
      2^11) equal to ntt.ntt limb for limb and the round trip to the input
@@ -223,10 +232,14 @@ PIPE_LOG = 22
 NTT_SWEEP_K_MAX = (6, 8)
 NTT_SWEEP_LOG_ELEMS = (9, 10, 11)
 NTT_SWEEP_THREADS = (128, 256, 512)
-# B1's launches a prove_batch call (PERF.md): one permutation, the epoch
-# program's 12 steps, at most 80 single multiplies (KZG eval, conversions)
-PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_step": 12}
+# B1's launches a prove_batch call (PERF.md): one sponge (the leaves), one
+# epoch program (all 12 steps), at most 80 single multiplies (KZG eval,
+# conversions)
+PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_program": 1}
 MONT_MUL_MAX = 80
+# what hash_fixed dispatches on the card: the output's allocation, nothing
+# on the sponge's state (phase 9)
+SPONGE_OPS = ["aten.empty.memory_format"]
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet): 3.35 TB/s of HBM and
 # 67 TFLOP/s of float32 outside the tensor cores, i.e. 33.5 T fused
@@ -237,6 +250,28 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MULS_PER_S = 67e12 / 2 / 2
 FQ_MUL_OPS = 2 * (2 * 12 * 12 + 12)  # CIOS word products x 2 per Fq multiply
 FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)
+# the 32-bit multiplies of fr_passes.cu's pieces: a 512-bit product (64 word
+# products), a 512-bit square (36), a reduction of 512 bits (64 word products
+# and 8 word multipliers m)
+FR_WIDE_MUL, FR_WIDE_SQR, FR_REDC = 2 * 64, 2 * 36, 2 * 64 + 8
+
+
+def poseidon_ops(t: int) -> int:
+    """The 32-bit multiplies of one permutation of width t as fr_passes.cu
+    runs it: 8 full rounds of t s-boxes (4 squarings and a multiply) and t
+    MDS rows (t wide products, one reduction); 31 partial rounds of one
+    s-box, one row of t and t - 1 multiplies (the sparse matrix). The dense
+    form before it ran 8 (t^2 + 5 t) + 31 (t^2 + 5) multiplies of
+    FR_MUL_OPS (626 at t = 3)."""
+    sbox = 4 * (FR_WIDE_SQR + FR_REDC) + FR_MUL_OPS
+    row = t * FR_WIDE_MUL + FR_REDC
+    return 8 * t * (sbox + row) + 31 * (sbox + row + (t - 1) * FR_MUL_OPS)
+
+
+def sponge_permutations(rate: int, n_in: int, num_outputs: int) -> int:
+    """Permutations of the sponge: one between absorbed rate blocks, one
+    before each squeezed block."""
+    return max(0, -(-n_in // rate) - 1) + -(-num_outputs // rate)
 
 
 def log(*a):
@@ -365,6 +400,23 @@ def sass_local(build) -> dict:
                 kerns[fn][0 if "LDL" in ln else 1] += 1
         out[name] = {k: tuple(v) for k, v in kerns.items()}
     return out
+
+
+def aten_ops(fn) -> list:
+    """The ATen operators that ``fn()`` dispatches, in order (a
+    TorchDispatchMode that records each and runs it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return seen
 
 
 def bound(nbytes: float, nops: float):
@@ -623,7 +675,7 @@ def main() -> int:
         return max_abs_err(g1.to_affine(pg), g1.to_affine(pw))
 
     def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True,
-              compare=None, library=None):
+              compare=None, library=None, plain_once=()):
         """cases: [(label, kernel_fn, plain_fn, nbytes, nops[, timed_fn])],
         ``timed_fn`` timed in place of kernel_fn if given, a case with nbytes
         None compared and not timed (the first case is timed); ``big``: time
@@ -634,12 +686,20 @@ def main() -> int:
         ``exact=False`` compares projectively (``affine_err``), ``compare``
         with a function (got, want) -> max abs error that raises on a
         mismatch; ``library``, one PyTorch call that computes the first case's
-        function, is timed as its library_ms. Cases that share a plain_fn share
-        its output and time."""
+        function, is timed as its library_ms; the plain_fn of a case whose
+        label is in ``plain_once`` runs once, timed by that call (CUDA
+        events). Cases that share a plain_fn share its output and time."""
         shapes = []
         plain_runs = {}
         for label, kfn, pfn, nbytes, nops, *timed in cases:
-            if pfn not in plain_runs:
+            if pfn not in plain_runs and label in plain_once:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                want = pfn()
+                end.record()
+                torch.cuda.synchronize()
+                plain_runs[pfn] = (want, start.elapsed_time(end))
+            elif pfn not in plain_runs:
                 want = pfn()
                 torch.cuda.synchronize()
                 plain_runs[pfn] = (want, cuda_ms(pfn, 1 if big else 5))
@@ -691,48 +751,85 @@ def main() -> int:
     check("mont_mul", "snarkos_tpu_torch/csrc/mont_mul.cu",
           "snarkos_tpu/ops/modarith.py:171", b1, fa.mont_mul_kernel)
 
-    # B1's Fr passes. The permutation at the leaves' shape of both prove_batch
-    # paths (B x 4096 lanes, rate 2) and at rate 4, with the edge states
-    # (0, 1, p - 1 in every slot) in lanes 0-2
-    def permute_case(rate, lanes):
-        t = rate + 1
-        st = torch.from_numpy(np.ascontiguousarray(
+    # B1's Fr passes (csrc/fr_passes.cu). The sponge kernel first as the
+    # paths launch it (hash_fixed: prove_batch's leaves at B x 4096 lanes and
+    # entry.forward's 2^22, rate 2, n = 2, one output), then one permutation
+    # of a given state at the leaves' widths, at 2^22 and at rate 4, with the
+    # edge states (0, 1, p - 1 in every slot) in lanes 0-2; and, compared
+    # only, the sponge over 5 inputs squeezing 3 at rate 4 (two absorbs, two
+    # squeezes). The bound counts the 32-bit multiplies of the form the
+    # kernel runs (poseidon_ops).
+    def fr_state(t, lanes):
+        x = torch.from_numpy(np.ascontiguousarray(
             FR.random(t * lanes, rng).reshape(FR.nlimbs, t, lanes).transpose(1, 0, 2))).to(dev)
         for lane, v in enumerate((0, 1, FR.p - 1)):
-            st[:, :, lane] = torch.from_numpy(FR.encode_fast([v], mont=True)[:, 0]).to(dev)
-        full, half = poseidon.FULL_ROUNDS, poseidon.PARTIAL_ROUNDS
-        products = full * (5 * t + t * t) + half * (5 + t * t)  # s-boxes and the mix
-        return (f"({t}, 16, {lanes})", lambda: poseidon.permute_kernel(st, rate),
+            x[:, :, lane] = torch.from_numpy(FR.encode_fast([v], mont=True)[:, 0]).to(dev)
+        return x
+
+    consts_bytes = {r: poseidon.kernel_consts(r).numel() * 4 for r in poseidon.KERNEL_RATES}
+
+    def permute_case(rate, lanes):
+        t = rate + 1
+        st = fr_state(t, lanes)
+        return (f"permute ({t}, 16, {lanes})", lambda: poseidon.permute_kernel(st, rate),
                 lambda: poseidon.permute_plain(st, rate),
-                2 * t * 16 * 4 * lanes + poseidon.packed_consts(rate).numel() * 4,
-                products * FR_MUL_OPS * lanes)
+                2 * t * 16 * 4 * lanes + consts_bytes[rate], poseidon_ops(t) * lanes)
 
-    check("fr_poseidon_permute", "snarkos_tpu_torch/csrc/mont_mul.cu",
+    def sponge_case(rate, n_in, lanes, num_outputs, domain, timed=True, part=None):
+        """``part``: compare the lanes [0, part) and [lanes - part, lanes)
+        only (the plain sponge at 2^22 takes tens of seconds a call)."""
+        x = fr_state(n_in, lanes)
+        perms = sponge_permutations(rate, n_in, num_outputs)
+        label = f"hash_fixed ({n_in}, 16, {lanes}) rate {rate} -> {num_outputs}"
+
+        def kernel():
+            return poseidon.hash_fixed(x, rate, domain, num_outputs)
+
+        if part is None:
+            kfn, xs = kernel, x
+        else:
+            label += f", lanes [0, {part}) and [{lanes - part}, {lanes}) compared"
+            xs = torch.cat([x[..., :part], x[..., -part:]], dim=-1)
+
+            def kfn():
+                out = kernel()
+                return torch.cat([out[..., :part], out[..., -part:]], dim=-1)
+        return (label, kfn, lambda: poseidon.hash_plain(xs, rate, domain, num_outputs),
+                (n_in + num_outputs) * 16 * 4 * lanes + consts_bytes[rate] if timed else None,
+                perms * poseidon_ops(rate + 1) * lanes, kernel)
+
+    check("fr_poseidon_permute", "snarkos_tpu_torch/csrc/fr_passes.cu",
           "snarkos_tpu/ops/modarith.py:171",
-          [permute_case(2, BATCH * 4096), permute_case(2, BATCH_WIDE * 4096),
-           permute_case(4, 4096)], poseidon.permute_kernel, big=True)
+          [sponge_case(2, 2, BATCH * 4096, 1, puzzle_mod.COEFF_DOMAIN),
+           sponge_case(2, 2, BATCH_WIDE * 4096, 1, puzzle_mod.COEFF_DOMAIN),
+           sponge_case(2, 2, 1 << PIPE_LOG, 1, entry_mod.DOMAIN, part=1 << 16),
+           permute_case(2, BATCH * 4096), permute_case(2, BATCH_WIDE * 4096),
+           permute_case(2, 1 << PIPE_LOG), permute_case(4, 4096),
+           sponge_case(4, 5, 4096, 3, "snarkos_tpu.test", timed=False)],
+          poseidon.sponge_kernel, big=True, plain_once=(f"permute (3, 16, {1 << PIPE_LOG})",))
 
-    # one step of the epoch program of the fixture's epoch at (16, B, 4096),
-    # every selector present, edge leaves 0, 1, p - 1
+    # the epoch program of the fixture's epoch, all 12 steps in one launch, at
+    # (16, B, 4096) for both prove_batch widths against 12 epoch_step_plain,
+    # every selector present at every step, edge leaves 0, 1, p - 1. The
+    # bound counts one product a lane a step, as the kernel runs it
     prog = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), 4096, dev)
+    prog_sels = prog.sels.reshape(puzzle_mod.EPOCH_STEPS, -1).contiguous()
+    sel_counts = [torch.bincount(row.long(), minlength=4).tolist() for row in prog_sels]
+    if min(min(c) for c in sel_counts) == 0:
+        raise AssertionError(f"epoch program: selectors a step {sel_counts}, not all four present")
 
-    def epoch_case(batch, step):
+    def epoch_case(batch):
         v = torch.from_numpy(FR.random(batch * 4096, rng).reshape(FR.nlimbs, batch, 4096)).to(dev)
         v[:, 0, :3] = torch.from_numpy(FR.encode_fast([0, 1, FR.p - 1], mont=True)).to(dev)
-        args = (v, prog.perms[step].contiguous(), prog.sels[step].reshape(-1).contiguous(),
-                prog.consts[step].contiguous())
-        counts = torch.bincount(args[2].long(), minlength=4).tolist()
-        if min(counts) == 0:
-            raise AssertionError(f"epoch step {step}: selectors {counts}, not all four present")
-        lanes = batch * 4096
-        return (f"(16, {batch}, 4096) step {step}", lambda: puzzle_mod.epoch_step_kernel(*args),
-                lambda: puzzle_mod.epoch_step_plain(*args),
-                (2 * 16 * lanes + 2 * 4096 + 16 * 4096) * 4,
-                (lanes + batch * counts[3]) * FR_MUL_OPS)
+        args = (v, prog.perms.contiguous(), prog_sels, prog.consts.contiguous())
+        return (f"(16, {batch}, 4096) x {puzzle_mod.EPOCH_STEPS} steps",
+                lambda: puzzle_mod.program_kernel(*args), lambda: prog.apply_plain(v),
+                2 * 16 * 4 * batch * 4096 + puzzle_mod.EPOCH_STEPS * 4096 * (4 + 4 + 16 * 4),
+                puzzle_mod.EPOCH_STEPS * batch * 4096 * FR_MUL_OPS)
 
-    check("fr_epoch_step", "snarkos_tpu_torch/csrc/mont_mul.cu",
+    check("fr_epoch_program", "snarkos_tpu_torch/csrc/fr_passes.cu",
           "snarkos_tpu/ops/modarith.py:171",
-          [epoch_case(BATCH, 0), epoch_case(BATCH_WIDE, 11)], puzzle_mod.epoch_step_kernel)
+          [epoch_case(BATCH), epoch_case(BATCH_WIDE)], puzzle_mod.program_kernel)
 
     def coords(p):
         return (p.x, p.y, p.z)
@@ -1550,7 +1647,7 @@ def main() -> int:
     address = fixture["address"]
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
     sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
-                    ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner_chain",
+                    ["mont_mul", "fr_poseidon_permute", "fr_epoch_program", "g1_horner_chain",
                      "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
                     absent=["g1_add", "jadd_bucket_total"],
                     exact={**PATH_LAUNCHES, **tail_counts(2, W6)},
@@ -1618,7 +1715,7 @@ def main() -> int:
     puzzle.prove_batch(epoch, address, nonces16)  # warm-up
     sols16 = run_path(f"prove_batch({BATCH_WIDE})",
                       lambda: puzzle.prove_batch(epoch, address, nonces16),
-                      ["mont_mul", "fr_poseidon_permute", "fr_epoch_step", "g1_horner_chain",
+                      ["mont_mul", "fr_poseidon_permute", "fr_epoch_program", "g1_horner_chain",
                        "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
                       absent=["bucket_scan_serial", "g1_add", "jadd_bucket_total"],
                       exact={**PATH_LAUNCHES, **tail_counts(2, W6)},
@@ -1718,13 +1815,13 @@ def main() -> int:
              for n, sol in zip(nonces[:VERIFY_BATCH], sols[:VERIFY_BATCH])]
     b1_per_binding = dict(PATH_LAUNCHES)
     ok = run_path("check_binding", lambda: puzzle.check_binding(*items[0][:5]),
-                  ["fr_poseidon_permute", "fr_epoch_step", "mont_mul"],
+                  ["fr_poseidon_permute", "fr_epoch_program", "mont_mul"],
                   absent=["g1_add", "bucket_scan_serial", "seg_prefix"],
                   exact=b1_per_binding, at_most={"mont_mul": MONT_MUL_MAX})
     if not ok:
         raise AssertionError("check_binding rejected a solution of prove_batch")
     ok = run_path(f"verify_batch({VERIFY_BATCH})", lambda: puzzle.verify_batch(items),
-                  ["fr_poseidon_permute", "fr_epoch_step", "bucket_scan_serial", "seg_prefix",
+                  ["fr_poseidon_permute", "fr_epoch_program", "bucket_scan_serial", "seg_prefix",
                    "g1_bucket_fixup", "g1_horner_chain"],
                   absent=["g1_add", "bucket_scan", "bucket_scan_fast", "jadd_bucket_total"],
                   exact={**{k: VERIFY_BATCH * v for k, v in b1_per_binding.items()},
@@ -2079,7 +2176,17 @@ def main() -> int:
                      ["fr_poseidon_permute", "fr_ntt_pass", "mont_mul"],
                      exact=only({"fr_poseidon_permute": 1, "mont_mul": 1,
                                  "fr_ntt_pass": len(ntt._pass_plan(PIPE_LOG))}))
-    coeffs22 = poseidon.hash_fixed(torch.stack([seed22, ctr22]), 2, domain=entry_mod.DOMAIN)[0]
+    # its sponge alone: one launch, and no torch op on the sponge's state
+    # (the output's allocation is the one operation dispatched)
+    inputs22 = torch.stack([seed22, ctr22])
+    coeffs22 = run_path(f"hash_fixed(2^{PIPE_LOG})",
+                        lambda: poseidon.hash_fixed(inputs22, 2, domain=entry_mod.DOMAIN),
+                        ["fr_poseidon_permute"], exact=only({"fr_poseidon_permute": 1}))[0]
+    sponge_ops = aten_ops(lambda: poseidon.hash_fixed(inputs22, 2, domain=entry_mod.DOMAIN))
+    if sponge_ops != SPONGE_OPS:
+        raise AssertionError(f"hash_fixed(2^{PIPE_LOG}) dispatched {sponge_ops}, want {SPONGE_OPS}")
+    log(f"hash_fixed(2^{PIPE_LOG}): one fr_poseidon_permute launch; torch ops {sponge_ops}")
+    del inputs22
     lanes = [0, 1, (1 << PIPE_LOG) - 1] + [prng.randrange(1 << PIPE_LOG) for _ in range(5)]
     for lane in lanes:
         sv, cv = (FR.decode_fast(t[:, lane:lane + 1].cpu().numpy(), mont=True)[0]
@@ -2314,7 +2421,7 @@ def main() -> int:
                       for k in kernels}
             seam_sols = run_path(f"seam prove_batch({BATCH})",
                                  lambda: in_worker(spz.prove_batch, epoch, address, nonces, None),
-                                 ["mont_mul", "fr_poseidon_permute", "fr_epoch_step",
+                                 ["mont_mul", "fr_poseidon_permute", "fr_epoch_program",
                                   "g1_horner_chain", "g1_bucket_fixup", "seg_prefix",
                                   "bucket_scan_serial"],
                                  absent=["g1_add", "bucket_scan", "bucket_scan_fast",

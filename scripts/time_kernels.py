@@ -93,7 +93,8 @@ def main() -> int:
     lanes = 8 * 4096
     state = torch.from_numpy(np.ascontiguousarray(
         FR.random(3 * lanes, rng).reshape(FR.nlimbs, 3, lanes).transpose(1, 0, 2))).to(dev)
-    if hasattr(_build.load("mont_mul"), "fr_poseidon_permute"):
+    if any(hasattr(_build.load(name), "fr_poseidon_permute")
+           for name in ("mont_mul", "fr_passes") if name in _build.SOURCES):
         out[f"fr_poseidon_permute (3, 16, {lanes})"] = ms(
             lambda: poseidon.permute_kernel(state, 2), 3)
 

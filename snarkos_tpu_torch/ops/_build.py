@@ -29,7 +29,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 SOURCES = ("mont_mul", "g1_add", "seg_prefix", "bucket_scan_serial", "bucket_scan",
-           "bucket_scan_fast", "jadd_scan", "ntt", "lane_scan", "window_tail")
+           "bucket_scan_fast", "jadd_scan", "ntt", "lane_scan", "window_tail", "fr_passes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,9 +3,9 @@
   prove_batch(epoch_hash, address, nonces):
     1. seed_i  = sha256(epoch_hash || address || nonce_i) mod r
     2. leaves  = Poseidon(seed_i, j) for j < K        counter-mode sponge (B1's
-                                                       fr_poseidon_permute)
+                                                       fr_poseidon_permute, 1 launch)
     3. coeffs  = EpochProgram(epoch_hash)(leaves)     the per-epoch relation (B1's
-                                                       fr_epoch_step, 12 launches)
+                                                       fr_epoch_program, 1 launch)
     4. C_i     = KZG commit = multi-MSM over the SRS  (B2, B3, and B4 up to
                                                        8 nonces at 2^12, B5 above)
     5. z_i     = Poseidon(C_i.x)                      host Fiat-Shamir challenge
@@ -51,6 +51,11 @@ CHALLENGE_DOMAIN = "snarkos_tpu.puzzle.challenge"
 
 DEFAULT_LOG_DEGREE = 12
 EPOCH_STEPS = 12
+# blocks a nonce in the one-launch epoch program: a cluster of 16 (a
+# non-portable size, which the H100 takes) puts 256 of the 4096 lanes on
+# each SM, so that prove_batch(8)'s 8 nonces use 128 SMs (a cluster of 8:
+# 64); scripts/sweep_fr_passes.py times both sizes
+EPOCH_CLUSTER = 16
 # the dev SRS's secret, known by construction (as in the JAX package)
 DEV_TAU = pow(params.FR_GENERATOR, 0xDEADBEEF, R)
 
@@ -163,33 +168,32 @@ def epoch_step_plain(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
         sb == 1, cand1, torch.where(sb == 2, cand2, cand3)))
 
 
-def epoch_step_kernel(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
-                      const: torch.Tensor) -> torch.Tensor:
-    """Launch ``fr_epoch_step`` (``csrc/mont_mul.cu``, kernel B1's Fr pass)
-    on int32 CUDA tensors; writes a new (L, B, K) tensor."""
-    L, B, K = v.shape if v.dim() == 3 else (None, None, None)
-    _build.check(v, (FR.nlimbs, B, K), "epoch_step v")
-    _build.check(perm, (K,), "epoch_step perm")
-    _build.check(sel, (K,), "epoch_step sel")
-    _build.check(const, (FR.nlimbs, K), "epoch_step const")
-    out = torch.empty_like(v)
+def program_kernel(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
+                   consts: torch.Tensor) -> torch.Tensor:
+    """Launch ``fr_epoch_program`` (``csrc/fr_passes.cu``, kernel B1's Fr
+    pass) on int32 CUDA tensors: every step of the program in one launch,
+    leaves (L, B, K), perms and sels (S, K), consts (S, L, K); writes a new
+    (L, B, K) tensor. A nonce is one cluster of ``EPOCH_CLUSTER`` blocks, K
+    a multiple of it with K / EPOCH_CLUSTER lanes' two buffers in a block's
+    shared memory."""
+    L, B, K = leaves.shape if leaves.dim() == 3 else (None, None, None)
+    S = perms.shape[0] if perms.dim() == 2 else None
+    _build.check(leaves, (FR.nlimbs, B, K), "epoch program leaves")
+    _build.check(perms, (S, K), "epoch program perms")
+    _build.check(sels, (S, K), "epoch program sels")
+    _build.check(consts, (S, FR.nlimbs, K), "epoch program consts")
+    if K % EPOCH_CLUSTER or 64 * (K // EPOCH_CLUSTER) > 227 * 1024:
+        raise ValueError(f"epoch program: K = {K} lanes in clusters of {EPOCH_CLUSTER} blocks")
+    out = torch.empty_like(leaves)
     if B and K:
-        fn = _build.entry("mont_mul", "fr_epoch_step", 5, 2)
-        _build.launch(fn, (v, perm, sel, const, out), (B, K), v.device)
-        epoch_step_kernel.launches += 1
+        fn = _build.entry("fr_passes", "fr_epoch_program", 5, 4)
+        _build.launch(fn, (leaves, perms, sels, consts, out), (B, K, S, EPOCH_CLUSTER),
+                      leaves.device)
+        program_kernel.launches += 1
     return out
 
 
-epoch_step_kernel.launches = 0
-
-
-def epoch_step(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
-               const: torch.Tensor) -> torch.Tensor:
-    """One step of the epoch program (``epoch_step_plain``): the kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
-    if v.device.type == "cpu":
-        return epoch_step_plain(v, perm, sel, const)
-    return epoch_step_kernel(*(t.to(torch.int32).contiguous() for t in (v, perm, sel, const)))
+program_kernel.launches = 0
 
 
 class EpochProgram:
@@ -220,10 +224,22 @@ class EpochProgram:
     def apply(self, leaves: torch.Tensor) -> torch.Tensor:
         """(L, B, K) Montgomery leaves -> (L, B, K) coefficients: per step a
         partner vector by the wiring permutation and one of four forms per
-        lane (v u + c, v^2 + u, v c - u, v^2 - u^2 + c), ``epoch_step``."""
+        lane (v u + c, v^2 + u, v c - u, v^2 - u^2 + c). One launch of
+        ``program_kernel`` on a CUDA tensor, ``apply_plain`` on a CPU
+        tensor."""
+        if leaves.device.type == "cpu":
+            return self.apply_plain(leaves)
+        k = self.perms.shape[-1]
+        return program_kernel(leaves.to(torch.int32).contiguous(),
+                              *(t.to(torch.int32).contiguous() for t in (
+                                  self.perms, self.sels.reshape(EPOCH_STEPS, k), self.consts)))
+
+    def apply_plain(self, leaves: torch.Tensor) -> torch.Tensor:
+        """Plain PyTorch version of ``apply``: ``epoch_step_plain`` once a
+        step, on any device."""
         v = leaves
         for s in range(EPOCH_STEPS):
-            v = epoch_step(v, self.perms[s], self.sels[s].reshape(-1), self.consts[s])
+            v = epoch_step_plain(v, self.perms[s], self.sels[s].reshape(-1), self.consts[s])
         return v
 
     def apply_host(self, leaves: list[int]) -> list[int]:
@@ -371,8 +387,8 @@ class Puzzle:
     def check_binding(self, epoch_hash: bytes, address: str, nonce: int,
                       commitment: bytes, eval_y: int) -> bool:
         """The epoch-relation binding: re-derive the coefficients of
-        (epoch_hash, address, nonce) on the device (B1's Poseidon permutation
-        and 12 epoch steps) and check eval_y == p(z) at the Fiat-Shamir
+        (epoch_hash, address, nonce) on the device (B1's Poseidon sponge
+        and epoch program) and check eval_y == p(z) at the Fiat-Shamir
         challenge z(C). With the pairing check, which proves the committed
         polynomial opens to eval_y at z, this forces the committed polynomial
         to be the epoch-derived one whp."""

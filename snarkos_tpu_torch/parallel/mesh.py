@@ -22,6 +22,7 @@ collide), and any rank that raises fails the whole call.
 
 from __future__ import annotations
 
+import datetime
 import os
 import shutil
 import tempfile
@@ -31,6 +32,10 @@ import torch
 import torch.distributed as dist
 
 from snarkos_tpu_torch.ops import _build
+
+# how long a spawned rank waits for the others at the rendezvous and in a
+# gloo collective before it fails (torch's default is 30 minutes)
+RANK_TIMEOUT_S = 300
 
 
 @dataclass(frozen=True)
@@ -132,7 +137,8 @@ def _rank_main(rank: int, fn, world: int, backend: str, device, tmp: str, args) 
     else:
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     out = fn(make_mesh(world, backend, dev), *args)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
