@@ -9,8 +9,8 @@ result line:
      nvcc per source, all at once (each kernel's registers and spills from
      ptxas, its local loads and stores counted in its SASS); the dev SRS of degree 2^20 built on the
      card (its first 2^20 points are the bases of phase 5).
-  2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute and
-     fr_epoch_program; B2 g1_add and its window-tail entry points
+  2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute,
+     fr_epoch_program and fr_epoch_program_global; B2 g1_add and its window-tail entry points
      g1_horner_chain and g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
      B6 bucket_scan_fast, B7 jadd_bucket_total; the generic engine's window
      g1_lane_buckets and g1_lane_bucket_carry) against its plain PyTorch
@@ -40,19 +40,26 @@ result line:
      carries planted. B1's sponge (fr_poseidon_permute) as hash_fixed runs
      it at b8, b16 and 2^22 (there lanes [0, 2^16) and the last 2^16
      compared), one permutation of a given state at (3, 16, 32768), (3, 16,
-     65536), (3, 16, 2^22) (its plain version once, timed by that call) and
+     65536), (3, 16, 2^22) (lanes [0, 2^16) and the last 2^16 compared) and
      (5, 16, 4096), edge states 0, 1, p - 1 in lanes 0-2, and the rate-4
-     sponge over 5 inputs squeezing 3; B1's epoch program
-     (fr_epoch_program, the 12 steps in one launch) at b8 and b16 against
-     12 epoch_step_plain, every selector present at every step.
+     sponge over 5 inputs squeezing 3; the widths of rates 1, 3 and 8: one
+     permutation at (t, 16, 2^16) and the sponge over rate + 1 inputs
+     squeezing rate + 1. B1's epoch program against 12 epoch_step_plain:
+     the cluster variant (fr_epoch_program) at (16, B, 4096) for b8 and b16,
+     at K = 1, 2, 8 and 24 (b8) and at its largest K, 58,112 (b1); the
+     global variant (fr_epoch_program_global) at (16, 8, 2^16) and (16, 2,
+     2^20) (its plain version once), and, launched directly, at the
+     cluster's (16, 8, 4096), (16, 8, 24) and (16, 1, 58112); with edge
+     leaves 0, 1, p - 1 and every selector at every step (at K < 4 every
+     selector at some step).
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
      of 3 at the 2^20 shapes, for the Poseidon permutation and the Horner
      chain), CUDA events
      around each run, which at small widths time the host's launch rate;
      beside it the device time a launch, the same run captured in one CUDA
-     graph and replayed (median of 7 replays); of 5 single calls
-     for its plain version (of 1 call after a warm-up at the 2^20 shapes, for
-     the permutation and the chain, where one takes seconds).
+     graph and replayed (median of 7 replays); of one call for its plain
+     version after the call whose output is compared (the permutation at
+     2^22 once, and compared on 2 x 2^16 lanes, as the sponge there).
   3. Puzzle(log_degree=12).prove_batch over 8 nonces on the card, checked
      byte for byte against tests/fixtures/torch_puzzle_k12_b8.json, against
      C = p(tau) G and W = q(tau) G computed on the host from the coefficients
@@ -64,6 +71,18 @@ result line:
   4. prove_batch over 16 nonces (the wide-chain engine, B5): nonces 0-7 equal
      to prove_batch(8), all 16 checked on the host as above plus solution_id
      = sha64(C || y); solutions/s at batch 16 (median of 3 after a warm-up).
+  4b. the prover at log degree 0-3 and 16 over 8 nonces and at 20 over 2
+     (Puzzle with phase 1's dev SRS): each prove_batch byte for byte equal
+     to tests/fixtures/torch_puzzle_k{LOG}_b{N}.json, launching every
+     kernel exactly as often as the path's structure gives (the epoch
+     program's variant by epoch_plan, B4 or B5 by width, the window tail
+     and three B3 prefixes a window, prove_mont_muls single multiplies);
+     verify_batch accepts its solutions and rejects one eval_y + 1;
+     solutions/s (median of 3 after a warm-up) and the peak device memory
+     recorded, not gated. Then kzg.commit and kzg.open_at over the first
+     2^20 dev SRS powers (msm.msm: the fast engine, B7) on the log-20
+     prover's nonce 0: C and W equal to prove_batch's, y to the host
+     poly_eval, launches exact; both timed (median of 3).
   5. one MSM of 2^20 points through msm.msm_affine (the fast engine B6, the
      bucket total B7): the result equals (sum k_i tau^i) G computed on the
      host; then with base 1 := base 0 and k_1 := k_0, where B6's flag fires
@@ -151,8 +170,11 @@ result line:
      same points) and prove_batch(8) again equals the fixture. uninstall()
      removes both entries. Solutions/s at batch 8 through the seam (median
      of 3 after a warm-up, from the worker) beside phase 3's; not gated.
+     Then global_puzzle(16) through the seam (its own dev SRS) proves
+     tests/fixtures/torch_puzzle_k16_b8.json byte for byte, launches exact.
  12. one JSON line with every kernel's numbers, then the result line.
-Every path runs with the launch counters set to 0 just before it and read
+Each phase's start is logged (seconds since the start, phase_s in the
+report). Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
 must launch on some path, but those of NO_PATH_YET (none now), which must
 not.
@@ -235,8 +257,17 @@ NTT_SWEEP_THREADS = (128, 256, 512)
 # B1's launches a prove_batch call (PERF.md): one sponge (the leaves), one
 # epoch program (all 12 steps), at most 80 single multiplies (KZG eval,
 # conversions)
-PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_program": 1}
+PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_program": 1, "fr_epoch_program_global": 0}
 MONT_MUL_MAX = 80
+# the prover at the other log degrees the node takes (phase 4b): (log
+# degree, nonces), each with its fixture tests/fixtures/torch_puzzle_k{LOG}_b{N}.json
+DEGREES = ((0, 8), (1, 8), (2, 8), (3, 8), (16, 8), (20, 2))
+# the cluster epoch program's small and uneven K (phase 2), and the
+# Poseidon widths held beside the prover's rates 2 and 4
+EPOCH_SMALL_K = (1, 2, 8, 24)
+# the largest K of the cluster variant: 16 blocks of 3632 lanes, 227 KiB each
+EPOCH_CLUSTER_MAX_K = 58112
+POSEIDON_MORE_RATES = (1, 3, 8)
 # what hash_fixed dispatches on the card: the output's allocation, nothing
 # on the sponge's state (phase 9)
 SPONGE_OPS = ["aten.empty.memory_format"]
@@ -266,6 +297,23 @@ def poseidon_ops(t: int) -> int:
     sbox = 4 * (FR_WIDE_SQR + FR_REDC) + FR_MUL_OPS
     row = t * FR_WIDE_MUL + FR_REDC
     return 8 * t * (sbox + row) + 31 * (sbox + row + (t - 1) * FR_MUL_OPS)
+
+
+def geometric_muls(m: int) -> int:
+    """mont_mul launches of ntt.geometric_powers(., m): bbits squarings and
+    bbits masked multiplies for the first block of 2^bbits powers, one
+    multiply a later block."""
+    if m == 1:
+        return 0
+    bbits = min(12, (m - 1).bit_length())
+    return 2 * bbits + -(-m // (1 << bbits)) - 1
+
+
+def prove_mont_muls(k: int) -> int:
+    """mont_mul launches of a prove_batch at K = k: to_mont of the counters,
+    from_mont of the coefficients and of the quotients, and the eval and
+    quotient's three multiplies and two power tables (54 at K = 4096)."""
+    return 6 + 2 * geometric_muls(k)
 
 
 def sponge_permutations(rate: int, n_in: int, num_outputs: int) -> int:
@@ -546,6 +594,13 @@ def _dist_rank(mesh, tmp, counters, reps):
 
 
 T_START = time.perf_counter()
+PHASE_S = {}
+
+
+def phase(label: str) -> None:
+    """Log and keep the seconds since the start at which a phase begins."""
+    PHASE_S[label] = time.perf_counter() - T_START
+    log(f"[{PHASE_S[label]:.1f} s] phase {label}")
 
 
 def main() -> int:
@@ -575,6 +630,7 @@ def main() -> int:
     report = {}
 
     # -- 1. environment and build ---------------------------------------------
+    phase("1")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -678,9 +734,10 @@ def main() -> int:
               compare=None, library=None, plain_once=()):
         """cases: [(label, kernel_fn, plain_fn, nbytes, nops[, timed_fn])],
         ``timed_fn`` timed in place of kernel_fn if given, a case with nbytes
-        None compared and not timed (the first case is timed); ``big``: time
-        7 runs of 3 launches and one plain call after a warm-up (else 7 runs of
-        20 and 5 plain calls), and the device time over as many launches as a
+        None compared and not timed, its plain version run once (the first
+        case is timed); a timed case's plain version runs once for its output
+        and once more, timed (CUDA events); ``big``: time 7 runs of 3 launches
+        (else 7 runs of 20), and the device time over as many launches as a
         run; ``verify``
         checks the kernel's output beyond the comparison with the plain one;
         ``exact=False`` compares projectively (``affine_err``), ``compare``
@@ -702,8 +759,16 @@ def main() -> int:
             elif pfn not in plain_runs:
                 want = pfn()
                 torch.cuda.synchronize()
-                plain_runs[pfn] = (want, cuda_ms(pfn, 1 if big else 5))
+                plain_runs[pfn] = (want, None)
             want, plain_ms = plain_runs[pfn]
+            if plain_ms is None and nbytes is not None:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                pfn()
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms = start.elapsed_time(end)
+                plain_runs[pfn] = (want, plain_ms)
             got = kfn()
             torch.cuda.synchronize()
             if compare is not None:
@@ -740,6 +805,7 @@ def main() -> int:
                         "library_ms": library_ms, "shapes": shapes})
 
     # -- 2. kernels against their plain versions at the path's shapes ----------
+    phase("2")
     n = BATCH * 4096
     b1 = []
     for spec, ops, width in ((FR, FR_MUL_OPS, n), (FQ, FQ_MUL_OPS, n), (FQ, FQ_MUL_OPS, 1 << 20)):
@@ -757,8 +823,10 @@ def main() -> int:
     # of a given state at the leaves' widths, at 2^22 and at rate 4, with the
     # edge states (0, 1, p - 1 in every slot) in lanes 0-2; and, compared
     # only, the sponge over 5 inputs squeezing 3 at rate 4 (two absorbs, two
-    # squeezes). The bound counts the 32-bit multiplies of the form the
-    # kernel runs (poseidon_ops).
+    # squeezes). The widths of rates 1, 3 and 8 (t = 2, 4, 9): one
+    # permutation at 2^16 lanes, and the sponge over rate + 1 inputs squeezing
+    # rate + 1 (two absorbs, two squeezes), compared only. The bound counts
+    # the 32-bit multiplies of the form the kernel runs (poseidon_ops).
     def fr_state(t, lanes):
         x = torch.from_numpy(np.ascontiguousarray(
             FR.random(t * lanes, rng).reshape(FR.nlimbs, t, lanes).transpose(1, 0, 2))).to(dev)
@@ -768,12 +836,27 @@ def main() -> int:
 
     consts_bytes = {r: poseidon.kernel_consts(r).numel() * 4 for r in poseidon.KERNEL_RATES}
 
-    def permute_case(rate, lanes):
+    def permute_case(rate, lanes, part=None):
+        """``part``: compare the lanes [0, part) and [lanes - part, lanes)
+        only (the plain permutation at 2^22 takes tens of seconds a call)."""
         t = rate + 1
         st = fr_state(t, lanes)
-        return (f"permute ({t}, 16, {lanes})", lambda: poseidon.permute_kernel(st, rate),
-                lambda: poseidon.permute_plain(st, rate),
-                2 * t * 16 * 4 * lanes + consts_bytes[rate], poseidon_ops(t) * lanes)
+        label = f"permute ({t}, 16, {lanes})"
+
+        def kernel():
+            return poseidon.permute_kernel(st, rate)
+
+        if part is None:
+            kfn, xs = kernel, st
+        else:
+            label += f", lanes [0, {part}) and [{lanes - part}, {lanes}) compared"
+            xs = torch.cat([st[..., :part], st[..., -part:]], dim=-1)
+
+            def kfn():
+                out = kernel()
+                return torch.cat([out[..., :part], out[..., -part:]], dim=-1)
+        return (label, kfn, lambda: poseidon.permute_plain(xs, rate),
+                2 * t * 16 * 4 * lanes + consts_bytes[rate], poseidon_ops(t) * lanes, kernel)
 
     def sponge_case(rate, n_in, lanes, num_outputs, domain, timed=True, part=None):
         """``part``: compare the lanes [0, part) and [lanes - part, lanes)
@@ -804,9 +887,12 @@ def main() -> int:
            sponge_case(2, 2, BATCH_WIDE * 4096, 1, puzzle_mod.COEFF_DOMAIN),
            sponge_case(2, 2, 1 << PIPE_LOG, 1, entry_mod.DOMAIN, part=1 << 16),
            permute_case(2, BATCH * 4096), permute_case(2, BATCH_WIDE * 4096),
-           permute_case(2, 1 << PIPE_LOG), permute_case(4, 4096),
-           sponge_case(4, 5, 4096, 3, "snarkos_tpu.test", timed=False)],
-          poseidon.sponge_kernel, big=True, plain_once=(f"permute (3, 16, {1 << PIPE_LOG})",))
+           permute_case(2, 1 << PIPE_LOG, part=1 << 16), permute_case(4, 4096),
+           sponge_case(4, 5, 4096, 3, "snarkos_tpu.test", timed=False),
+           *(permute_case(r, 1 << 16) for r in POSEIDON_MORE_RATES),
+           *(sponge_case(r, r + 1, 4096, r + 1, "snarkos_tpu.test", timed=False)
+             for r in POSEIDON_MORE_RATES)],
+          poseidon.sponge_kernel, big=True)
 
     # the epoch program of the fixture's epoch, all 12 steps in one launch, at
     # (16, B, 4096) for both prove_batch widths against 12 epoch_step_plain,
@@ -827,9 +913,59 @@ def main() -> int:
                 2 * 16 * 4 * batch * 4096 + puzzle_mod.EPOCH_STEPS * 4096 * (4 + 4 + 16 * 4),
                 puzzle_mod.EPOCH_STEPS * batch * 4096 * FR_MUL_OPS)
 
+    def epoch_case_k(k, batch, plain_label=None, kernel=None):
+        """The program of the fixture's epoch at K = k lanes over ``batch``
+        nonces: edge leaves 0, 1, p - 1 in lanes 0-2 of nonce 0 and in lane 0
+        of nonces 0-2; the selectors of lanes 0-3 set to 0-3 at every step
+        (for K < 4: lane k's at step s to (s + k) mod 4, every selector at some
+        step). The kernel is the one epoch_plan(k) names unless ``kernel``
+        gives a variant's wrapper; the plain version 12 epoch_step_plain."""
+        kernel = kernel or puzzle_mod.program_kernel
+        pk = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), k, dev)
+        sels = pk.sels.reshape(puzzle_mod.EPOCH_STEPS, k).clone()
+        if k >= 4:
+            sels[:, :4] = torch.arange(4, dtype=torch.int32, device=dev)
+        else:
+            sels = (torch.arange(puzzle_mod.EPOCH_STEPS, device=dev).unsqueeze(1)
+                    + torch.arange(k, device=dev)).remainder(4).to(torch.int32)
+        pk = puzzle_mod.EpochProgram.from_tensors(pk.epoch_hash, pk.perms.contiguous(),
+                                                  sels.reshape(puzzle_mod.EPOCH_STEPS, 1, k),
+                                                  pk.consts.contiguous())
+        v = torch.from_numpy(FR.random(batch * k, rng).reshape(FR.nlimbs, batch, k)).to(dev)
+        edges = torch.from_numpy(FR.encode_fast([0, 1, FR.p - 1], mont=True)).to(dev)
+        v[:, 0, :min(3, k)] = edges[:, :min(3, k)]
+        v[:, :min(3, batch), 0] = edges[:, :min(3, batch)]
+        args = (v, pk.perms, sels.contiguous(), pk.consts)
+        if kernel is puzzle_mod.program_kernel_cluster:
+            args += (puzzle_mod.epoch_plan(k)[1],)
+        return (plain_label or f"(16, {batch}, {k}) x {puzzle_mod.EPOCH_STEPS} steps",
+                lambda: kernel(*args), lambda: pk.apply_plain(v),
+                2 * 16 * 4 * batch * k + puzzle_mod.EPOCH_STEPS * k * (4 + 4 + 16 * 4),
+                puzzle_mod.EPOCH_STEPS * batch * k * FR_MUL_OPS)
+
+    for k in EPOCH_SMALL_K + (EPOCH_CLUSTER_MAX_K, EPOCH_CLUSTER_MAX_K + 1, 1 << 16, 1 << 20):
+        want = "cluster" if k <= EPOCH_CLUSTER_MAX_K else "global"
+        if puzzle_mod.epoch_plan(k)[0] != want:
+            raise AssertionError(f"epoch_plan({k}) = {puzzle_mod.epoch_plan(k)}, not {want}")
     check("fr_epoch_program", "snarkos_tpu_torch/csrc/fr_passes.cu",
           "snarkos_tpu/ops/modarith.py:171",
-          [epoch_case(BATCH), epoch_case(BATCH_WIDE)], puzzle_mod.program_kernel)
+          [epoch_case(BATCH), epoch_case(BATCH_WIDE),
+           *(epoch_case_k(k, BATCH) for k in EPOCH_SMALL_K), epoch_case_k(EPOCH_CLUSTER_MAX_K, 1)],
+          puzzle_mod.program_kernel_cluster)
+    # the global variant at log degree 16 over 8 nonces and 20 over 2 (one
+    # cooperative launch, the lanes in two global buffers), its plain version
+    # at 2^20 once; and, beside the cluster variant, at the cluster's shapes
+    # (16, 8, 4096), (16, 8, 24) and (16, 1, 58112), launched directly. The
+    # bound counts, as for the cluster variant, the leaves and the
+    # coefficients once and the program's tensors once
+    label20 = f"(16, 2, {1 << 20}) x {puzzle_mod.EPOCH_STEPS} steps"
+    glob = puzzle_mod.program_kernel_global
+    check("fr_epoch_program_global", "snarkos_tpu_torch/csrc/fr_passes.cu",
+          "snarkos_tpu/ops/modarith.py:171",
+          [epoch_case_k(1 << 16, BATCH), epoch_case_k(1 << 20, 2, label20),
+           epoch_case_k(4096, BATCH, kernel=glob), epoch_case_k(24, BATCH, kernel=glob),
+           epoch_case_k(EPOCH_CLUSTER_MAX_K, 1, kernel=glob)],
+          puzzle_mod.program_kernel_global, big=True, plain_once=(label20,))
 
     def coords(p):
         return (p.x, p.y, p.z)
@@ -1636,6 +1772,7 @@ def main() -> int:
     W4 = -(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(2 * VERIFY_BATCH + 1))
 
     # -- 3. the prover at batch 8 ---------------------------------------------------
+    phase("3")
     t0 = time.perf_counter()
     puzzle = Puzzle(log_degree=fixture["log_degree"])
     torch.cuda.synchronize()
@@ -1709,6 +1846,7 @@ def main() -> int:
     report.update(srs_build_s=srs_s, prove_batch8_s=times8, solutions_per_s=sps8)
 
     # -- 4. the prover at batch 16: the wide-chain engine (B5) ---------------------
+    phase("4")
     nonces16 = list(range(BATCH_WIDE))
     if nonces16[:BATCH] != nonces:
         raise AssertionError("the fixture's nonces are not 0-7")
@@ -1727,7 +1865,128 @@ def main() -> int:
     times16, sps16 = solutions_per_s(nonces16)
     report.update(prove_batch16_s=times16, solutions_per_s_b16=sps16)
 
+    # -- 4b. the prover at the other log degrees the node takes, and KZG at 2^20 -----
+    phase("4b")
+
+    def prove_counts(ld, nb):
+        """Every kernel's launches in a prove_batch over nb nonces at K =
+        2^ld: one sponge, one epoch program of the variant epoch_plan(K)
+        names, prove_mont_muls(K) single multiplies; the two multi-MSMs at c
+        = fused_window_bits(K), W windows: a chain scan a window (B4 on
+        serial chains, nb K <= SERIAL_MAX_N, else B5), three B3 prefixes a
+        window (the chain carries, the two suffix scans), the window tail;
+        nothing else."""
+        k = 1 << ld
+        w = -(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(k))
+        serial = nb * k <= msm_kernels.SERIAL_MAX_N
+        cluster = puzzle_mod.epoch_plan(k)[0] == "cluster"
+        return {**{kern["name"]: 0 for kern in kernels}, "mont_mul": prove_mont_muls(k),
+                "fr_poseidon_permute": 1, "fr_epoch_program": int(cluster),
+                "fr_epoch_program_global": int(not cluster),
+                "bucket_scan_serial" if serial else "bucket_scan": 2 * w, "seg_prefix": 6 * w,
+                **tail_counts(2, w)}
+
+    def fixture_rows(sols):
+        return [(s.commitment.hex(), str(s.eval_y), s.witness.hex(), str(s.solution_id))
+                for s in sols]
+
+    degree_report, prover20 = {}, None
+    for ld, nb in DEGREES:
+        name = f"torch_puzzle_k{ld}_b{nb}.json"
+        with open(os.path.join(HERE, "tests", "fixtures", name)) as fh:
+            fx = json.load(fh)
+        pz = Puzzle(log_degree=ld, srs=srs)  # phase 1's dev SRS, its first 2^ld + 1 powers
+        ep, addr = bytes.fromhex(fx["epoch_hash"]), fx["address"]
+        ns = [row["nonce"] for row in fx["solutions"]]
+        if len(ns) != nb:
+            raise AssertionError(f"{name}: {len(ns)} nonces, not {nb}")
+        t0 = time.perf_counter()
+        pz.prove_batch(ep, addr, ns)  # warm-up: the epoch's program, the kernels' first calls
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = prove_counts(ld, nb)
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        label = f"prove_batch({nb}) at 2^{ld}"
+        got = run_path(label, lambda: pz.prove_batch(ep, addr, ns),
+                       [k for k, v in counts.items() if v], exact=counts)
+        peak = torch.cuda.max_memory_allocated()
+        want = [(r["commitment"], r["eval_y"], r["witness"], r["solution_id"])
+                for r in fx["solutions"]]
+        if fixture_rows(got) != want:
+            raise AssertionError(f"{label}: the solutions differ from tests/fixtures/{name}")
+        items = [(ep, addr, n, sol.commitment, sol.eval_y, sol.witness, 1)
+                 for n, sol in zip(ns, got)]
+        t0 = time.perf_counter()
+        ok = pz.verify_batch(items)
+        verify_s = time.perf_counter() - t0
+        tampered = list(items)
+        tampered[0] = items[0][:4] + ((items[0][4] + 1) % params.FR_MODULUS,) + items[0][5:]
+        if not ok or pz.verify_batch(tampered):
+            raise AssertionError(f"verify_batch at 2^{ld}: accepts {ok}, or eval_y + 1 passed")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pz.prove_batch(ep, addr, ns)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        degree_report[ld] = {"nonces": nb, "first_s": first_s, "prove_s": times,
+                             "solutions_per_s": nb / med, "peak_bytes": peak,
+                             "allocated_before_bytes": base_mem, "verify_batch_s": verify_s,
+                             "epoch_variant": puzzle_mod.epoch_plan(1 << ld)[0]}
+        log(f"{label} == tests/fixtures/{name} byte for byte ({degree_report[ld]['epoch_variant']} "
+            f"epoch program); verify_batch accepts ({verify_s:.2f} s), rejects eval_y + 1; "
+            f"median {med:.3f} s of {[round(t, 3) for t in times]} -> {nb / med:.3f} "
+            f"solutions/s, first call {first_s:.2f} s; peak {peak / 2**30:.3f} GiB "
+            f"({base_mem / 2**30:.3f} GiB allocated before) on {smi}")
+        if ld == 20:
+            prover20 = (pz, got, ep, addr)
+        del pz
+
+    # KZG commit and open at degree 2^20 (msm.msm over the first 2^20 dev SRS
+    # powers: affine bases, the fast engine B6 with B7's bucket totals) on
+    # the log-20 prover's nonce 0: its commitment and witness are
+    # prove_batch's (the fused multi-MSM over the same points), y the host
+    # poly_eval
+    pz20, sols20, ep20, addr20 = prover20
+    k20 = 1 << 20
+    coeffs20 = pz20.coefficients(ep20, addr20, [0])[:, 0].contiguous()
+    w20 = -(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(k20))
+    single = {"bucket_scan_fast": w20, "jadd_bucket_total": w20, "seg_prefix": w20,
+              **tail_counts(1, w20)}
+    zero = {kern["name"]: 0 for kern in kernels}
+    commit_pt = run_path("kzg.commit(2^20)", lambda: kzg.commit(srs.points, coeffs20),
+                         list(single), exact={**zero, **single, "mont_mul": 1})
+    c_bytes = puzzle_mod._g1_to_bytes(g1.decode_points(commit_pt)[0])
+    z20 = pz20._challenge(c_bytes)
+    y20, wit_pt = run_path("kzg.open_at(2^20)", lambda: kzg.open_at(srs.points, coeffs20, z20),
+                           list(single),
+                           exact={**zero, **single, "mont_mul": 4 + 2 * geometric_muls(k20)})
+    host_y = ref_ntt.poly_eval(FR.decode_fast(coeffs20.cpu().numpy(), mont=True), z20)
+    if c_bytes != sols20[0].commitment or \
+            puzzle_mod._g1_to_bytes(g1.decode_points(wit_pt)[0]) != sols20[0].witness:
+        raise AssertionError("kzg.commit / open_at at 2^20 differ from prove_batch's C and W")
+    if not y20 == host_y == sols20[0].eval_y:
+        raise AssertionError("kzg.open_at's y at 2^20 is not the host poly_eval")
+    kzg_s = {}
+    for what, fn in (("commit", lambda: kzg.commit(srs.points, coeffs20)),
+                     ("open_at", lambda: kzg.open_at(srs.points, coeffs20, z20))):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        kzg_s[what] = times
+    log(f"kzg.commit / open_at at 2^20 == prove_batch(2) at 2^20's C and W for nonce 0, y == "
+        f"the host poly_eval; median commit {statistics.median(kzg_s['commit']):.3f} s, "
+        f"open_at {statistics.median(kzg_s['open_at']):.3f} s on {smi}")
+    report.update(degrees=degree_report, kzg20_s=kzg_s)
+    del pz20, prover20, coeffs20
+
     # -- 5. the 2^20 single MSM: fast engine (B6), bucket total (B7), rerun (B5) ------
+    phase("5")
     r = params.FR_MODULUS
     ks = FR.decode_fast(big_scalars.cpu().numpy())
 
@@ -1779,6 +2038,7 @@ def main() -> int:
     report.update(msm_s=times, msm_points_per_s=N / med)
 
     # -- 6. the generic engine: 2^16 Jacobian bases (the lane scan, B3, B7, B2's chain) -
+    phase("6")
     ks_g = FR.decode_fast(gen_scalars)
     s_gen, tau_i = 0, 1  # sum over the non-identity lanes of k_i tau^i
     for i, k in enumerate(ks_g):
@@ -1811,6 +2071,7 @@ def main() -> int:
     report.update(generic_msm_s=times, generic_points_per_s=NG / med)
 
     # -- 7. the verifier: a block's solutions ---------------------------------------
+    phase("7")
     items = [(epoch, address, n, sol.commitment, sol.eval_y, sol.witness, 1)
              for n, sol in zip(nonces[:VERIFY_BATCH], sols[:VERIFY_BATCH])]
     b1_per_binding = dict(PATH_LAUNCHES)
@@ -1895,6 +2156,7 @@ def main() -> int:
                   batch_verify4_identity_s=bvi_s, pairing_check_s=pair_s)
 
     # -- 8. the SRS artifact: save, load through the consistency check ---------------
+    phase("8")
     art_dir = os.path.join(HERE, "build", "srs")
     os.makedirs(art_dir, exist_ok=True)
     art = os.path.join(art_dir, "dev12.srs")
@@ -1928,6 +2190,7 @@ def main() -> int:
     report.update(from_artifact_s=art_s)
 
     # -- 9. the NTT over Fr (B1's fr_ntt_pass) and the pipeline -------------------------
+    phase("9")
     P = FR.p
     edge_limbs = torch.from_numpy(FR.encode_fast([0, 1, P - 1, P - 2], mont=True)).to(dev)
     inv2 = torch.from_numpy(FR.encode_fast([pow(2, -1, P)], mont=True)).to(dev)
@@ -2219,6 +2482,7 @@ def main() -> int:
                           "steps_median_ms": steps}
 
     # -- 10. the multi-device layer: world 1 over NCCL, world 2 over gloo ---------------
+    phase("10")
     dist_report = {}
     tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
     try:
@@ -2384,6 +2648,7 @@ def main() -> int:
     report["dist"] = dist_report
 
     # -- 11. the node seam: the JAX node's device imports answered by the port --------
+    phase("11")
     def fixture_match(label, got_sols):
         got = [(s.commitment.hex(), str(s.eval_y), s.witness.hex(), str(s.solution_id))
                for s in got_sols]
@@ -2521,6 +2786,31 @@ def main() -> int:
             log(f"with SNARKOS_TPU_SRS_PATH set, the seam's global_puzzle(12) loads the artifact "
                 f"in {seam_report['global_puzzle_artifact_s']:.2f} s: is_dev False, the same "
                 "points and tau H")
+
+            # a Prover started with --puzzle-log-degree 16: global_puzzle(16),
+            # the first log degree the card refused before the global epoch
+            # program, builds its own dev SRS and proves the k16 fixture's nonces
+            with open(os.path.join(HERE, "tests", "fixtures", "torch_puzzle_k16_b8.json")) as fh:
+                fx16 = json.load(fh)
+            t0 = time.perf_counter()
+            spz16 = pz_facade.global_puzzle(16)
+            torch.cuda.synchronize()
+            seam_report["global_puzzle16_s"] = time.perf_counter() - t0
+            if spz16 is not puzzle_mod._PUZZLE or spz16.log_degree != 16 or not spz16.srs.is_dev:
+                raise AssertionError("the seam's global_puzzle(16) is not the port's log-16 instance")
+            got16 = run_path("seam prove_batch(8) at 2^16",
+                             lambda: in_worker(spz16.prove_batch, bytes.fromhex(fx16["epoch_hash"]),
+                                               fx16["address"], list(range(8)), None),
+                             ["fr_epoch_program_global"], exact=prove_counts(16, 8))
+            if fixture_rows(got16) != [(r["commitment"], r["eval_y"], r["witness"],
+                                        r["solution_id"]) for r in fx16["solutions"]]:
+                raise AssertionError("the seam's global_puzzle(16).prove_batch differs from "
+                                     "tests/fixtures/torch_puzzle_k16_b8.json")
+            puzzle_mod._PUZZLE = None
+            del spz16
+            log(f"the seam's global_puzzle(16) (its dev SRS built in "
+                f"{seam_report['global_puzzle16_s']:.2f} s) proves "
+                "tests/fixtures/torch_puzzle_k16_b8.json byte for byte on the global epoch program")
     finally:
         node_seam.uninstall()
     if {name: sys.modules.get(name) for name in seam_names} != seam_before:
@@ -2529,6 +2819,7 @@ def main() -> int:
     report["seam"] = seam_report
 
     # -- 12. output -----------------------------------------------------------------
+    phase("12")
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:
@@ -2544,6 +2835,7 @@ def main() -> int:
     line = {"kernels": [{k: v for k, v in kern.items() if k != "shapes"} for kern in kernels]}
     report["kernels"] = kernels
     report["wall_s"] = time.perf_counter() - T_START
+    report["phase_s"] = PHASE_S
     log(f"chip_smoke: {report['wall_s']:.1f} s in all")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

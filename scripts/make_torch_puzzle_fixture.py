@@ -1,7 +1,9 @@
-"""Golden puzzle solutions at degree 2^12 for the PyTorch port's chip check.
+"""Golden puzzle solutions for the PyTorch port's tests and chip check.
 
 Builds (commitment hex, eval_y, witness hex, solution_id) for epoch
-b"\\x01" * 32, address "aleo1benchprover", nonces 0-7 from the JAX package's
+b"\\x01" * 32, address "aleo1benchprover", nonces 0 .. N - 1 (N = 8 unless
+``--nonces`` says otherwise) at degree 2^LOG (12 unless ``--log-degree``
+says otherwise) from the JAX package's
 host reference of the prover pipeline (the one tests/test_puzzle.py builds):
 host Poseidon leaves, ``EpochProgram.apply_host``, the Fiat-Shamir challenge,
 and the KZG commitment and witness. Because the dev SRS's tau is known, the
@@ -9,13 +11,17 @@ commitment sum_i c_i (tau^i G) is computed as p(tau) G and the witness as
 q(tau) G with q(tau) = (p(tau) - y) / (tau - z): the same group elements as
 the reference's MSMs, at one scalar multiplication each.
 
-    python scripts/make_torch_puzzle_fixture.py [out.json]
+    python scripts/make_torch_puzzle_fixture.py [--log-degree LOG] [--nonces N] [out.json]
 
-Writes tests/fixtures/torch_puzzle_k12_b8.json by default, in seconds on a
-CPU with the repository's native Poseidon library (2.6 s measured on an
-8-core x86 CPU).
+Writes tests/fixtures/torch_puzzle_k{LOG}_b{N}.json by default. With the
+repository's native Poseidon library on an 8-core x86 CPU: the default
+(2^12, 8 nonces) in 2.6 s; the committed fixtures at log degree 0-3 (8
+nonces) in seconds, 16 (8 nonces) and 20 (2 nonces) in minutes, the time
+going to the host epoch program and the leaves. At log degree 0 the
+quotient is 0 and the witness is the identity.
 """
 
+import argparse
 import json
 import os
 import sys
@@ -29,15 +35,13 @@ from snarkos_tpu.ops.puzzle import (COEFF_DOMAIN, EpochProgram, Puzzle, _g1_to_b
                                     sha64)
 
 R = params.FR_MODULUS
-LOG_DEGREE = 12
 EPOCH_HASH = b"\x01" * 32
 ADDRESS = "aleo1benchprover"
-NONCES = list(range(8))
 TAU = pow(params.FR_GENERATOR, 0xDEADBEEF, R)  # snarkos_tpu/ops/puzzle.py:129
 
 
-def solution(prog: EpochProgram, nonce: int) -> dict:
-    k = 1 << LOG_DEGREE
+def solution(prog: EpochProgram, log_degree: int, nonce: int) -> dict:
+    k = 1 << log_degree
     seed = Puzzle._seed_field(None, EPOCH_HASH, ADDRESS, nonce)
     leaves = [ref_poseidon.hash_many([seed, i], rate=2, domain=COEFF_DOMAIN)[0]
               for i in range(k)]
@@ -54,13 +58,18 @@ def solution(prog: EpochProgram, nonce: int) -> dict:
 
 
 def main() -> None:
-    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--log-degree", type=int, default=12)
+    ap.add_argument("--nonces", type=int, default=8, help="nonces 0 .. N - 1")
+    ap.add_argument("out", nargs="?", help="default tests/fixtures/torch_puzzle_k{LOG}_b{N}.json")
+    args = ap.parse_args()
+    out = args.out or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", "tests", "fixtures",
-        "torch_puzzle_k12_b8.json")
+        f"torch_puzzle_k{args.log_degree}_b{args.nonces}.json")
     t0 = time.time()
-    prog = EpochProgram(EPOCH_HASH, 1 << LOG_DEGREE)
-    rows = [solution(prog, n) for n in NONCES]
-    doc = {"log_degree": LOG_DEGREE, "epoch_hash": EPOCH_HASH.hex(), "address": ADDRESS,
+    prog = EpochProgram(EPOCH_HASH, 1 << args.log_degree)
+    rows = [solution(prog, args.log_degree, n) for n in range(args.nonces)]
+    doc = {"log_degree": args.log_degree, "epoch_hash": EPOCH_HASH.hex(), "address": ADDRESS,
            "solutions": rows}
     with open(out, "w") as fh:
         json.dump(doc, fh, indent=1)

@@ -72,7 +72,7 @@ VARIANTS = {
          "#pragma unroll\n    for (int i = 0; i < T; ++i) {\n        add<Fr>(s[0]"),
         ("#pragma unroll 1\n    for (int i = 0; i < T; ++i) {\n        dot_row",
          "#pragma unroll\n    for (int i = 0; i < T; ++i) {\n        dot_row")],
-    "no prefetch": [("        if (threadIdx.x < kb && s + 1 < steps) {",
+    "no prefetch": [("        if (threadIdx.x < nb && s + 1 < steps) {",
                      "        if (false) {")],
 }
 PERMUTE_SHAPES = ((2, 32768), (2, 65536), (2, 1 << 22), (4, 4096))  # (rate, lanes)

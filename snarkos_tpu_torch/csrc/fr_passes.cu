@@ -5,8 +5,13 @@
 //                        one lane a thread, the state in registers;
 //   fr_epoch_program     all steps of the epoch program of ops/puzzle.py
 //                        (EpochProgram.apply), one cluster of blocks a
-//                        nonce (16 on the prover's path), the nonce's state
-//                        in the cluster's shared memory.
+//                        nonce (16 from K = 16 lanes on), the nonce's state
+//                        in the cluster's shared memory, for K up to 58,112
+//                        lanes (ops/puzzle.py: epoch_plan);
+//   fr_epoch_program_global  the same steps for any K (the prover's path
+//                        takes it above 58,112 lanes, log degree 16 and
+//                        up): one cooperative launch, the lanes in two
+//                        global buffers, a grid barrier a step.
 //
 // Replace the TPU kernel snarkos_tpu/ops/modarith.py `_mont_mul_pallas`
 // (lines 171-208) where the JAX package runs these passes as XLA-fused
@@ -24,7 +29,10 @@
 // (scripts/sweep_fr_passes.py). The epoch program: one product a lane a
 // step before the bytes, and at the prover's widths the latency of its 12
 // dependent steps (a remote load, a product, a cluster barrier); the design
-// keeps the state on chip between the steps.
+// keeps the state on chip between the steps. In global memory (large K) a
+// step reads each lane, its partner and its constant and writes the lane:
+// 32-byte lines, the partners at random; at 8 x 2^16 lanes the two buffers
+// (32 MiB) stay in L2, at 2 x 2^20 (128 MiB) the partner reads go to HBM.
 #include <cooperative_groups.h>
 
 #include "field.cuh"
@@ -200,13 +208,14 @@ __device__ __forceinline__ void fr_sqr(uint32_t* r, const uint32_t* a) {
 }
 
 // r = sum_j m[j] s[j] R^-1 mod p, the T products summed unreduced and
-// reduced once: for T <= 5 the sum is below T (p - 1)^2 < p R (Fr has 253
-// bits; tests/test_torch_fr_passes_b1.py checks the bound), as redc_wide
-// needs. m: T constants (shared memory), s: T state slots (registers).
+// reduced once: for T <= 13 the sum is below T (p - 1)^2 < p R (Fr has 253
+// bits, R / p = 13.7; tests/test_torch_fr_passes_b1.py checks the bound and
+// that it fails at 14), as redc_wide needs. m: T constants (shared memory),
+// s: T state slots (registers).
 template <int T>
 __device__ __forceinline__ void dot_row(uint32_t* r, const uint32_t (*m)[FN],
                                         const uint32_t (*s)[FN]) {
-    static_assert(T <= 5, "the lazy row's bound holds for t <= 5");
+    static_assert(T <= 13, "the lazy row's bound holds for t <= 13");
     uint32_t acc[WIDE];
     mul_wide(acc, s[0], m[0]);
 #pragma unroll
@@ -404,10 +413,10 @@ static int launch_poseidon(const int32_t* state, const int32_t* inputs, const in
     return static_cast<int>(cudaGetLastError());
 }
 
-// t = rate + 1 state slots: the rates 2 and 4 (the prover's leaves, the
-// pipeline and the challenge use 2); any other width is refused. state null:
-// the sponge (inputs, domain, n_in, n_out >= 1); else one permutation (n_in
-// 0, n_out t).
+// t = rate + 1 state slots, t = 2 .. 9: the rates 1 - 8 (snarkVM's
+// Poseidon2, 4 and 8 among them; the prover's leaves, the pipeline and the
+// challenge use 2); any other width is refused. state null: the sponge
+// (inputs, domain, n_in, n_out >= 1); else one permutation (n_in 0, n_out t).
 extern "C" int fr_poseidon_permute(const int32_t* state, const int32_t* inputs,
                                    const int32_t* domain, const int32_t* consts, int32_t* out,
                                    int64_t B, int64_t t, int64_t n_in, int64_t n_out,
@@ -416,10 +425,18 @@ extern "C" int fr_poseidon_permute(const int32_t* state, const int32_t* inputs,
         (state == nullptr && domain == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     switch (t) {
-        case 3:
-            return launch_poseidon<3>(state, inputs, domain, consts, out, B, n_in, n_out, stream);
-        case 5:
-            return launch_poseidon<5>(state, inputs, domain, consts, out, B, n_in, n_out, stream);
+#define FR_POSEIDON_WIDTH(W) \
+    case W:                  \
+        return launch_poseidon<W>(state, inputs, domain, consts, out, B, n_in, n_out, stream);
+        FR_POSEIDON_WIDTH(2)
+        FR_POSEIDON_WIDTH(3)
+        FR_POSEIDON_WIDTH(4)
+        FR_POSEIDON_WIDTH(5)
+        FR_POSEIDON_WIDTH(6)
+        FR_POSEIDON_WIDTH(7)
+        FR_POSEIDON_WIDTH(8)
+        FR_POSEIDON_WIDTH(9)
+#undef FR_POSEIDON_WIDTH
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -428,24 +445,27 @@ extern "C" int fr_poseidon_permute(const int32_t* state, const int32_t* inputs,
 // -- the epoch program ------------------------------------------------------------
 
 constexpr int EPOCH_MAX_THREADS = 512;
+constexpr int EPOCH_GLOBAL_THREADS = 256;
+constexpr int EPOCH_MAX_CLUSTER = 16;
+constexpr size_t EPOCH_MAX_SMEM = 227 * 1024;
 
 // v, out: (16, B, K) limbs; perms, sels: (steps, K) int32; consts: (steps,
 // 16, K) limbs. Step s: lane (b, k) pairs v with its partner u = v at (b,
 // perms[s][k]) and takes, by sels[s][k], v u + c, v^2 + u, v c - u or (else)
 // v^2 - u^2 + c, the last as (v - u)(v + u) + c: one product a lane, the
 // operands picked by the selector, so that a warp's lanes never diverge on a
-// product. Nonce b is one cluster of C blocks (C given at launch, K / C
-// lanes a block, one a thread up to 512); block rank q holds lanes q K/C .. (q + 1)
-// K/C - 1 in shared memory, 32 bytes a lane (two 16-byte words, so that a
-// partner in another block's memory comes in two loads), in two buffers:
-// step s reads buffer s & 1, here and in the partner's block (distributed
-// shared memory), and writes its lane into the other; one cluster barrier a
-// step orders every read of a buffer before the step that overwrites it.
-// Between its arrive and its wait a thread prefetches the next step's
-// perm, sel and constant of its first lane into L1. The leaves are read and the coefficients
-// written once.
+// product. A lane is 32 bytes in the buffers between steps (two 16-byte
+// words, so that a partner comes in two loads).
 __device__ __forceinline__ void unpack(uint32_t* x, const uint4* src) {
     const uint4 lo = src[0], hi = src[1];
+    x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+    x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+}
+
+// unpack through L2 only: the lanes were written by other blocks in this
+// launch, and the per-SM L1 is not coherent
+__device__ __forceinline__ void unpack_cg(uint32_t* x, const uint4* src) {
+    const uint4 lo = __ldcg(src), hi = __ldcg(src + 1);
     x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
     x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
 }
@@ -455,23 +475,56 @@ __device__ __forceinline__ void pack(uint4* dst, const uint32_t* x) {
     dst[1] = make_uint4(x[4], x[5], x[6], x[7]);
 }
 
+// r = lane x's next value from its partner u, constant c and selector sl
+__device__ __forceinline__ void epoch_lane(uint32_t* r, const uint32_t* x, const uint32_t* u,
+                                           const uint32_t* cc, int sl) {
+    uint32_t d[FN], e[FN], a[FN], y[FN];
+    const bool f3 = sl != 0 && sl != 1 && sl != 2;  // the plain version's else
+    sub<Fr>(d, x, u);
+    add<Fr>(e, x, u);
+#pragma unroll
+    for (int w = 0; w < FN; ++w) {
+        a[w] = f3 ? d[w] : x[w];
+        y[w] = sl == 0 ? u[w] : (sl == 1 ? x[w] : (sl == 2 ? cc[w] : e[w]));
+        e[w] = sl == 1 ? u[w] : cc[w];  // the addend of sels 0, 1, 3
+    }
+    mont_mul<Fr>(y, a, y);
+    add<Fr>(r, y, e);
+    sub<Fr>(d, y, u);
+#pragma unroll
+    for (int w = 0; w < FN; ++w) r[w] = sl == 2 ? d[w] : r[w];
+}
+
 __device__ __forceinline__ void prefetch_l1(const void* p) {
     asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
 }
 
+// Nonce b is one cluster of C blocks (C given at launch, a power of two up
+// to 16 and at most K). Block rank q holds lanes [q kb, min(K, (q + 1) kb)),
+// kb = ceil(K / C), so that the owner of partner j is j / kb; the last
+// ranks hold fewer lanes, or none. Threads a block: kb rounded up to a warp,
+// at most 512. A rank keeps its lanes in shared memory in two buffers of kb
+// lanes: step s reads buffer s & 1, here and in the partner's block
+// (distributed shared memory), and writes its lane into the other; one
+// cluster barrier a step orders every read of a buffer before the step that
+// overwrites it. Between its arrive and its wait a thread prefetches the
+// next step's perm, sel and constant of its first lane into L1. The leaves
+// are read and the coefficients written once.
 __global__ void __launch_bounds__(EPOCH_MAX_THREADS)
     fr_epoch_program_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ perms,
                             const int32_t* __restrict__ sels, const int32_t* __restrict__ consts,
                             int32_t* __restrict__ out, int64_t B, int64_t K, int64_t steps) {
-    extern __shared__ uint4 buf[];  // [2][K / C][2]
+    extern __shared__ uint4 buf[];  // [2][kb][2]
     cg::cluster_group cluster = cg::this_cluster();
     const int csize = static_cast<int>(cluster.num_blocks());
     const int rank = static_cast<int>(cluster.block_rank());
     const int64_t b = blockIdx.x / csize;
-    const int kb = static_cast<int>(K / csize);
+    const int kb = static_cast<int>((K + csize - 1) / csize);
     const int64_t n = B * K;
     const int64_t k0 = static_cast<int64_t>(rank) * kb;  // the block's first lane
-    for (int kk = threadIdx.x; kk < kb; kk += blockDim.x) {
+    const int64_t left = K - k0;
+    const int nb = left <= 0 ? 0 : (left < kb ? static_cast<int>(left) : kb);  // its lanes
+    for (int kk = threadIdx.x; kk < nb; kk += blockDim.x) {
         uint32_t x[FN];
         load<Fr>(x, v + b * K, n, k0 + kk);
         pack(buf + 2 * kk, x);
@@ -480,33 +533,20 @@ __global__ void __launch_bounds__(EPOCH_MAX_THREADS)
     for (int64_t s = 0; s < steps; ++s) {
         const uint4* cur = buf + (s & 1) * 2 * kb;
         uint4* nxt = buf + ((s + 1) & 1) * 2 * kb;
-        for (int kk = threadIdx.x; kk < kb; kk += blockDim.x) {
+        for (int kk = threadIdx.x; kk < nb; kk += blockDim.x) {
             const int64_t k = k0 + kk;
             const int j = perms[s * K + k];
             const int sl = sels[s * K + k];
-            uint32_t x[FN], u[FN], cc[FN], d[FN], e[FN], a[FN], y[FN], r[FN];
+            uint32_t x[FN], u[FN], cc[FN], r[FN];
             unpack(x, cur + 2 * kk);
             unpack(u, cluster.map_shared_rank(cur, j / kb) + 2 * (j % kb));
             load<Fr>(cc, consts + s * 16 * K, K, k);
-            const bool f3 = sl != 0 && sl != 1 && sl != 2;  // the plain version's else
-            sub<Fr>(d, x, u);
-            add<Fr>(e, x, u);
-#pragma unroll
-            for (int w = 0; w < FN; ++w) {
-                a[w] = f3 ? d[w] : x[w];
-                y[w] = sl == 0 ? u[w] : (sl == 1 ? x[w] : (sl == 2 ? cc[w] : e[w]));
-                e[w] = sl == 1 ? u[w] : cc[w];  // the addend of sels 0, 1, 3
-            }
-            mont_mul<Fr>(y, a, y);
-            add<Fr>(r, y, e);
-            sub<Fr>(d, y, u);
-#pragma unroll
-            for (int w = 0; w < FN; ++w) r[w] = sl == 2 ? d[w] : r[w];
+            epoch_lane(r, x, u, cc, sl);
             pack(nxt + 2 * kk, r);
         }
         asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
         const int64_t k = k0 + threadIdx.x;
-        if (threadIdx.x < kb && s + 1 < steps) {
+        if (threadIdx.x < nb && s + 1 < steps) {
             prefetch_l1(perms + (s + 1) * K + k);
             prefetch_l1(sels + (s + 1) * K + k);
 #pragma unroll
@@ -515,25 +555,28 @@ __global__ void __launch_bounds__(EPOCH_MAX_THREADS)
         asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
     }
     const uint4* fin = buf + (steps & 1) * 2 * kb;
-    for (int kk = threadIdx.x; kk < kb; kk += blockDim.x) {
+    for (int kk = threadIdx.x; kk < nb; kk += blockDim.x) {
         uint32_t x[FN];
         unpack(x, fin + 2 * kk);
         store<Fr>(out + b * K, x, n, k0 + kk);
     }
 }
 
-// K lanes a nonce and clusters of ``cluster`` blocks (8, the portable size,
-// or 16, allowed here as a non-portable size): K a multiple of the cluster
-// whose two buffers a block fit its shared memory; else refused.
+// K lanes a nonce in clusters of ``cluster`` blocks: a power of two, at most
+// 16 (above 8 a non-portable size, which this card allows) and at most K,
+// with a block's two buffers of ceil(K / cluster) lanes (64 bytes a lane)
+// in its 227 KiB of shared memory. ops/puzzle.py's epoch_plan picks
+// min(16, the largest power of two <= K), so that this entry takes K = 1 ..
+// 58,112; every other case is refused (cudaErrorInvalidValue).
 extern "C" int fr_epoch_program(const int32_t* v, const int32_t* perms, const int32_t* sels,
                                 const int32_t* consts, int32_t* out, int64_t B, int64_t K,
                                 int64_t steps, int64_t cluster, void* stream) {
-    constexpr size_t kMaxSmem = 227 * 1024;
-    if (B < 1 || steps < 0 || (cluster != 8 && cluster != 16) || K < cluster || K % cluster)
+    if (B < 1 || K < 1 || steps < 0 || cluster < 1 || cluster > EPOCH_MAX_CLUSTER ||
+        (cluster & (cluster - 1)) != 0 || cluster > K || B * cluster > 0x7FFFFFFF)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int kb = static_cast<int>(K / cluster);
+    const int64_t kb = (K + cluster - 1) / cluster;
     const size_t smem = 2 * 2 * sizeof(uint4) * static_cast<size_t>(kb);
-    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > EPOCH_MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSuccess;
     if (smem > 48 * 1024)
         err = cudaFuncSetAttribute(fr_epoch_program_kernel,
@@ -545,7 +588,8 @@ extern "C" int fr_epoch_program(const int32_t* v, const int32_t* perms, const in
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(cluster * B), 1, 1);
-    cfg.blockDim = dim3(kb < EPOCH_MAX_THREADS ? (kb + 31) / 32 * 32 : EPOCH_MAX_THREADS, 1, 1);
+    cfg.blockDim = dim3(kb < EPOCH_MAX_THREADS ? static_cast<unsigned>((kb + 31) / 32 * 32)
+                                               : EPOCH_MAX_THREADS, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
     cudaLaunchAttribute attr[1];
@@ -557,6 +601,90 @@ extern "C" int fr_epoch_program(const int32_t* v, const int32_t* perms, const in
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, fr_epoch_program_kernel, v, perms, sels, consts, out, B, K,
                              steps);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The same steps with the lanes in global memory, for any K: one cooperative
+// launch of at most the co-resident blocks, each thread walking the n = B K
+// lanes grid-strided (lane e = b K + k). Two buffers of n lanes, 32 bytes a
+// lane, in ``scratch`` (64 n bytes, the size of the output): the leaves are
+// packed into buffer 0, step s reads buffer s & 1 (the lane and its partner
+// b K + perms[s][k], through L2) and writes the other, the last step writes
+// the output's limbs; a grid barrier between steps. No __restrict__ on
+// scratch: it is written and read again within the launch.
+__global__ void __launch_bounds__(EPOCH_GLOBAL_THREADS)
+    fr_epoch_program_global_kernel(const int32_t* __restrict__ v,
+                                   const int32_t* __restrict__ perms,
+                                   const int32_t* __restrict__ sels,
+                                   const int32_t* __restrict__ consts, int32_t* __restrict__ out,
+                                   uint4* scratch, int64_t B, int64_t K, int64_t steps) {
+    cg::grid_group grid = cg::this_grid();
+    const int64_t n = B * K;
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    if (steps == 0) {
+        for (int64_t e = first; e < n; e += stride) {
+            uint32_t x[FN];
+            load<Fr>(x, v, n, e);
+            store<Fr>(out, x, n, e);
+        }
+        return;
+    }
+    for (int64_t e = first; e < n; e += stride) {
+        uint32_t x[FN];
+        load<Fr>(x, v, n, e);
+        pack(scratch + 2 * e, x);
+    }
+    grid.sync();
+    for (int64_t s = 0; s < steps; ++s) {
+        const uint4* cur = scratch + (s & 1) * 2 * n;
+        uint4* nxt = scratch + ((s + 1) & 1) * 2 * n;
+        const bool last = s + 1 == steps;
+        for (int64_t e = first; e < n; e += stride) {
+            const int64_t b = e / K;
+            const int64_t k = e - b * K;
+            const int64_t j = perms[s * K + k];
+            const int sl = sels[s * K + k];
+            uint32_t x[FN], u[FN], cc[FN], r[FN];
+            unpack_cg(x, cur + 2 * e);
+            unpack_cg(u, cur + 2 * (b * K + j));
+            load<Fr>(cc, consts + s * 16 * K, K, k);
+            epoch_lane(r, x, u, cc, sl);
+            if (last) {
+                store<Fr>(out, r, n, e);
+            } else {
+                pack(nxt + 2 * e, r);
+            }
+        }
+        if (!last) grid.sync();
+    }
+}
+
+// Any B, K >= 1; scratch holds 64 B K bytes (a (16, B, K) int32 tensor).
+extern "C" int fr_epoch_program_global(const int32_t* v, const int32_t* perms,
+                                       const int32_t* sels, const int32_t* consts, int32_t* out,
+                                       int32_t* scratch, int64_t B, int64_t K, int64_t steps,
+                                       void* stream) {
+    if (B < 1 || K < 1 || steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int threads = EPOCH_GLOBAL_THREADS;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fr_epoch_program_global_kernel, threads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t n = B * K;
+    int64_t blocks = (n + threads - 1) / threads;
+    const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+    if (blocks > resident) blocks = resident;
+    if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    uint4* buf = reinterpret_cast<uint4*>(scratch);
+    void* args[] = {&v, &perms, &sels, &consts, &out, &buf, &B, &K, &steps};
+    err = cudaLaunchCooperativeKernel((const void*)fr_epoch_program_global_kernel,
+                                      dim3(static_cast<unsigned>(blocks)), dim3(threads), args, 0,
+                                      static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

@@ -585,14 +585,18 @@ def msm_affine_multi(x: torch.Tensor, y: torch.Tensor, scalar_limbs: torch.Tenso
 
     x, y: (L, N) affine Montgomery base; scalar_limbs: (16, B, N) canonical
     Fr limbs. Returns a width-B JacobianPoints (result i = MSM(scalars[:, i],
-    base))."""
+    base)). Serial chains need only K | B N: below ``_default_lanes`` points
+    in all, K = B N chains of one point each, nothing padded."""
     _, nb, npts = scalar_limbs.shape
+    serial = nb * npts <= msm_kernels.SERIAL_MAX_N
     if c == 0:
         # the per-batch size drives the scan/bucket trade-off
         c = fused_window_bits(npts)
     if lanes == 0:
         lanes = _default_lanes(nb * npts)
-    tile = lanes * chunk
+        if serial:
+            lanes = min(lanes, nb * npts)
+    tile = lanes if serial else lanes * chunk
     # per-batch padding keeps every batch segment a copy of the padded base
     nper = npts if (nb * npts) % tile == 0 else -(-npts // tile) * tile
     n = nb * nper
@@ -605,8 +609,7 @@ def msm_affine_multi(x: torch.Tensor, y: torch.Tensor, scalar_limbs: torch.Tenso
     x = x.repeat(1, nb)
     ycat = torch.cat([y.repeat(1, nb), fa.neg(FQ, y).repeat(1, nb)], dim=-1)
     packed = signed_window_digits(scalar_limbs.reshape(scalar_limbs.shape[0], n), c)
-    out = _fused_msm_body(x, ycat, packed, c, lanes, chunk,
-                          serial=n <= msm_kernels.SERIAL_MAX_N, nbatch=nb)
+    out = _fused_msm_body(x, ycat, packed, c, lanes, chunk, serial=serial, nbatch=nb)
     return g1.JacobianPoints(*out)
 
 

@@ -39,8 +39,11 @@ FULL_ROUNDS = ref.FULL_ROUNDS
 PARTIAL_ROUNDS = ref.PARTIAL_ROUNDS
 ROUNDS = FULL_ROUNDS + PARTIAL_ROUNDS
 HALF_FULL = FULL_ROUNDS // 2
-# the rates whose state widths the permute kernel is built for
-KERNEL_RATES = (2, 4)
+# the rates whose state widths the permute kernel is built for: 1 - 8, the
+# widths t = 2 .. 9 (snarkVM defines Poseidon2, 4 and 8; the callers of
+# either package use 2 and 4). An MDS row's unreduced sum bounds t at 13
+# (fr_passes.cu: dot_row).
+KERNEL_RATES = tuple(range(1, 9))
 P = FR.p
 
 
@@ -319,3 +322,13 @@ def hash_fixed(inputs: torch.Tensor, rate: int, domain: str = "",
         return hash_plain(inputs, rate, domain, num_outputs)
     return sponge_kernel(rate, inputs=inputs.to(torch.int32).contiguous(), domain=domain,
                          num_outputs=num_outputs)
+
+
+def hash_batch(values, rate: int = 2, domain: str = "", device=None) -> torch.Tensor:
+    """(n, L, B) Montgomery limbs -> (L, B) digests, ``hash_fixed(...)[0]``.
+    ``values`` is a tensor, hashed where it lies, or a numpy array, which
+    goes to ``device`` (None: the card)."""
+    if not isinstance(values, torch.Tensor):
+        values = torch.from_numpy(np.ascontiguousarray(values, dtype=np.int32)).to(
+            _build.resolve_device(device))
+    return hash_fixed(values, rate, domain)[0]

@@ -5,7 +5,10 @@
     2. leaves  = Poseidon(seed_i, j) for j < K        counter-mode sponge (B1's
                                                        fr_poseidon_permute, 1 launch)
     3. coeffs  = EpochProgram(epoch_hash)(leaves)     the per-epoch relation (B1's
-                                                       fr_epoch_program, 1 launch)
+                                                       fr_epoch_program up to
+                                                       58,112 lanes, else
+                                                       fr_epoch_program_global;
+                                                       1 launch)
     4. C_i     = KZG commit = multi-MSM over the SRS  (B2, B3, and B4 up to
                                                        8 nonces at 2^12, B5 above)
     5. z_i     = Poseidon(C_i.x)                      host Fiat-Shamir challenge
@@ -51,11 +54,14 @@ CHALLENGE_DOMAIN = "snarkos_tpu.puzzle.challenge"
 
 DEFAULT_LOG_DEGREE = 12
 EPOCH_STEPS = 12
-# blocks a nonce in the one-launch epoch program: a cluster of 16 (a
+# blocks a nonce in the one-launch epoch program, at most: a cluster of 16 (a
 # non-portable size, which the H100 takes) puts 256 of the 4096 lanes on
 # each SM, so that prove_batch(8)'s 8 nonces use 128 SMs (a cluster of 8:
 # 64); scripts/sweep_fr_passes.py times both sizes
 EPOCH_CLUSTER = 16
+# the shared memory a block of the cluster variant may hold: its lanes' two
+# buffers, 64 bytes a lane
+EPOCH_SMEM_MAX = 227 * 1024
 # the dev SRS's secret, known by construction (as in the JAX package)
 DEV_TAU = pow(params.FR_GENERATOR, 0xDEADBEEF, R)
 
@@ -168,32 +174,78 @@ def epoch_step_plain(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
         sb == 1, cand1, torch.where(sb == 2, cand2, cand3)))
 
 
-def program_kernel(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
-                   consts: torch.Tensor) -> torch.Tensor:
-    """Launch ``fr_epoch_program`` (``csrc/fr_passes.cu``, kernel B1's Fr
-    pass) on int32 CUDA tensors: every step of the program in one launch,
-    leaves (L, B, K), perms and sels (S, K), consts (S, L, K); writes a new
-    (L, B, K) tensor. A nonce is one cluster of ``EPOCH_CLUSTER`` blocks, K
-    a multiple of it with K / EPOCH_CLUSTER lanes' two buffers in a block's
-    shared memory."""
+def epoch_plan(k: int) -> tuple:
+    """The epoch program's kernel at K lanes a nonce, a function of K alone:
+    ``("cluster", C, kb)``, a cluster of C = min(EPOCH_CLUSTER, the largest
+    power of two <= K) blocks a nonce, block rank q holding lanes [q kb,
+    min(K, (q + 1) kb)), kb = ceil(K / C), when a block's two buffers (64 kb
+    bytes) fit EPOCH_SMEM_MAX, which holds for K <= 58,112; else
+    ``("global", None, None)``, the lanes in global memory."""
+    if k < 1:
+        raise ValueError(f"epoch program: K = {k} lanes")
+    c = min(EPOCH_CLUSTER, 1 << (k.bit_length() - 1))
+    kb = -(-k // c)
+    if 64 * kb <= EPOCH_SMEM_MAX:
+        return ("cluster", c, kb)
+    return ("global", None, None)
+
+
+def _check_program(leaves, perms, sels, consts):
     L, B, K = leaves.shape if leaves.dim() == 3 else (None, None, None)
     S = perms.shape[0] if perms.dim() == 2 else None
     _build.check(leaves, (FR.nlimbs, B, K), "epoch program leaves")
     _build.check(perms, (S, K), "epoch program perms")
     _build.check(sels, (S, K), "epoch program sels")
     _build.check(consts, (S, FR.nlimbs, K), "epoch program consts")
-    if K % EPOCH_CLUSTER or 64 * (K // EPOCH_CLUSTER) > 227 * 1024:
-        raise ValueError(f"epoch program: K = {K} lanes in clusters of {EPOCH_CLUSTER} blocks")
+    return B, K, S
+
+
+def program_kernel_cluster(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
+                           consts: torch.Tensor, cluster: int) -> torch.Tensor:
+    """Launch ``fr_epoch_program`` (``csrc/fr_passes.cu``, kernel B1's Fr
+    pass) on int32 CUDA tensors: every step of the program in one launch,
+    leaves (L, B, K), perms and sels (S, K), consts (S, L, K); writes a new
+    (L, B, K) tensor. A nonce is one cluster of ``cluster`` blocks, each
+    holding its ceil(K / cluster) lanes' two buffers in shared memory."""
+    B, K, S = _check_program(leaves, perms, sels, consts)
     out = torch.empty_like(leaves)
     if B and K:
         fn = _build.entry("fr_passes", "fr_epoch_program", 5, 4)
-        _build.launch(fn, (leaves, perms, sels, consts, out), (B, K, S, EPOCH_CLUSTER),
-                      leaves.device)
-        program_kernel.launches += 1
+        _build.launch(fn, (leaves, perms, sels, consts, out), (B, K, S, cluster), leaves.device)
+        program_kernel_cluster.launches += 1
     return out
 
 
-program_kernel.launches = 0
+program_kernel_cluster.launches = 0
+
+
+def program_kernel_global(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
+                          consts: torch.Tensor) -> torch.Tensor:
+    """Launch ``fr_epoch_program_global`` on int32 CUDA tensors shaped as
+    for ``program_kernel_cluster``: one cooperative launch, the lanes in two
+    global buffers (a scratch tensor the size of the output), a grid barrier
+    a step."""
+    B, K, S = _check_program(leaves, perms, sels, consts)
+    out = torch.empty_like(leaves)
+    if B and K:
+        scratch = torch.empty_like(leaves)
+        fn = _build.entry("fr_passes", "fr_epoch_program_global", 6, 3)
+        _build.launch(fn, (leaves, perms, sels, consts, out, scratch), (B, K, S), leaves.device)
+        program_kernel_global.launches += 1
+    return out
+
+
+program_kernel_global.launches = 0
+
+
+def program_kernel(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
+                   consts: torch.Tensor) -> torch.Tensor:
+    """The epoch program on int32 CUDA tensors: one launch of the kernel that
+    ``epoch_plan(K)`` names."""
+    kind, cluster, _ = epoch_plan(leaves.shape[-1])
+    if kind == "cluster":
+        return program_kernel_cluster(leaves, perms, sels, consts, cluster)
+    return program_kernel_global(leaves, perms, sels, consts)
 
 
 class EpochProgram:

@@ -98,6 +98,15 @@ def shard_last(mesh: Mesh, full: torch.Tensor) -> torch.Tensor:
     return full[..., mesh.rank * w:(mesh.rank + 1) * w].to(mesh.device).contiguous()
 
 
+def replicate(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``jax.device_put(arr, NamedSharding(mesh, P()))``: every rank ends with
+    rank 0's ``t`` on its device (``dist.broadcast`` from rank 0; the other
+    ranks' ``t`` gives only the shape and dtype). Returns a new tensor."""
+    out = t.to(mesh.device, copy=True).contiguous()
+    dist.broadcast(out, src=0, group=mesh.group)
+    return out
+
+
 def all_gather_last(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``lax.all_gather(t, axis, axis=-1, tiled=True)``: every rank's ``t``
     concatenated along the trailing axis in rank order, on every rank (the

@@ -9,7 +9,10 @@
   instruction (PTX carry chains), against the exact integers;
 - the fused sponge's absorb and squeeze schedule against ``hash_many``;
 - the one-launch epoch program's index math, thread by thread, against
-  ``EpochProgram.apply_host`` and the JAX package's ``EpochProgram.apply``.
+  ``EpochProgram.apply_host`` and the JAX package's ``EpochProgram.apply``:
+  the cluster variant at every K up to 58,112 lanes (uneven ranks) and the
+  global variant (grid-strided lanes, two buffers, a grid barrier a step),
+  and the rule that picks between them.
 """
 
 import random
@@ -106,11 +109,12 @@ def test_kernel_consts_layout(rate):
     assert sp["post"][-1] == 0  # the last partial round's constant moved into the one before
 
 
-@pytest.mark.parametrize("t", [3, 5])
+@pytest.mark.parametrize("t", [rate + 1 for rate in poseidon.KERNEL_RATES] + [13])
 def test_lazy_row_bound(t):
     """An MDS row of t unreduced products stays below p R, so that one
     reduction gives a value below 2p and one conditional subtract the
-    canonical one; at t = 14 it would not."""
+    canonical one: for every width the kernel is built for, and up to t =
+    13, dot_row's static_assert; at t = 14 it would not."""
     assert t * (P - 1) ** 2 < P * R
     assert 14 * (P - 1) ** 2 >= P * R
     worst = t * (P - 1) ** 2
@@ -354,22 +358,24 @@ MAX_THREADS = 512
 def _epoch_program_model(leaves, perms, sels, consts, cluster, seed=0):
     """fr_epoch_program_kernel thread by thread over canonical ints (the
     Montgomery form is transparent to the mix): per nonce a cluster of
-    ``cluster`` ranks, each holding K / cluster lanes in two buffers, a
-    lane's 8 words together; step s reads buffer s & 1 (the partner through its owner rank)
+    ``cluster`` ranks, rank q holding lanes [q kb, min(K, (q + 1) kb)), kb =
+    ceil(K / cluster), in two buffers of kb lanes, a lane's 8 words together;
+    step s reads buffer s & 1 (the partner through its owner rank j // kb)
     and writes the other, with one product a lane, the operands picked by
     the selector ((v - u)(v + u) for v^2 - u^2); threads and ranks run in a
     shuffled order with every write landing at once, then the cluster
     barrier. leaves: B rows of K ints."""
     order = random.Random(seed)
     K = len(leaves[0])
-    kb = K // cluster
+    kb = -(-K // cluster)
     threads = min(MAX_THREADS, (kb + 31) // 32 * 32)
+    lanes = [max(0, min(kb, K - rank * kb)) for rank in range(cluster)]  # a rank's lanes
     out = []
     for row in leaves:
         bufs = [[0] * (2 * FN * kb) for _ in range(cluster)]  # shared memory of each rank
         for rank in range(cluster):
             for tid in range(threads):
-                for kk in range(tid, kb, threads):
+                for kk in range(tid, lanes[rank], threads):
                     x = _words(row[rank * kb + kk], FN)
                     for w in range(FN):
                         bufs[rank][FN * kk + w] = x[w]
@@ -377,19 +383,13 @@ def _epoch_program_model(leaves, perms, sels, consts, cluster, seed=0):
             cur, nxt = (s & 1) * FN * kb, ((s + 1) & 1) * FN * kb
             for rank in order.sample(range(cluster), cluster):
                 for tid in order.sample(range(threads), threads):
-                    for kk in range(tid, kb, threads):
+                    for kk in range(tid, lanes[rank], threads):
                         k = rank * kb + kk
                         j = int(perms[s][k])
                         owner, src = j // kb, cur + FN * (j % kb)
                         x = _value([bufs[rank][cur + FN * kk + w] for w in range(FN)])
                         u = _value([bufs[owner][src + w] for w in range(FN)])
-                        c, sl = consts[s][k], int(sels[s][k])
-                        f3 = sl not in (0, 1, 2)
-                        a = (x - u) % P if f3 else x
-                        b = {0: u, 1: x, 2: c}.get(sl, (x + u) % P)
-                        y = a * b % P
-                        r = (y - u) % P if sl == 2 else (y + (u if sl == 1 else c)) % P
-                        r = _words(r, FN)
+                        r = _words(_epoch_lane(x, u, consts[s][k], int(sels[s][k])), FN)
                         for w in range(FN):
                             bufs[rank][nxt + FN * kk + w] = r[w]
         fin = (len(perms) & 1) * FN * kb
@@ -398,16 +398,68 @@ def _epoch_program_model(leaves, perms, sels, consts, cluster, seed=0):
     return out
 
 
-def _program_inputs(k, batch):
+def _epoch_lane(x, u, c, sl):
+    """fr_passes.cu's epoch_lane: one product, the operands picked by sl."""
+    f3 = sl not in (0, 1, 2)
+    a = (x - u) % P if f3 else x
+    b = {0: u, 1: x, 2: c}.get(sl, (x + u) % P)
+    y = a * b % P
+    return (y - u) % P if sl == 2 else (y + (u if sl == 1 else c)) % P
+
+
+def _epoch_global_model(leaves, perms, sels, consts, blocks, threads, seed=0):
+    """fr_epoch_program_global_kernel thread by thread over canonical ints:
+    ``blocks`` x ``threads`` threads walk the n = B K lanes grid-strided
+    (lane e = b K + k), blocks and threads in a shuffled order; the leaves
+    are packed into buffer 0, step s reads buffer s & 1 (the lane and its
+    partner b K + perms[s][k]) and writes the other at once, the last step
+    writes the output; a grid barrier between steps."""
+    order = random.Random(seed)
+    B, K = len(leaves), len(leaves[0])
+    n, grid = B * K, blocks * threads
+    bufs = [[None] * n, [None] * n]
+    out = [None] * n
+
+    def walk():
+        for blk in order.sample(range(blocks), blocks):
+            for tid in order.sample(range(threads), threads):
+                yield from range(blk * threads + tid, n, grid)
+
+    for e in walk():
+        bufs[0][e] = leaves[e // K][e % K]
+    steps = len(perms)
+    for s in range(steps):
+        cur, nxt = bufs[s & 1], bufs[(s + 1) & 1]
+        for e in walk():
+            b, k = divmod(e, K)
+            r = _epoch_lane(cur[e], cur[b * K + int(perms[s][k])], consts[s][k], int(sels[s][k]))
+            if s + 1 == steps:
+                out[e] = r
+            else:
+                nxt[e] = r
+    return [out[b * K:(b + 1) * K] for b in range(B)]
+
+
+def _host_steps(v, perms, sels, consts):
+    """apply_host's recurrence over the given steps."""
+    for perm, sel, c in zip(perms, sels, consts):
+        u = [v[j] for j in perm]
+        v = [(x * y + cc if sl == 0 else x * x + y if sl == 1 else x * cc - y if sl == 2
+              else x * x - y * y + cc) % P for x, y, cc, sl in zip(v, u, c, sel)]
+    return v
+
+
+def _program_inputs(k, batch, steps=puzzle.EPOCH_STEPS):
+    """The program of EPOCH at K = k, ``batch`` rows of leaves (0, 1, p - 1
+    first), and the first ``steps`` steps' perms, sels and constants."""
     prog = puzzle.EpochProgram(EPOCH, k, device="cpu")
-    assert set(prog.sels.reshape(-1).tolist()) == {0, 1, 2, 3}
+    assert set(prog.sels.reshape(-1).tolist()) == {0, 1, 2, 3} or k < 4
     rng = random.Random(153)
     leaves = [[rng.randrange(P) for _ in range(k)] for _ in range(batch)]
-    leaves[0][:3] = [0, 1, P - 1]
-    perms = prog.perms.numpy()
-    sels = prog.sels.numpy()[:, 0, :]
-    consts = [FR.decode_fast(prog.consts[s].numpy(), mont=True)
-              for s in range(puzzle.EPOCH_STEPS)]
+    leaves[0][:3] = [0, 1, P - 1][:k]
+    perms = prog.perms.numpy()[:steps]
+    sels = prog.sels.numpy()[:steps, 0, :]
+    consts = [FR.decode_fast(prog.consts[s].numpy(), mont=True) for s in range(steps)]
     return prog, leaves, perms, sels, consts
 
 
@@ -427,14 +479,67 @@ def test_epoch_program_model_many_lanes_a_thread():
     """At K = 8192 in clusters of 8 a rank holds 1024 lanes: two a thread
     of a 512-thread block (one nonce, the first two steps, checked against
     apply_host's recurrence over those steps)."""
-    prog, leaves, perms, sels, consts = _program_inputs(8192, 1)
-    got = _epoch_program_model(leaves, perms[:2], sels[:2], consts[:2], 8)
-    v = list(leaves[0])
-    for s in range(2):
-        u = [v[j] for j in perms[s]]
-        v = [(x * y + c if sl == 0 else x * x + y if sl == 1 else x * c - y if sl == 2
-              else x * x - y * y + c) % P for x, y, c, sl in zip(v, u, consts[s], sels[s])]
-    assert got[0] == v
+    prog, leaves, perms, sels, consts = _program_inputs(8192, 1, steps=2)
+    got = _epoch_program_model(leaves, perms, sels, consts, 8)
+    assert got[0] == _host_steps(list(leaves[0]), perms, sels, consts)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 24])
+def test_epoch_program_small_k_model(k):
+    """Below and off the cluster of 16: at K = 1, 2, 4, 8 (a cluster of K
+    blocks, one lane a block, 31 of a warp's threads idle) and K = 24 (a
+    cluster of 16, two lanes a rank, ranks 12-15 empty) for 3 nonces, the
+    model of the cluster rule ``epoch_plan`` picks equals the port's and the
+    JAX package's apply_host, and the port's CPU apply."""
+    kind, cluster, kb = puzzle.epoch_plan(k)
+    assert (kind, cluster, kb) == ("cluster", min(k, 16), -(-k // min(k, 16)))
+    prog, leaves, perms, sels, consts = _program_inputs(k, 3)
+    got = _epoch_program_model(leaves, perms, sels, consts, cluster, seed=k)
+    jprog = jpuzzle.EpochProgram(EPOCH, k)
+    v = np.stack([FR.encode_fast(row, mont=True) for row in leaves], axis=1)
+    applied = prog.apply(torch.from_numpy(v)).numpy()
+    for b, row in enumerate(leaves):
+        assert got[b] == prog.apply_host(row) == jprog.apply_host(row)
+        assert FR.decode_fast(applied[:, b], mont=True) == got[b]
+
+
+def test_epoch_program_global_model():
+    """The global variant at K = 64 for 3 nonces on a grid of 5 blocks of 32
+    threads (160 threads over 192 lanes: some walk two), all 12 steps, and
+    with no step: equal to the port's and the JAX package's apply_host."""
+    prog, leaves, perms, sels, consts = _program_inputs(64, 3)
+    got = _epoch_global_model(leaves, perms, sels, consts, 5, 32, seed=3)
+    jprog = jpuzzle.EpochProgram(EPOCH, 64)
+    for b, row in enumerate(leaves):
+        assert got[b] == prog.apply_host(row) == jprog.apply_host(row)
+    assert _epoch_global_model(leaves, perms[:1], sels[:1], consts[:1], 5, 32) == \
+        [_host_steps(row, perms[:1], sels[:1], consts[:1]) for row in leaves]
+
+
+@pytest.mark.slow
+def test_epoch_program_global_model_log16():
+    """The global variant at K = 2^16, the first log degree above the
+    cluster's shared memory, one nonce, the first two steps, on a grid of
+    264 blocks of 256 threads (two blocks an SM of the card): equal to
+    apply_host's recurrence over those steps (about 2 s)."""
+    prog, leaves, perms, sels, consts = _program_inputs(1 << 16, 1, steps=2)
+    assert puzzle.epoch_plan(1 << 16)[0] == "global"
+    got = _epoch_global_model(leaves, perms, sels, consts, 264, 256)
+    assert got[0] == _host_steps(list(leaves[0]), perms, sels, consts)
+
+
+@pytest.mark.parametrize("k, plan", [
+    (1, ("cluster", 1, 1)), (2, ("cluster", 2, 1)), (8, ("cluster", 8, 1)),
+    (16, ("cluster", 16, 1)), (4096, ("cluster", 16, 256)), (58112, ("cluster", 16, 3632)),
+    (58113, ("global", None, None)), (58128, ("global", None, None)),
+    (1 << 16, ("global", None, None)), (1 << 20, ("global", None, None))])
+def test_epoch_plan(k, plan):
+    """The variant is a function of K alone: a cluster of min(16, 2^floor(log2
+    K)) blocks while a block's two buffers of ceil(K / C) lanes, 64 bytes a
+    lane, fit 227 KiB of shared memory (up to K = 58,112), else global."""
+    assert puzzle.epoch_plan(k) == plan
+    if plan[0] == "cluster":
+        assert 64 * plan[2] <= puzzle.EPOCH_SMEM_MAX < 64 * (plan[2] + 1) or k < 58112
 
 
 def test_epoch_program_plain_matches_jax_apply():
@@ -463,7 +568,8 @@ def stub_launch(monkeypatch):
     from snarkos_tpu_torch.ops import _build
 
     calls = []
-    for counter in (poseidon.sponge_kernel, puzzle.program_kernel):  # restored after the test
+    for counter in (poseidon.sponge_kernel, puzzle.program_kernel_cluster,
+                    puzzle.program_kernel_global):  # restored after the test
         monkeypatch.setattr(counter, "launches", counter.launches)
     monkeypatch.setattr(_build, "check", lambda *a, **k: None)
     monkeypatch.setattr(_build, "entry", lambda lib, symbol, *a: symbol)
@@ -503,20 +609,33 @@ def test_sponge_wrapper_interface(stub_launch):
     with Record():
         poseidon.sponge_kernel(2, inputs=pair, domain="d", num_outputs=1)
     assert seen == ["aten.empty.memory_format"]
-    with pytest.raises(ValueError, match="rate 3"):
-        poseidon.sponge_kernel(3, inputs=x, num_outputs=1)
+    with pytest.raises(ValueError, match="rate 9"):
+        poseidon.sponge_kernel(9, inputs=x, num_outputs=1)
 
 
 def test_program_wrapper_interface(stub_launch):
-    """EpochProgram.apply on the card is one launch of (B, K, steps,
-    EPOCH_CLUSTER); K must split into the cluster."""
+    """EpochProgram.apply on the card is one launch of the kernel that
+    ``epoch_plan(K)`` names: ``fr_epoch_program`` with (B, K, steps,
+    cluster) at K = 64 (a cluster of 16) and K = 40 (16 blocks of 3 lanes,
+    the last ranks short), ``fr_epoch_program_global`` with a scratch tensor
+    the size of the output and (B, K, steps) at K = 2^16; one count on the
+    launched variant's counter."""
     prog = puzzle.EpochProgram(EPOCH, 64, device="cpu")
     v = torch.zeros((FR.nlimbs, 2, 64), dtype=torch.int32)
-    puzzle.program_kernel(v, prog.perms, prog.sels.reshape(puzzle.EPOCH_STEPS, 64), prog.consts)
+    sels = prog.sels.reshape(puzzle.EPOCH_STEPS, 64)
+    puzzle.program_kernel(v, prog.perms, sels, prog.consts)
     (fn, tensors, sizes), = stub_launch
     assert fn == "fr_epoch_program" and tensors[0] is v
     assert sizes == (2, 64, puzzle.EPOCH_STEPS, puzzle.EPOCH_CLUSTER)
-    with pytest.raises(ValueError, match="clusters of 16"):
-        puzzle.program_kernel(v[..., :40], prog.perms[:, :40],
-                              prog.sels.reshape(puzzle.EPOCH_STEPS, 64)[:, :40],
-                              prog.consts[..., :40])
+    puzzle.program_kernel(v[..., :40], prog.perms[:, :40], sels[:, :40], prog.consts[..., :40])
+    assert stub_launch[1][0] == "fr_epoch_program"
+    assert stub_launch[1][2] == (2, 40, puzzle.EPOCH_STEPS, 16)
+    big = puzzle.EpochProgram(EPOCH, 1 << 16, device="cpu")
+    vb = torch.zeros((FR.nlimbs, 1, 1 << 16), dtype=torch.int32)
+    before = puzzle.program_kernel_global.launches
+    puzzle.program_kernel(vb, big.perms, big.sels.reshape(puzzle.EPOCH_STEPS, -1), big.consts)
+    fn, tensors, sizes = stub_launch[2]
+    assert fn == "fr_epoch_program_global" and tensors[0] is vb and len(tensors) == 6
+    assert tensors[5].shape == tensors[4].shape == vb.shape and tensors[5] is not tensors[4]
+    assert sizes == (1, 1 << 16, puzzle.EPOCH_STEPS)
+    assert puzzle.program_kernel_global.launches == before + 1

@@ -158,6 +158,9 @@ def test_kernel_wrappers_reject_cpu_tensors():
     perm = torch.arange(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         puzzle.program_kernel(v, perm.reshape(1, 4), perm.reshape(1, 4), a.reshape(1, 16, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        puzzle.program_kernel_global(v, perm.reshape(1, 4), perm.reshape(1, 4),
+                                     a.reshape(1, 16, 4))
     p = g1.infinity((4,))
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.add_kernel(p, p)
@@ -189,7 +192,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
         ntt.pass_kernel(v, v, a[:, :3], 1, 1)
     assert fa.mont_mul_kernel.launches == 0
     assert ntt.pass_kernel.launches == 0
-    assert poseidon.sponge_kernel.launches == puzzle.program_kernel.launches == 0
+    assert poseidon.sponge_kernel.launches == puzzle.program_kernel_cluster.launches == 0
+    assert puzzle.program_kernel_global.launches == 0
     assert g1_kernels.seg_prefix_kernel.launches == 0
     assert g1_kernels.horner_chain_kernel.launches == g1_kernels.bucket_fixup_kernel.launches == 0
     assert msm_kernels.bucket_scan_fast_kernel.launches == 0

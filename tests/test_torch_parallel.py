@@ -8,7 +8,7 @@ the JAX package on the same inputs, made from numpy seeds, all exactly
 against the JAX package's host NTT and the port's ``ntt.ntt``; the field
 step; the mock-group ``msm_dist`` against the host sum; the collectives
 against JAX's tiled ``lax.all_to_all`` / ``all_gather`` on the 4-device
-virtual CPU mesh. Single-process tests: ``_split``, ``_twiddle_matrix``
+virtual CPU mesh, and ``replicate`` against the JAX package's. Single-process tests: ``_split``, ``_twiddle_matrix``
 against host powers and its rank blocks against the whole matrix, and the
 tree reduce on real G1 points at widths 1-5.
 The slow tier runs ``entry.dryrun_multichip(8, device="cpu")`` and holds the port's
@@ -85,6 +85,7 @@ def _world_rank(mesh, inp):
     for s, c in A2A_AXES:
         out[f"a2a{s}{c}"] = mesh_mod.all_to_all(mesh, mine, s, c)
     out["gather"] = mesh_mod.all_gather_last(mesh, mine)
+    out["replicate"] = mesh_mod.replicate(mesh, mine)
     return out
 
 
@@ -170,6 +171,19 @@ def test_all_gather_last_matches_jax(world):
     want = np.asarray(jax.jit(body)(inp["a2a"].numpy()))
     for r, o in enumerate(outs):
         assert np.array_equal(o["gather"].numpy(), want[r])
+
+
+def test_replicate_matches_jax(world):
+    """replicate: every rank ends with rank 0's tensor, as the JAX package's
+    replicate puts the array whole on each device of its mesh."""
+    from snarkos_tpu.parallel.mesh import make_mesh, replicate
+
+    inp, outs = world
+    placed = replicate(make_mesh(WORLD, backend="cpu"), inp["a2a"][0].numpy())
+    shards = [np.asarray(s.data) for s in placed.addressable_shards]
+    assert len(shards) == WORLD
+    for o, shard in zip(outs, shards):
+        assert np.array_equal(o["replicate"].numpy(), shard)
 
 
 def test_split_matches_jax():
