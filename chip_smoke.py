@@ -44,14 +44,20 @@ result line:
      (5, 16, 4096), edge states 0, 1, p - 1 in lanes 0-2, and the rate-4
      sponge over 5 inputs squeezing 3; the widths of rates 1, 3 and 8: one
      permutation at (t, 16, 2^16) and the sponge over rate + 1 inputs
-     squeezing rate + 1. B1's epoch program against 12 epoch_step_plain:
-     the cluster variant (fr_epoch_program) at (16, B, 4096) for b8 and b16,
-     at K = 1, 2, 8 and 24 (b8) and at its largest K, 58,112 (b1); the
-     global variant (fr_epoch_program_global) at (16, 8, 2^16) and (16, 2,
-     2^20) (its plain version once), and, launched directly, at the
-     cluster's (16, 8, 4096), (16, 8, 24) and (16, 1, 58112); with edge
-     leaves 0, 1, p - 1 and every selector at every step (at K < 4 every
-     selector at some step).
+     squeezing rate + 1; the wide rates 9, 12 and 16 (the runtime-width
+     kernel): one permutation and the sponge over rate + 1 inputs squeezing
+     rate + 1, each at 2^16 lanes, compared with the plain version on the
+     first and the last 2048 lanes and with the host permute / hash_many
+     on three lanes; sponge_kernel refuses rate 0. B1's epoch program
+     against 12 epoch_step_plain, both variants launched directly on the
+     program's side tables at every (B, K) a path launches (b8 and b16 x
+     4096, b2 and b4 x 4096, b1 x 4096, b8 x 1, 2, 4, 8, 24) and at b1 x
+     58,112 (the cluster entry's largest K), the global variant
+     (fr_epoch_program_global, on the program's side tables) also at (16,
+     8, 2^16) and (16, 2, 2^20) (its plain version once); with edge leaves
+     0, 1, p - 1 and every selector at every step (at K < 4 every selector
+     at some step); then the two variants' device times side by side,
+     beside what epoch_plan(B, K) picks (not gated).
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
      of 3 at the 2^20 shapes, for the Poseidon permutation and the Horner
      chain), CUDA events
@@ -65,9 +71,10 @@ result line:
      C = p(tau) G and W = q(tau) G computed on the host from the coefficients
      and the known dev tau, and against prove_batch of one nonce. Then
      solutions/s at batch 8 (median of 3 timed calls). A call must launch
-     fr_poseidon_permute once, fr_epoch_program once, mont_mul at most 80
-     times, g1_horner_chain twice (once a multi-MSM) and g1_bucket_fixup
-     86 times (once a window; here and at batch 16).
+     fr_poseidon_permute once, the epoch program's variant by
+     epoch_plan(B, 4096) once, mont_mul at most 80 times, g1_horner_chain
+     twice (once a multi-MSM) and g1_bucket_fixup 86 times (once a window;
+     here and at batch 16).
   4. prove_batch over 16 nonces (the wide-chain engine, B5): nonces 0-7 equal
      to prove_batch(8), all 16 checked on the host as above plus solution_id
      = sha64(C || y); solutions/s at batch 16 (median of 3 after a warm-up).
@@ -254,20 +261,23 @@ PIPE_LOG = 22
 NTT_SWEEP_K_MAX = (6, 8)
 NTT_SWEEP_LOG_ELEMS = (9, 10, 11)
 NTT_SWEEP_THREADS = (128, 256, 512)
-# B1's launches a prove_batch call (PERF.md): one sponge (the leaves), one
-# epoch program (all 12 steps), at most 80 single multiplies (KZG eval,
-# conversions)
-PATH_LAUNCHES = {"fr_poseidon_permute": 1, "fr_epoch_program": 1, "fr_epoch_program_global": 0}
+# B1's single multiplies a prove_batch call at 2^12, at most (KZG eval,
+# conversions); beside them one sponge and one epoch program (b1_counts)
 MONT_MUL_MAX = 80
 # the prover at the other log degrees the node takes (phase 4b): (log
 # degree, nonces), each with its fixture tests/fixtures/torch_puzzle_k{LOG}_b{N}.json
 DEGREES = ((0, 8), (1, 8), (2, 8), (3, 8), (16, 8), (20, 2))
-# the cluster epoch program's small and uneven K (phase 2), and the
-# Poseidon widths held beside the prover's rates 2 and 4
-EPOCH_SMALL_K = (1, 2, 8, 24)
+# the epoch program's small K (log degree 0-3) and an uneven one (phase 2),
+# and the Poseidon widths held beside the prover's rates 2 and 4: the
+# register template's (rates 1, 3, 8) and the runtime-width kernel's
+EPOCH_SMALL_K = (1, 2, 4, 8, 24)
 # the largest K of the cluster variant: 16 blocks of 3632 lanes, 227 KiB each
 EPOCH_CLUSTER_MAX_K = 58112
 POSEIDON_MORE_RATES = (1, 3, 8)
+POSEIDON_WIDE_RATES = (9, 12, 16)
+# the lanes of a wide rate's 2^16 compared with the plain version: the
+# first and the last WIDE_PART
+WIDE_PART = 2048
 # what hash_fixed dispatches on the card: the output's allocation, nothing
 # on the sponge's state (phase 9)
 SPONGE_OPS = ["aten.empty.memory_format"]
@@ -290,12 +300,12 @@ FR_WIDE_MUL, FR_WIDE_SQR, FR_REDC = 2 * 64, 2 * 36, 2 * 64 + 8
 def poseidon_ops(t: int) -> int:
     """The 32-bit multiplies of one permutation of width t as fr_passes.cu
     runs it: 8 full rounds of t s-boxes (4 squarings and a multiply) and t
-    MDS rows (t wide products, one reduction); 31 partial rounds of one
-    s-box, one row of t and t - 1 multiplies (the sparse matrix). The dense
-    form before it ran 8 (t^2 + 5 t) + 31 (t^2 + 5) multiplies of
-    FR_MUL_OPS (626 at t = 3)."""
+    MDS rows (t wide products, one reduction a chunk of at most 13); 31
+    partial rounds of one s-box, one row of t and t - 1 multiplies (the
+    sparse matrix). The dense form before it ran 8 (t^2 + 5 t) + 31 (t^2 +
+    5) multiplies of FR_MUL_OPS (626 at t = 3)."""
     sbox = 4 * (FR_WIDE_SQR + FR_REDC) + FR_MUL_OPS
-    row = t * FR_WIDE_MUL + FR_REDC
+    row = t * FR_WIDE_MUL + -(-t // 13) * FR_REDC
     return 8 * t * (sbox + row) + 31 * (sbox + row + (t - 1) * FR_MUL_OPS)
 
 
@@ -834,7 +844,16 @@ def main() -> int:
             x[:, :, lane] = torch.from_numpy(FR.encode_fast([v], mont=True)[:, 0]).to(dev)
         return x
 
-    consts_bytes = {r: poseidon.kernel_consts(r).numel() * 4 for r in poseidon.KERNEL_RATES}
+    def consts_bytes(rate):
+        """The bytes of the constants the rate's kernel reads (limbs for the
+        register template, words for the runtime-width kernel)."""
+        return poseidon._device_kernel_consts(rate, torch.device("cpu")).numel() * 4
+
+    def split(x, part):
+        """The lanes [0, part) and [lanes - part, lanes) of (n, L, lanes)."""
+        return torch.cat([x[..., :part], x[..., -part:]], dim=-1)
+
+    host_cases = {}  # label: (rate, the case's input, its kernel, hash_many's args or None)
 
     def permute_case(rate, lanes, part=None):
         """``part``: compare the lanes [0, part) and [lanes - part, lanes)
@@ -850,13 +869,13 @@ def main() -> int:
             kfn, xs = kernel, st
         else:
             label += f", lanes [0, {part}) and [{lanes - part}, {lanes}) compared"
-            xs = torch.cat([st[..., :part], st[..., -part:]], dim=-1)
+            xs = split(st, part)
 
             def kfn():
-                out = kernel()
-                return torch.cat([out[..., :part], out[..., -part:]], dim=-1)
+                return split(kernel(), part)
+        host_cases[label] = (rate, st, kernel, None)
         return (label, kfn, lambda: poseidon.permute_plain(xs, rate),
-                2 * t * 16 * 4 * lanes + consts_bytes[rate], poseidon_ops(t) * lanes, kernel)
+                2 * t * 16 * 4 * lanes + consts_bytes(rate), poseidon_ops(t) * lanes, kernel)
 
     def sponge_case(rate, n_in, lanes, num_outputs, domain, timed=True, part=None):
         """``part``: compare the lanes [0, part) and [lanes - part, lanes)
@@ -872,15 +891,20 @@ def main() -> int:
             kfn, xs = kernel, x
         else:
             label += f", lanes [0, {part}) and [{lanes - part}, {lanes}) compared"
-            xs = torch.cat([x[..., :part], x[..., -part:]], dim=-1)
+            xs = split(x, part)
 
             def kfn():
-                out = kernel()
-                return torch.cat([out[..., :part], out[..., -part:]], dim=-1)
+                return split(kernel(), part)
+        host_cases[label] = (rate, x, kernel, (num_outputs, domain))
         return (label, kfn, lambda: poseidon.hash_plain(xs, rate, domain, num_outputs),
-                (n_in + num_outputs) * 16 * 4 * lanes + consts_bytes[rate] if timed else None,
+                (n_in + num_outputs) * 16 * 4 * lanes + consts_bytes(rate) if timed else None,
                 perms * poseidon_ops(rate + 1) * lanes, kernel)
 
+    wide_cases = []
+    for r in POSEIDON_WIDE_RATES:
+        wide_cases += [permute_case(r, 1 << 16, part=WIDE_PART),
+                       sponge_case(r, r + 1, 1 << 16, r + 1, "snarkos_tpu.test", part=WIDE_PART)]
+    wide_labels = [c[0] for c in wide_cases]
     check("fr_poseidon_permute", "snarkos_tpu_torch/csrc/fr_passes.cu",
           "snarkos_tpu/ops/modarith.py:171",
           [sponge_case(2, 2, BATCH * 4096, 1, puzzle_mod.COEFF_DOMAIN),
@@ -891,81 +915,111 @@ def main() -> int:
            sponge_case(4, 5, 4096, 3, "snarkos_tpu.test", timed=False),
            *(permute_case(r, 1 << 16) for r in POSEIDON_MORE_RATES),
            *(sponge_case(r, r + 1, 4096, r + 1, "snarkos_tpu.test", timed=False)
-             for r in POSEIDON_MORE_RATES)],
-          poseidon.sponge_kernel, big=True)
+             for r in POSEIDON_MORE_RATES), *wide_cases],
+          poseidon.sponge_kernel, big=True,
+          plain_once=tuple(wide_labels) + ("permute (5, 16, 4096)",)
+          + tuple(f"permute ({r + 1}, 16, 65536)" for r in POSEIDON_MORE_RATES))
 
-    # the epoch program of the fixture's epoch, all 12 steps in one launch, at
-    # (16, B, 4096) for both prove_batch widths against 12 epoch_step_plain,
-    # every selector present at every step, edge leaves 0, 1, p - 1. The
-    # bound counts one product a lane a step, as the kernel runs it
-    prog = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), 4096, dev)
-    prog_sels = prog.sels.reshape(puzzle_mod.EPOCH_STEPS, -1).contiguous()
-    sel_counts = [torch.bincount(row.long(), minlength=4).tolist() for row in prog_sels]
-    if min(min(c) for c in sel_counts) == 0:
-        raise AssertionError(f"epoch program: selectors a step {sel_counts}, not all four present")
+    # the wide rates against the host's permute and hash_many on three lanes:
+    # 0 (every slot 0), 2 (every slot p - 1) and the last (random)
+    def lane_ints(x, lane):
+        return [FR.decode_fast(x[i, :, lane:lane + 1].cpu().numpy(), mont=True)[0]
+                for i in range(x.shape[0])]
 
-    def epoch_case(batch):
-        v = torch.from_numpy(FR.random(batch * 4096, rng).reshape(FR.nlimbs, batch, 4096)).to(dev)
-        v[:, 0, :3] = torch.from_numpy(FR.encode_fast([0, 1, FR.p - 1], mont=True)).to(dev)
-        args = (v, prog.perms.contiguous(), prog_sels, prog.consts.contiguous())
-        return (f"(16, {batch}, 4096) x {puzzle_mod.EPOCH_STEPS} steps",
-                lambda: puzzle_mod.program_kernel(*args), lambda: prog.apply_plain(v),
-                2 * 16 * 4 * batch * 4096 + puzzle_mod.EPOCH_STEPS * 4096 * (4 + 4 + 16 * 4),
-                puzzle_mod.EPOCH_STEPS * batch * 4096 * FR_MUL_OPS)
+    for label in wide_labels:
+        rate, x, kernel, sponge = host_cases[label]
+        got = kernel()
+        for lane in (0, 2, x.shape[-1] - 1):
+            xs = lane_ints(x, lane)
+            want = (ref_poseidon.permute(xs, rate) if sponge is None else
+                    ref_poseidon.hash_many(xs, rate, sponge[0], sponge[1]))
+            if lane_ints(got, lane) != want:
+                raise AssertionError(f"fr_poseidon_permute {label}: lane {lane} differs from "
+                                     "the host's")
+        log(f"fr_poseidon_permute {label}: lanes 0, 2, {x.shape[-1] - 1} equal the host's")
+    del host_cases, wide_cases, x, got, kernel
+    for rate in (0, -1):
+        try:
+            poseidon.hash_fixed(fr_state(2, 32), rate)
+        except ValueError:
+            continue
+        raise AssertionError(f"hash_fixed took rate {rate}")
+    log("hash_fixed refuses rates 0 and -1 (no slot to absorb into); rates 1, 2, 3, 4, 8 "
+        f"and {', '.join(map(str, POSEIDON_WIDE_RATES))} ran above")
 
-    def epoch_case_k(k, batch, plain_label=None, kernel=None):
-        """The program of the fixture's epoch at K = k lanes over ``batch``
-        nonces: edge leaves 0, 1, p - 1 in lanes 0-2 of nonce 0 and in lane 0
-        of nonces 0-2; the selectors of lanes 0-3 set to 0-3 at every step
-        (for K < 4: lane k's at step s to (s + k) mod 4, every selector at some
-        step). The kernel is the one epoch_plan(k) names unless ``kernel``
-        gives a variant's wrapper; the plain version 12 epoch_step_plain."""
-        kernel = kernel or puzzle_mod.program_kernel
-        pk = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), k, dev)
+    # the epoch program of the fixture's epoch, all 12 steps in one launch,
+    # both variants launched directly at every (B, K) a path launches, the
+    # global one also at log degree 16 over 8 nonces and 20 over 2, against
+    # 12 epoch_step_plain: every selector present at every step (for K < 4
+    # at some step), edge leaves 0, 1, p - 1. The bound counts one product a
+    # lane a step, as the kernels run it, and the leaves, the coefficients
+    # and the tables each variant reads once
+    def epoch_case(k, batch, variant, label=None):
+        """The program at K = k lanes over ``batch`` nonces: edge leaves 0, 1,
+        p - 1 in lanes 0-2 of nonce 0 and in lane 0 of nonces 0-2; the
+        selectors of lanes 0-3 set to 0-3 at every step (for K < 4: lane k's
+        at step s to (s + k) mod 4). ``variant``: "cluster" (fr_epoch_program
+        at epoch_cluster's size) or "global" (fr_epoch_program_global),
+        both on the program's side tables, built before the call."""
+        pk = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), k)
         sels = pk.sels.reshape(puzzle_mod.EPOCH_STEPS, k).clone()
         if k >= 4:
-            sels[:, :4] = torch.arange(4, dtype=torch.int32, device=dev)
+            sels[:, :4] = torch.arange(4, dtype=torch.int32)
         else:
-            sels = (torch.arange(puzzle_mod.EPOCH_STEPS, device=dev).unsqueeze(1)
-                    + torch.arange(k, device=dev)).remainder(4).to(torch.int32)
-        pk = puzzle_mod.EpochProgram.from_tensors(pk.epoch_hash, pk.perms.contiguous(),
+            sels = (torch.arange(puzzle_mod.EPOCH_STEPS).unsqueeze(1)
+                    + torch.arange(k)).remainder(4).to(torch.int32)
+        pk = puzzle_mod.EpochProgram.from_tensors(pk.epoch_hash, pk.perms,
                                                   sels.reshape(puzzle_mod.EPOCH_STEPS, 1, k),
-                                                  pk.consts.contiguous())
+                                                  pk.consts, dev)
+        ps, cw = pk.side_tables()
         v = torch.from_numpy(FR.random(batch * k, rng).reshape(FR.nlimbs, batch, k)).to(dev)
         edges = torch.from_numpy(FR.encode_fast([0, 1, FR.p - 1], mont=True)).to(dev)
         v[:, 0, :min(3, k)] = edges[:, :min(3, k)]
         v[:, :min(3, batch), 0] = edges[:, :min(3, batch)]
-        args = (v, pk.perms, sels.contiguous(), pk.consts)
-        if kernel is puzzle_mod.program_kernel_cluster:
-            args += (puzzle_mod.epoch_plan(k)[1],)
-        return (plain_label or f"(16, {batch}, {k}) x {puzzle_mod.EPOCH_STEPS} steps",
-                lambda: kernel(*args), lambda: pk.apply_plain(v),
-                2 * 16 * 4 * batch * k + puzzle_mod.EPOCH_STEPS * k * (4 + 4 + 16 * 4),
-                puzzle_mod.EPOCH_STEPS * batch * k * FR_MUL_OPS)
+        steps, n = puzzle_mod.EPOCH_STEPS, batch * k
+        if variant == "cluster":
+            cluster = puzzle_mod.epoch_cluster(k)[0]
+            kfn = lambda: puzzle_mod.program_kernel_cluster(v, ps, cw, cluster)  # noqa: E731
+        else:
+            kfn = lambda: puzzle_mod.program_kernel_global(v, ps, cw)  # noqa: E731
+        return (label or f"(16, {batch}, {k}) x {steps} steps", kfn, lambda: pk.apply_plain(v),
+                2 * 16 * 4 * n + steps * k * (4 + 8 * 4), steps * n * FR_MUL_OPS)
 
-    for k in EPOCH_SMALL_K + (EPOCH_CLUSTER_MAX_K, EPOCH_CLUSTER_MAX_K + 1, 1 << 16, 1 << 20):
-        want = "cluster" if k <= EPOCH_CLUSTER_MAX_K else "global"
-        if puzzle_mod.epoch_plan(k)[0] != want:
-            raise AssertionError(f"epoch_plan({k}) = {puzzle_mod.epoch_plan(k)}, not {want}")
+    # (B, K): every shape a path launches the program at (the prover at b8
+    # and b16, and at b2 and b4, the node's smaller nonce batches, which
+    # bracket the rule's threshold; check_binding at b1, log degree 0-3 at
+    # b8) and the cluster entry's largest K
+    rule_shapes = [(BATCH, 4096), (BATCH_WIDE, 4096), (2, 4096), (4, 4096), (1, 4096),
+                   *((BATCH, k) for k in EPOCH_SMALL_K), (1, EPOCH_CLUSTER_MAX_K)]
+    label20 = f"(16, 2, {1 << 20}) x {puzzle_mod.EPOCH_STEPS} steps"
     check("fr_epoch_program", "snarkos_tpu_torch/csrc/fr_passes.cu",
           "snarkos_tpu/ops/modarith.py:171",
-          [epoch_case(BATCH), epoch_case(BATCH_WIDE),
-           *(epoch_case_k(k, BATCH) for k in EPOCH_SMALL_K), epoch_case_k(EPOCH_CLUSTER_MAX_K, 1)],
+          [epoch_case(k, b, "cluster") for b, k in rule_shapes],
           puzzle_mod.program_kernel_cluster)
-    # the global variant at log degree 16 over 8 nonces and 20 over 2 (one
-    # cooperative launch, the lanes in two global buffers), its plain version
-    # at 2^20 once; and, beside the cluster variant, at the cluster's shapes
-    # (16, 8, 4096), (16, 8, 24) and (16, 1, 58112), launched directly. The
-    # bound counts, as for the cluster variant, the leaves and the
-    # coefficients once and the program's tensors once
-    label20 = f"(16, 2, {1 << 20}) x {puzzle_mod.EPOCH_STEPS} steps"
-    glob = puzzle_mod.program_kernel_global
     check("fr_epoch_program_global", "snarkos_tpu_torch/csrc/fr_passes.cu",
           "snarkos_tpu/ops/modarith.py:171",
-          [epoch_case_k(1 << 16, BATCH), epoch_case_k(1 << 20, 2, label20),
-           epoch_case_k(4096, BATCH, kernel=glob), epoch_case_k(24, BATCH, kernel=glob),
-           epoch_case_k(EPOCH_CLUSTER_MAX_K, 1, kernel=glob)],
+          [epoch_case(1 << 16, BATCH, "global"), epoch_case(1 << 20, 2, "global", label20),
+           *(epoch_case(k, b, "global") for b, k in rule_shapes)],
           puzzle_mod.program_kernel_global, big=True, plain_once=(label20,))
+    # the two variants side by side, and the code's own traffic of the
+    # global one: 96 bytes a lane a step (x, its partner, the write) and 36
+    # a lane's table entries a step (the constant's words, the wiring word)
+    dev_ms = {k["name"]: {s["shape"]: s["device_ms"] for s in k["shapes"]}
+              for k in kernels[-2:]}
+    readings = []
+    for b, k in rule_shapes:
+        shape = f"(16, {b}, {k}) x {puzzle_mod.EPOCH_STEPS} steps"
+        cl, gl = dev_ms["fr_epoch_program"][shape], dev_ms["fr_epoch_program_global"][shape]
+        readings.append({"B": b, "K": k, "cluster_ms": cl, "global_ms": gl,
+                         "faster": "cluster" if cl <= gl else "global",
+                         "epoch_plan": puzzle_mod.epoch_plan(b, k)[0]})
+        log(f"epoch program (B, K) = ({b}, {k}): cluster {cl:.4f} / global {gl:.4f} device ms; "
+            f"faster {readings[-1]['faster']}, epoch_plan picks {readings[-1]['epoch_plan']}")
+    report["epoch_variants"] = readings
+    for b, k in ((BATCH, 1 << 16), (2, 1 << 20)):
+        traffic = puzzle_mod.EPOCH_STEPS * (96 * b * k + 36 * k)
+        log(f"fr_epoch_program_global (16, {b}, {k}): its own traffic {traffic} bytes, "
+            f"{bound(traffic, 0)[0]:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s")
 
     def coords(p):
         return (p.x, p.y, p.z)
@@ -1769,6 +1823,21 @@ def main() -> int:
         fixup a window."""
         return {"g1_horner_chain": msms, "g1_bucket_fixup": msms * windows}
 
+    def epoch_kernel(b, k):
+        """The epoch program's kernel for b nonces of K = k lanes."""
+        glob = puzzle_mod.epoch_plan(b, k)[0] == "global"
+        return "fr_epoch_program_global" if glob else "fr_epoch_program"
+
+    def b1_counts(b, k):
+        """B1's Fr-pass launches of one prove_batch or check_binding over b
+        nonces at K = k: one sponge (the leaves), one epoch program (all 12
+        steps) of the variant epoch_plan(b, k) names, none of the other."""
+        ek = epoch_kernel(b, k)
+        return {"fr_poseidon_permute": 1, "fr_epoch_program": int(ek == "fr_epoch_program"),
+                "fr_epoch_program_global": int(ek == "fr_epoch_program_global")}
+
+    K12 = 1 << fixture["log_degree"]
+
     W4 = -(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(2 * VERIFY_BATCH + 1))
 
     # -- 3. the prover at batch 8 ---------------------------------------------------
@@ -1784,10 +1853,10 @@ def main() -> int:
     address = fixture["address"]
     puzzle.prove_batch(epoch, address, nonces)  # warm-up
     sols = run_path(f"prove_batch({BATCH})", lambda: puzzle.prove_batch(epoch, address, nonces),
-                    ["mont_mul", "fr_poseidon_permute", "fr_epoch_program", "g1_horner_chain",
-                     "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
+                    ["mont_mul", "fr_poseidon_permute", epoch_kernel(BATCH, K12),
+                     "g1_horner_chain", "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
                     absent=["g1_add", "jadd_bucket_total"],
-                    exact={**PATH_LAUNCHES, **tail_counts(2, W6)},
+                    exact={**b1_counts(BATCH, K12), **tail_counts(2, W6)},
                     at_most={"mont_mul": MONT_MUL_MAX})
 
     if len(sols) != len(nonces):
@@ -1853,10 +1922,10 @@ def main() -> int:
     puzzle.prove_batch(epoch, address, nonces16)  # warm-up
     sols16 = run_path(f"prove_batch({BATCH_WIDE})",
                       lambda: puzzle.prove_batch(epoch, address, nonces16),
-                      ["mont_mul", "fr_poseidon_permute", "fr_epoch_program", "g1_horner_chain",
-                       "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
+                      ["mont_mul", "fr_poseidon_permute", epoch_kernel(BATCH_WIDE, K12),
+                       "g1_horner_chain", "g1_bucket_fixup", "seg_prefix", "bucket_scan"],
                       absent=["bucket_scan_serial", "g1_add", "jadd_bucket_total"],
-                      exact={**PATH_LAUNCHES, **tail_counts(2, W6)},
+                      exact={**b1_counts(BATCH_WIDE, K12), **tail_counts(2, W6)},
                       at_most={"mont_mul": MONT_MUL_MAX})
     if len(sols16) != BATCH_WIDE or sols16[:BATCH] != sols:
         raise AssertionError("prove_batch(16)[:8] differs from prove_batch(8) (and the fixture)")
@@ -1870,7 +1939,7 @@ def main() -> int:
 
     def prove_counts(ld, nb):
         """Every kernel's launches in a prove_batch over nb nonces at K =
-        2^ld: one sponge, one epoch program of the variant epoch_plan(K)
+        2^ld: one sponge, one epoch program of the variant epoch_plan(nb, K)
         names, prove_mont_muls(K) single multiplies; the two multi-MSMs at c
         = fused_window_bits(K), W windows: a chain scan a window (B4 on
         serial chains, nb K <= SERIAL_MAX_N, else B5), three B3 prefixes a
@@ -1879,10 +1948,8 @@ def main() -> int:
         k = 1 << ld
         w = -(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(k))
         serial = nb * k <= msm_kernels.SERIAL_MAX_N
-        cluster = puzzle_mod.epoch_plan(k)[0] == "cluster"
         return {**{kern["name"]: 0 for kern in kernels}, "mont_mul": prove_mont_muls(k),
-                "fr_poseidon_permute": 1, "fr_epoch_program": int(cluster),
-                "fr_epoch_program_global": int(not cluster),
+                **b1_counts(nb, k),
                 "bucket_scan_serial" if serial else "bucket_scan": 2 * w, "seg_prefix": 6 * w,
                 **tail_counts(2, w)}
 
@@ -1934,7 +2001,7 @@ def main() -> int:
         degree_report[ld] = {"nonces": nb, "first_s": first_s, "prove_s": times,
                              "solutions_per_s": nb / med, "peak_bytes": peak,
                              "allocated_before_bytes": base_mem, "verify_batch_s": verify_s,
-                             "epoch_variant": puzzle_mod.epoch_plan(1 << ld)[0]}
+                             "epoch_variant": puzzle_mod.epoch_plan(nb, 1 << ld)[0]}
         log(f"{label} == tests/fixtures/{name} byte for byte ({degree_report[ld]['epoch_variant']} "
             f"epoch program); verify_batch accepts ({verify_s:.2f} s), rejects eval_y + 1; "
             f"median {med:.3f} s of {[round(t, 3) for t in times]} -> {nb / med:.3f} "
@@ -2074,16 +2141,16 @@ def main() -> int:
     phase("7")
     items = [(epoch, address, n, sol.commitment, sol.eval_y, sol.witness, 1)
              for n, sol in zip(nonces[:VERIFY_BATCH], sols[:VERIFY_BATCH])]
-    b1_per_binding = dict(PATH_LAUNCHES)
+    b1_per_binding = b1_counts(1, K12)
     ok = run_path("check_binding", lambda: puzzle.check_binding(*items[0][:5]),
-                  ["fr_poseidon_permute", "fr_epoch_program", "mont_mul"],
+                  ["fr_poseidon_permute", epoch_kernel(1, K12), "mont_mul"],
                   absent=["g1_add", "bucket_scan_serial", "seg_prefix"],
                   exact=b1_per_binding, at_most={"mont_mul": MONT_MUL_MAX})
     if not ok:
         raise AssertionError("check_binding rejected a solution of prove_batch")
     ok = run_path(f"verify_batch({VERIFY_BATCH})", lambda: puzzle.verify_batch(items),
-                  ["fr_poseidon_permute", "fr_epoch_program", "bucket_scan_serial", "seg_prefix",
-                   "g1_bucket_fixup", "g1_horner_chain"],
+                  ["fr_poseidon_permute", epoch_kernel(1, K12), "bucket_scan_serial",
+                   "seg_prefix", "g1_bucket_fixup", "g1_horner_chain"],
                   absent=["g1_add", "bucket_scan", "bucket_scan_fast", "jadd_bucket_total"],
                   exact={**{k: VERIFY_BATCH * v for k, v in b1_per_binding.items()},
                          **tail_counts(2, W4)})
@@ -2686,9 +2753,9 @@ def main() -> int:
                       for k in kernels}
             seam_sols = run_path(f"seam prove_batch({BATCH})",
                                  lambda: in_worker(spz.prove_batch, epoch, address, nonces, None),
-                                 ["mont_mul", "fr_poseidon_permute", "fr_epoch_program",
-                                  "g1_horner_chain", "g1_bucket_fixup", "seg_prefix",
-                                  "bucket_scan_serial"],
+                                 ["mont_mul", "fr_poseidon_permute",
+                                  epoch_kernel(BATCH, K12), "g1_horner_chain",
+                                  "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
                                  absent=["g1_add", "bucket_scan", "bucket_scan_fast",
                                          "jadd_bucket_total"],
                                  exact=phase3)

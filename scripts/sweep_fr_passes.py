@@ -14,14 +14,28 @@ design choice undone:
 - ``unrolled``: the loops over slots and rows of a full round and the
   s-box's squarings unrolled (no rotation of the state);
 - ``no prefetch``: the epoch program without its L1 prefetch of the next
-  step's inputs between the cluster barrier's arrive and wait.
+  step's inputs between the cluster barrier's arrive and wait;
+- ``leaves at step 0``: the global epoch program without its packing pass
+  and the grid barrier after it, step 0 reading x and its partner from the
+  leaves' limbs (nonce-major);
+- ``4 blocks an SM``: the global epoch program's registers capped so that
+  four blocks of 256 threads fit an SM (``__launch_bounds__(256, 4)``);
+- ``128 threads``: the global epoch program in blocks of 128 threads;
+- ``l2 window``: the global epoch program launched with a persisting-L2
+  access window over its two buffers (``cudaLaunchKernelEx``, the device's
+  largest persisting carve-out, the hit ratio the carve-out over the
+  window); the carve-out is device-wide, so the entry waits for the launch
+  and resets it (``cudaCtxResetPersistingL2Cache``, limit 0), and its time
+  includes that wait.
 
 For each build it reports ptxas's registers, stack and spills for both
 widths, then times ``fr_poseidon_permute`` on one state at (3, 16, 32768),
 (3, 16, 65536), (3, 16, 2^22) and (5, 16, 4096) (edge lanes 0, 1, p - 1),
-and ``fr_epoch_program`` of the test fixture's epoch at (16, 8, 4096) and
-(16, 16, 4096) with clusters of 8 and of 16 blocks, holding every output
-limb for limb to the committed build's (CUDA events around one launch,
+``fr_epoch_program`` of the test fixture's epoch at (16, 8, 4096) and
+(16, 16, 4096) with clusters of 8 and of 16 blocks, and
+``fr_epoch_program_global`` at (16, 8, 4096), (16, 8, 2^16) and (16, 2,
+2^20) (a run of 3 launches, its time over 3), holding every output limb
+for limb to the committed build's (CUDA events around one launch,
 median of ``--reps`` after a warm-up). Prints a line per
 measurement and, last, one JSON line with the card's name and power limit,
 also written to ``chiprun_out/fr_sweep.json``. Needs nvcc and a CUDA
@@ -60,6 +74,57 @@ ROW_PLAIN = """    mont_mul<Fr>(r, s[0], m[0]);
         add<Fr>(r, r, prod);
     }
 """
+PACK_PASS = """    for (uint32_t e = first; e < n; e += stride) {  // the leaves into buffer 0
+        const uint32_t b = e / K, k = e - b * K;
+        uint32_t x[FN];
+        load<Fr>(x, v, n, e);
+        pack(scratch + 2 * (static_cast<int64_t>(k) * B + b), x);
+    }
+    grid.sync();
+"""
+BUFFER_READS = """            unpack_cg(x, cur + 2 * (static_cast<int64_t>(k) * B + b));
+            unpack_cg(u, cur + 2 * (static_cast<int64_t>(j) * B + b));
+"""
+LIMB_READS = """            if (s == 0) {
+                load<Fr>(x, v, n, static_cast<int64_t>(b) * K + k);
+                load<Fr>(u, v, n, static_cast<int64_t>(b) * K + j);
+            } else {
+    """ + BUFFER_READS.replace("\n", "\n    ").rstrip() + """
+            }
+"""
+COOP_LAUNCH = """    err = cudaLaunchCooperativeKernel((const void*)fr_epoch_program_global_kernel,
+                                      dim3(static_cast<unsigned>(blocks)), dim3(threads), args, 0,
+                                      static_cast<cudaStream_t>(stream));
+"""
+WINDOW_LAUNCH = """    (void)args;
+    int max_window = 0, max_persist = 0;
+    cudaDeviceGetAttribute(&max_window, cudaDevAttrMaxAccessPolicyWindowSize, dev);
+    cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize, dev);
+    cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, static_cast<size_t>(max_persist));
+    size_t window = 64 * static_cast<size_t>(n);
+    if (window > static_cast<size_t>(max_window)) window = static_cast<size_t>(max_window);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks), 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[2];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    attr[1].id = cudaLaunchAttributeAccessPolicyWindow;
+    attr[1].val.accessPolicyWindow.base_ptr = buf;
+    attr[1].val.accessPolicyWindow.num_bytes = window;
+    attr[1].val.accessPolicyWindow.hitRatio =
+        window > static_cast<size_t>(max_persist) ? float(max_persist) / float(window) : 1.0f;
+    attr[1].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+    attr[1].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+    err = cudaLaunchKernelEx(&cfg, fr_epoch_program_global_kernel, v, ps, words, out, buf, b32,
+                             k32, steps);
+    if (err == cudaSuccess) err = cudaStreamSynchronize(cfg.stream);
+    cudaCtxResetPersistingL2Cache();
+    cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
+"""
 # name: [(text of the committed source, its replacement)]
 VARIANTS = {
     "committed": [],
@@ -74,6 +139,17 @@ VARIANTS = {
          "#pragma unroll\n    for (int i = 0; i < T; ++i) {\n        dot_row")],
     "no prefetch": [("        if (threadIdx.x < nb && s + 1 < steps) {",
                      "        if (false) {")],
+    "leaves at step 0": [
+        (PACK_PASS, ""),
+        ("            if (last) {\n                b = e / K;",
+         "            if (last || s == 0) {\n                b = e / K;"),
+        (BUFFER_READS, LIMB_READS)],
+    "4 blocks an SM": [
+        ("__launch_bounds__(EPOCH_GLOBAL_THREADS)\n    fr_epoch_program_global_kernel(",
+         "__launch_bounds__(EPOCH_GLOBAL_THREADS, 4)\n    fr_epoch_program_global_kernel(")],
+    "128 threads": [("constexpr int EPOCH_GLOBAL_THREADS = 256;",
+                     "constexpr int EPOCH_GLOBAL_THREADS = 128;")],
+    "l2 window": [(COOP_LAUNCH, WINDOW_LAUNCH)],
 }
 PERMUTE_SHAPES = ((2, 32768), (2, 65536), (2, 1 << 22), (4, 4096))  # (rate, lanes)
 
@@ -148,11 +224,13 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     built = build_all(_build, os.path.join(ROOT, "build", "fr_sweep"))
     report = {"card": card, "variants": {}}
-    fns, programs = {}, {}
+    fns, programs, globals_ = {}, {}, {}
     for v, (lib, ptxas) in built.items():
-        for table, symbol in ((fns, "fr_poseidon_permute"), (programs, "fr_epoch_program")):
+        for table, symbol, ptrs, ints in ((fns, "fr_poseidon_permute", 6, 4),
+                                          (programs, "fr_epoch_program", 4, 4),
+                                          (globals_, "fr_epoch_program_global", 5, 3)):
             fn = getattr(ctypes.CDLL(lib), symbol)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int64] * ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             table[v] = fn
         report["variants"][v] = {"ptxas": ptxas_report(ptxas), "ms": {}}
@@ -186,7 +264,7 @@ def main() -> int:
             out = torch.empty_like(st)
 
             def run(fn=fn, out=out):
-                _build.launch(fn, (st, None, None, consts, out), (lanes, t, 0, t), dev)
+                _build.launch(fn, (st, None, None, consts, out, None), (lanes, t, 0, t), dev)
 
             ms = median_ms(run)
             outs[v] = out
@@ -202,8 +280,7 @@ def main() -> int:
     fixture = json.load(open(os.path.join(ROOT, "tests", "fixtures",
                                           "torch_puzzle_k12_b8.json")))
     prog = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), 4096, dev)
-    sels = prog.sels.reshape(puzzle_mod.EPOCH_STEPS, -1).contiguous()
-    perms, consts = prog.perms.contiguous(), prog.consts.contiguous()
+    ps, cw = prog.side_tables()
     for batch in (8, 16):
         v = torch.from_numpy(FR.random(batch * 4096, rng).reshape(FR.nlimbs, batch, 4096)).to(dev)
         want = None
@@ -212,7 +289,7 @@ def main() -> int:
                 out = torch.empty_like(v)
 
                 def run(fn=fn, out=out, cluster=cluster):
-                    _build.launch(fn, (v, perms, sels, consts, out),
+                    _build.launch(fn, (v, ps, cw, out),
                                   (batch, 4096, puzzle_mod.EPOCH_STEPS, cluster), dev)
 
                 ms = median_ms(run)
@@ -223,6 +300,29 @@ def main() -> int:
                 report["variants"][name]["ms"][f"epoch (16, {batch}, 4096) cluster {cluster}"] = ms
                 print(f"{name} epoch program (16, {batch}, 4096), clusters of {cluster}: "
                       f"{ms:.4f} ms on {card}", flush=True)
+    for batch, k in ((8, 4096), (8, 1 << 16), (2, 1 << 20)):
+        gprog = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), k, dev)
+        ps, cw = gprog.side_tables()
+        v = torch.from_numpy(FR.random(batch * k, rng).reshape(FR.nlimbs, batch, k)).to(dev)
+        want = None
+        for name, fn in globals_.items():
+            out, scratch = torch.empty_like(v), torch.empty_like(v)
+
+            def run(fn=fn, out=out, scratch=scratch):
+                for _ in range(3):
+                    _build.launch(fn, (v, ps, cw, out, scratch),
+                                  (batch, k, puzzle_mod.EPOCH_STEPS), dev)
+
+            ms = median_ms(run) / 3
+            want = out if want is None else want
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name} global epoch program (16, {batch}, {k}): output "
+                                     "differs from the committed build's")
+            report["variants"][name]["ms"][f"epoch global (16, {batch}, {k})"] = ms
+            print(f"{name} global epoch program (16, {batch}, {k}): {ms:.4f} ms on {card}",
+                  flush=True)
+        del gprog, ps, cw, v, want, out, scratch
+        torch.cuda.empty_cache()
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     line = json.dumps(report)
     with open(os.path.join(ROOT, "chiprun_out", "fr_sweep.json"), "w") as fh:

@@ -13,9 +13,10 @@ with the card's name and power limit and, each after a warm-up call:
 - ``poseidon.hash_fixed`` at (2, 16, 2^22), rate 2, the pipeline's domain,
   and ``entry.forward(2^22)``: ms a call (CUDA events around a call ending
   in a device sync, median of ``--reps``);
-- ``EpochProgram.apply`` of the test fixture's epoch at (16, 8, 4096) and
-  (16, 16, 4096): device ms (one call captured in a CUDA graph, median of
-  replays) and ms (events around one call);
+- ``EpochProgram.apply`` of the test fixture's epoch at (16, 8, 4096),
+  (16, 16, 4096), (16, 8, 2^16) and (16, 2, 2^20) (the last two: log
+  degree 16 and 20, the global variant): device ms (one call captured in a
+  CUDA graph, median of replays) and ms (events around one call);
 - ``Puzzle.prove_batch`` over 8 and 16 nonces at 2^12: solutions/s (median
   of ``--reps`` synced host-clock calls);
 - the launch count of every counted wrapper during one call of each path,
@@ -139,10 +140,7 @@ def main() -> int:
                 return 1
         prog = puzzle_mod.EpochProgram(bytes.fromhex(fixture["epoch_hash"]), 4096, dev)
         v = torch.from_numpy(FR.random(8 * 4096, rng).reshape(FR.nlimbs, 8, 4096)).to(dev)
-        want = v
-        for s in range(puzzle_mod.EPOCH_STEPS):
-            want = puzzle_mod.epoch_step_plain(want, prog.perms[s], prog.sels[s].reshape(-1),
-                                               prog.consts[s])
+        want = prog.apply_plain(v)
         if not torch.equal(prog.apply(v), want):
             print("time_fr_passes: the epoch program at (16, 8, 4096) != plain", file=sys.stderr)
             return 1
@@ -172,14 +170,15 @@ def main() -> int:
     del inputs, got, seed, ctr
 
     epoch = bytes.fromhex(fixture["epoch_hash"])
-    prog = puzzle_mod.EpochProgram(epoch, 4096, dev)
     progs = {}
-    for batch in (8, 16):
-        v = torch.from_numpy(FR.random(batch * 4096, rng).reshape(FR.nlimbs, batch, 4096)).to(dev)
+    for batch, k in ((8, 4096), (16, 4096), (8, 1 << 16), (2, 1 << 20)):
+        prog = puzzle_mod.EpochProgram(epoch, k, dev)
+        v = torch.from_numpy(FR.random(batch * k, rng).reshape(FR.nlimbs, batch, k)).to(dev)
         got, counts = launches(lambda: prog.apply(v))
-        progs[f"(16, {batch}, 4096)"] = {"device_ms": graph_ms(lambda: prog.apply(v), 1),
-                                         "ms": event_ms(lambda: prog.apply(v)),
-                                         "launches": counts, "sha": digest(got)}
+        progs[f"(16, {batch}, {k})"] = {"device_ms": graph_ms(lambda: prog.apply(v), 1),
+                                        "ms": event_ms(lambda: prog.apply(v)),
+                                        "launches": counts, "sha": digest(got)}
+        del prog, v, got
     out["epoch_program"] = progs
 
     puzzle = puzzle_mod.Puzzle(log_degree=fixture["log_degree"])

@@ -89,5 +89,4 @@ def epoch_program(epoch_hash: bytes, perms, sels, consts, device=None) -> EpochP
     if consts.shape != (EPOCH_STEPS, FR.nlimbs, k):
         raise ValueError(f"consts: expected {(EPOCH_STEPS, FR.nlimbs, k)}, got {consts.shape}")
     return EpochProgram.from_tensors(
-        epoch_hash, *(torch.from_numpy(np.array(a)).to(device)
-                      for a in (perms, sels, consts)))
+        epoch_hash, *(torch.from_numpy(np.array(a)) for a in (perms, sels, consts)), device=device)

@@ -2,16 +2,19 @@
 //   fr_poseidon_permute  the Poseidon sponge of ops/poseidon.py (hash_fixed:
 //                        the capacity seed, the absorbs, every permutation,
 //                        the squeeze) or one permutation of a given state,
-//                        one lane a thread, the state in registers;
+//                        one lane a thread: at widths t = 2 .. 9 the state
+//                        in registers (a template a width), at any wider t
+//                        in a global scratch (one kernel of runtime width);
 //   fr_epoch_program     all steps of the epoch program of ops/puzzle.py
 //                        (EpochProgram.apply), one cluster of blocks a
 //                        nonce (16 from K = 16 lanes on), the nonce's state
 //                        in the cluster's shared memory, for K up to 58,112
-//                        lanes (ops/puzzle.py: epoch_plan);
-//   fr_epoch_program_global  the same steps for any K (the prover's path
-//                        takes it above 58,112 lanes, log degree 16 and
-//                        up): one cooperative launch, the lanes in two
-//                        global buffers, a grid barrier a step.
+//                        lanes;
+//   fr_epoch_program_global  the same steps for any B x K: one cooperative
+//                        launch, the lanes in two global buffers with the B
+//                        nonces of a lane side by side, a grid barrier a
+//                        step. ops/puzzle.py: epoch_plan picks the variant
+//                        on (B, K).
 //
 // Replace the TPU kernel snarkos_tpu/ops/modarith.py `_mont_mul_pallas`
 // (lines 171-208) where the JAX package runs these passes as XLA-fused
@@ -22,17 +25,19 @@
 // being independent of every other's; the design cuts them with the sparse
 // partial rounds of the Poseidon paper (appendix B; constants derived and
 // packed by ops/poseidon.py: kernel_consts), each MDS row summed as
-// unreduced 512-bit products and reduced once, and a squaring that forms
-// each cross product once. What holds it at about twice that bound is the
-// instructions issued (the chains' adds and moves): the squaring saves 28
-// of 64 word products and ties field.cuh's multiply on time
-// (scripts/sweep_fr_passes.py). The epoch program: one product a lane a
-// step before the bytes, and at the prover's widths the latency of its 12
-// dependent steps (a remote load, a product, a cluster barrier); the design
-// keeps the state on chip between the steps. In global memory (large K) a
-// step reads each lane, its partner and its constant and writes the lane:
-// 32-byte lines, the partners at random; at 8 x 2^16 lanes the two buffers
-// (32 MiB) stay in L2, at 2 x 2^20 (128 MiB) the partner reads go to HBM.
+// unreduced 512-bit products and reduced once (in chunks of 13 products at
+// the wide widths), and a squaring that forms each cross product once. What
+// holds it at about twice that bound is the instructions issued (the
+// chains' adds and moves): the squaring saves 28 of 64 word products and
+// ties field.cuh's multiply on time (scripts/sweep_fr_passes.py). The wide
+// kernel's state, 64 t bytes a lane, is read and written through L1 and
+// L2. The epoch program: one product a lane a step before the bytes,
+// and at the prover's widths the latency of its 12 dependent steps (a
+// remote load, a product, a cluster barrier); the cluster variant keeps the
+// state on chip between the steps. In global memory a step reads each lane,
+// its partner and its constant and writes the lane; with a lane's B nonces
+// side by side a partner is one run of B x 32 bytes, and a lane's constant
+// and wiring word are read once for its B nonces.
 #include <cooperative_groups.h>
 
 #include "field.cuh"
@@ -413,17 +418,216 @@ static int launch_poseidon(const int32_t* state, const int32_t* inputs, const in
     return static_cast<int>(cudaGetLastError());
 }
 
-// t = rate + 1 state slots, t = 2 .. 9: the rates 1 - 8 (snarkVM's
-// Poseidon2, 4 and 8 among them; the prover's leaves, the pipeline and the
-// challenge use 2); any other width is refused. state null: the sponge
-// (inputs, domain, n_in, n_out >= 1); else one permutation (n_in 0, n_out t).
+// -- the sponge at any width: the state in a global scratch -----------------------
+
+// An MDS row's products summed unreduced at most this many at a time: the
+// bound of dot_row, so that each chunk reduces once as redc_wide needs.
+constexpr int ROW_CHUNK = 13;
+constexpr int WIDE_THREADS = 64;
+
+// One lane's t state slots in the scratch: slot i's word w at p[(i FN + w)
+// stride], stride the lanes B, so that a warp's threads touch consecutive
+// words.
+struct Slots {
+    uint32_t* p;
+    int64_t stride;
+    __device__ __forceinline__ void get(uint32_t* x, int i) const {
+#pragma unroll
+        for (int w = 0; w < FN; ++w) x[w] = p[(static_cast<int64_t>(i) * FN + w) * stride];
+    }
+    __device__ __forceinline__ void put(int i, const uint32_t* x) const {
+#pragma unroll
+        for (int w = 0; w < FN; ++w) p[(static_cast<int64_t>(i) * FN + w) * stride] = x[w];
+    }
+};
+
+// constant k of the packed words (kernel_layout order, 32 bytes an element);
+// every lane of a warp reads the same one
+__device__ __forceinline__ void const_word(uint32_t* x, const uint4* __restrict__ cw, int64_t k) {
+    const uint4 lo = __ldg(cw + 2 * k), hi = __ldg(cw + 2 * k + 1);
+    x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+    x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+}
+
+// r = sum_j c[m + j] s[j] R^-1 mod p over the t slots: chunks of at most
+// ROW_CHUNK unreduced products, each reduced once to a canonical value, the
+// chunks summed mod p.
+__device__ __forceinline__ void wide_row(uint32_t* r, const uint4* __restrict__ cw, int64_t m,
+                                         const Slots& s, int t) {
+#pragma unroll 1
+    for (int j0 = 0; j0 < t; j0 += ROW_CHUNK) {
+        const int j1 = min(t, j0 + ROW_CHUNK);
+        uint32_t acc[WIDE], a[FN], c[FN];
+        s.get(a, j0);
+        const_word(c, cw, m + j0);
+        mul_wide(acc, a, c);
+#pragma unroll 1
+        for (int j = j0 + 1; j < j1; ++j) {
+            uint32_t prod[WIDE];
+            s.get(a, j);
+            const_word(c, cw, m + j);
+            mul_wide(prod, a, c);
+            add_wide(acc, prod);
+        }
+        if (j0 == 0) {
+            redc_wide(r, acc);
+        } else {
+            redc_wide(a, acc);
+            add<Fr>(r, r, a);
+        }
+    }
+}
+
+// permute_state at runtime width t: s holds the state, o the second copy a
+// full round writes; the two are swapped after each full round.
+__device__ __forceinline__ void permute_wide(Slots& s, Slots& o, const uint4* __restrict__ cw,
+                                             int t) {
+    const int64_t tt = static_cast<int64_t>(t) * t;
+    const int64_t mds = POSEIDON_HALF_FULL * t, m_pre = mds + tt, pre = m_pre + tt;
+    const int64_t partial = pre + t, ark_last = partial + POSEIDON_PARTIAL * 2 * t;
+#pragma unroll 1
+    for (int r = 0; r < POSEIDON_FULL; ++r) {
+        const int64_t ark = r < POSEIDON_HALF_FULL ? r * t : ark_last + (r - POSEIDON_HALF_FULL) * t;
+        uint32_t x[FN], c[FN];
+#pragma unroll 1
+        for (int i = 0; i < t; ++i) {
+            s.get(x, i);
+            const_word(c, cw, ark + i);
+            add<Fr>(x, x, c);
+            sbox17(x);
+            s.put(i, x);
+        }
+        const int64_t m = r == POSEIDON_HALF_FULL - 1 ? m_pre : mds;
+#pragma unroll 1
+        for (int i = 0; i < t; ++i) {
+            wide_row(x, cw, m + static_cast<int64_t>(i) * t, s, t);
+            o.put(i, x);
+        }
+        const Slots tmp = s;
+        s = o;
+        o = tmp;
+        if (r == POSEIDON_HALF_FULL - 1) {
+#pragma unroll 1
+            for (int i = 0; i < t; ++i) {
+                s.get(x, i);
+                const_word(c, cw, pre + i);
+                add<Fr>(x, x, c);
+                s.put(i, x);
+            }
+#pragma unroll 1
+            for (int p = 0; p < POSEIDON_PARTIAL; ++p) {  // post, row0 (t), w (t - 1)
+                const int64_t k = partial + static_cast<int64_t>(p) * 2 * t;
+                uint32_t x0[FN], new0[FN];
+                s.get(x0, 0);
+                sbox17(x0);
+                const_word(c, cw, k);
+                add<Fr>(x0, x0, c);
+                s.put(0, x0);
+                wide_row(new0, cw, k + 1, s, t);
+#pragma unroll 1
+                for (int i = 1; i < t; ++i) {
+                    const_word(c, cw, k + t + i);
+                    mont_mul<Fr>(c, x0, c);
+                    s.get(x, i);
+                    add<Fr>(x, x, c);
+                    s.put(i, x);
+                }
+                s.put(0, new0);
+            }
+        }
+    }
+}
+
+// fr_poseidon_kernel's two modes at any width t, one lane a thread, the
+// lane's two state copies in ``scratch`` ((2 t, FN, B) words). cw: the
+// constants as 32-byte Montgomery words (ops/poseidon.py: kernel_words),
+// read through the read-only cache. A thread touches only its own lane's
+// slots, so that it reads back what it wrote through its SM's L1: no
+// barrier.
+__global__ void __launch_bounds__(WIDE_THREADS)
+    fr_poseidon_wide_kernel(const int32_t* __restrict__ state, const int32_t* __restrict__ inputs,
+                            const int32_t* __restrict__ domain, const uint4* __restrict__ cw,
+                            int32_t* __restrict__ out, uint32_t* scratch, int64_t B, int t,
+                            int64_t n_in, int64_t n_out) {
+    const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (e >= B) return;
+    Slots s{scratch + e, B};
+    Slots o{s.p + static_cast<int64_t>(t) * FN * B, B};
+    uint32_t x[FN];
+    if (state != nullptr) {
+#pragma unroll 1
+        for (int i = 0; i < t; ++i) {
+            load<Fr>(x, state + 16 * B * i, B, e);
+            s.put(i, x);
+        }
+    } else {
+        load<Fr>(x, domain, 1, 0);
+        s.put(0, x);
+#pragma unroll
+        for (int w = 0; w < FN; ++w) x[w] = 0;
+#pragma unroll 1
+        for (int i = 1; i < t; ++i) s.put(i, x);
+    }
+    const int first = state != nullptr ? 0 : 1;
+    int64_t k = 0, n = 0;
+    auto absorb = [&]() {
+#pragma unroll 1
+        for (int i = 1; i < t && k < n_in; ++i, ++k) {
+            uint32_t y[FN];
+            load<Fr>(y, inputs + 16 * B * k, B, e);
+            s.get(x, i);
+            add<Fr>(x, x, y);
+            s.put(i, x);
+        }
+    };
+    absorb();
+    for (;;) {
+        permute_wide(s, o, cw, t);
+        if (k < n_in) {
+            absorb();
+            continue;
+        }
+#pragma unroll 1
+        for (int i = first; i < t && n < n_out; ++i, ++n) {
+            s.get(x, i);
+            store<Fr>(out + 16 * B * n, x, B, e);
+        }
+        if (n >= n_out) break;
+    }
+}
+
+static int launch_poseidon_wide(const int32_t* state, const int32_t* inputs,
+                                const int32_t* domain, const int32_t* consts, int32_t* out,
+                                int32_t* scratch, int64_t B, int t, int64_t n_in, int64_t n_out,
+                                void* stream) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    int threads = lane_threads(B);
+    if (threads > WIDE_THREADS) threads = WIDE_THREADS;
+    const int64_t blocks = (B + threads - 1) / threads;
+    fr_poseidon_wide_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        state, inputs, domain, reinterpret_cast<const uint4*>(consts), out,
+        reinterpret_cast<uint32_t*>(scratch), B, t, n_in, n_out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// t = rate + 1 state slots, t >= 2. At t = 2 .. 9 (the rates 1 - 8:
+// snarkVM's Poseidon2, 4 and 8 among them; the prover's leaves, the
+// pipeline and the challenge use 2) the register template of that width,
+// consts the limbs of kernel_consts, scratch unused; at any wider t the
+// wide kernel, consts the words of kernel_words, scratch (2 t, 8, B) words.
+// state null: the sponge (inputs, domain, n_in, n_out >= 1); else one
+// permutation (n_in 0, n_out t).
 extern "C" int fr_poseidon_permute(const int32_t* state, const int32_t* inputs,
                                    const int32_t* domain, const int32_t* consts, int32_t* out,
-                                   int64_t B, int64_t t, int64_t n_in, int64_t n_out,
-                                   void* stream) {
-    if (n_out < 1 || (state != nullptr && (n_in != 0 || n_out != t)) ||
+                                   int32_t* scratch, int64_t B, int64_t t, int64_t n_in,
+                                   int64_t n_out, void* stream) {
+    if (n_out < 1 || t < 2 || t > 0x7FFFFFFF || (state != nullptr && (n_in != 0 || n_out != t)) ||
         (state == nullptr && domain == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
+    if (t > 9)
+        return launch_poseidon_wide(state, inputs, domain, consts, out, scratch, B,
+                                    static_cast<int>(t), n_in, n_out, stream);
     switch (t) {
 #define FR_POSEIDON_WIDTH(W) \
     case W:                  \
@@ -449,13 +653,16 @@ constexpr int EPOCH_GLOBAL_THREADS = 256;
 constexpr int EPOCH_MAX_CLUSTER = 16;
 constexpr size_t EPOCH_MAX_SMEM = 227 * 1024;
 
-// v, out: (16, B, K) limbs; perms, sels: (steps, K) int32; consts: (steps,
-// 16, K) limbs. Step s: lane (b, k) pairs v with its partner u = v at (b,
-// perms[s][k]) and takes, by sels[s][k], v u + c, v^2 + u, v c - u or (else)
-// v^2 - u^2 + c, the last as (v - u)(v + u) + c: one product a lane, the
-// operands picked by the selector, so that a warp's lanes never diverge on a
-// product. A lane is 32 bytes in the buffers between steps (two 16-byte
-// words, so that a partner comes in two loads).
+// v, out: (16, B, K) limbs; ps: (steps, K) int32 wiring words, perm |
+// sel << 30; cw: (steps, K) constants as 32-byte Montgomery words
+// (ops/puzzle.py: side_tables, built once an epoch). Step s: lane (b, k)
+// pairs v with its partner u = v at (b, perm) and takes, by sel, v u + c,
+// v^2 + u, v c - u or (else) v^2 - u^2 + c, the last as (v - u)(v + u) + c:
+// one product a lane, the operands picked by the selector, so that a warp's
+// lanes never diverge on a product. A lane is 32 bytes in the buffers
+// between steps (two 16-byte words, so that a partner comes in two loads).
+constexpr uint32_t EPOCH_PERM_MASK = 0x3FFFFFFFu;
+
 __device__ __forceinline__ void unpack(uint32_t* x, const uint4* src) {
     const uint4 lo = src[0], hi = src[1];
     x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
@@ -466,6 +673,13 @@ __device__ __forceinline__ void unpack(uint32_t* x, const uint4* src) {
 // launch, and the per-SM L1 is not coherent
 __device__ __forceinline__ void unpack_cg(uint32_t* x, const uint4* src) {
     const uint4 lo = __ldcg(src), hi = __ldcg(src + 1);
+    x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+    x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+}
+
+// unpack through the read-only cache: a table no thread writes in the launch
+__device__ __forceinline__ void unpack_ldg(uint32_t* x, const uint4* src) {
+    const uint4 lo = __ldg(src), hi = __ldg(src + 1);
     x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
     x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
 }
@@ -508,12 +722,12 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 // (distributed shared memory), and writes its lane into the other; one
 // cluster barrier a step orders every read of a buffer before the step that
 // overwrites it. Between its arrive and its wait a thread prefetches the
-// next step's perm, sel and constant of its first lane into L1. The leaves
-// are read and the coefficients written once.
+// next step's wiring word and constant of its first lane into L1. The
+// leaves are read and the coefficients written once.
 __global__ void __launch_bounds__(EPOCH_MAX_THREADS)
-    fr_epoch_program_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ perms,
-                            const int32_t* __restrict__ sels, const int32_t* __restrict__ consts,
-                            int32_t* __restrict__ out, int64_t B, int64_t K, int64_t steps) {
+    fr_epoch_program_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ ps,
+                            const uint4* __restrict__ cw, int32_t* __restrict__ out, int64_t B,
+                            int64_t K, int64_t steps) {
     extern __shared__ uint4 buf[];  // [2][kb][2]
     cg::cluster_group cluster = cg::this_cluster();
     const int csize = static_cast<int>(cluster.num_blocks());
@@ -535,22 +749,20 @@ __global__ void __launch_bounds__(EPOCH_MAX_THREADS)
         uint4* nxt = buf + ((s + 1) & 1) * 2 * kb;
         for (int kk = threadIdx.x; kk < nb; kk += blockDim.x) {
             const int64_t k = k0 + kk;
-            const int j = perms[s * K + k];
-            const int sl = sels[s * K + k];
+            const uint32_t word = static_cast<uint32_t>(__ldg(ps + s * K + k));
+            const int j = static_cast<int>(word & EPOCH_PERM_MASK);
             uint32_t x[FN], u[FN], cc[FN], r[FN];
             unpack(x, cur + 2 * kk);
             unpack(u, cluster.map_shared_rank(cur, j / kb) + 2 * (j % kb));
-            load<Fr>(cc, consts + s * 16 * K, K, k);
-            epoch_lane(r, x, u, cc, sl);
+            unpack_ldg(cc, cw + 2 * (s * K + k));
+            epoch_lane(r, x, u, cc, static_cast<int>(word >> 30));
             pack(nxt + 2 * kk, r);
         }
         asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
         const int64_t k = k0 + threadIdx.x;
         if (threadIdx.x < nb && s + 1 < steps) {
-            prefetch_l1(perms + (s + 1) * K + k);
-            prefetch_l1(sels + (s + 1) * K + k);
-#pragma unroll
-            for (int l = 0; l < 16; ++l) prefetch_l1(consts + ((s + 1) * 16 + l) * K + k);
+            prefetch_l1(ps + (s + 1) * K + k);
+            prefetch_l1(cw + 2 * ((s + 1) * K + k));  // 32 bytes, one line
         }
         asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
     }
@@ -567,10 +779,11 @@ __global__ void __launch_bounds__(EPOCH_MAX_THREADS)
 // with a block's two buffers of ceil(K / cluster) lanes (64 bytes a lane)
 // in its 227 KiB of shared memory. ops/puzzle.py's epoch_plan picks
 // min(16, the largest power of two <= K), so that this entry takes K = 1 ..
-// 58,112; every other case is refused (cudaErrorInvalidValue).
-extern "C" int fr_epoch_program(const int32_t* v, const int32_t* perms, const int32_t* sels,
-                                const int32_t* consts, int32_t* out, int64_t B, int64_t K,
-                                int64_t steps, int64_t cluster, void* stream) {
+// 58,112; every other case is refused (cudaErrorInvalidValue). ps (steps,
+// K) and cw (steps, K, 8) int32 as ops/puzzle.py: side_tables builds them.
+extern "C" int fr_epoch_program(const int32_t* v, const int32_t* ps, const int32_t* cw,
+                                int32_t* out, int64_t B, int64_t K, int64_t steps,
+                                int64_t cluster, void* stream) {
     if (B < 1 || K < 1 || steps < 0 || cluster < 1 || cluster > EPOCH_MAX_CLUSTER ||
         (cluster & (cluster - 1)) != 0 || cluster > K || B * cluster > 0x7FFFFFFF)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -599,74 +812,91 @@ extern "C" int fr_epoch_program(const int32_t* v, const int32_t* perms, const in
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, fr_epoch_program_kernel, v, perms, sels, consts, out, B, K,
-                             steps);
+    err = cudaLaunchKernelEx(&cfg, fr_epoch_program_kernel, v, ps,
+                             reinterpret_cast<const uint4*>(cw), out, B, K, steps);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
-// The same steps with the lanes in global memory, for any K: one cooperative
+// The same steps for any B x K, the lanes in global memory: one cooperative
 // launch of at most the co-resident blocks, each thread walking the n = B K
-// lanes grid-strided (lane e = b K + k). Two buffers of n lanes, 32 bytes a
-// lane, in ``scratch`` (64 n bytes, the size of the output): the leaves are
-// packed into buffer 0, step s reads buffer s & 1 (the lane and its partner
-// b K + perms[s][k], through L2) and writes the other, the last step writes
-// the output's limbs; a grid barrier between steps. No __restrict__ on
-// scratch: it is written and read again within the launch.
+// lanes grid-strided, one at a time. Between steps the lanes live in two
+// buffers of ``scratch`` (64 n bytes, the size of the output), 32 bytes a
+// lane, lane (b, k) at k B + b: the B nonces of a lane side by side, so
+// that a partner's B values are one run of B x 32 bytes and the threads of
+// a lane's B nonces sit side by side in a warp and read its wiring word and
+// constant once between them. ps, cw: the side tables, as for the
+// cluster variant. A first pass packs the leaves' limbs into buffer 0 (read
+// nonce-major, b K + k, so that a warp's limb loads are consecutive; a
+// partner read from the limbs would be 16 scattered sectors); step s reads
+// buffer s & 1 through L2 (other blocks wrote it in this launch; the per-SM
+// L1 is not coherent) and writes the other, the last step the output's
+// limbs, nonce-major again. A grid barrier between passes. No __restrict__
+// on scratch: it is written and read again within the launch.
 __global__ void __launch_bounds__(EPOCH_GLOBAL_THREADS)
-    fr_epoch_program_global_kernel(const int32_t* __restrict__ v,
-                                   const int32_t* __restrict__ perms,
-                                   const int32_t* __restrict__ sels,
-                                   const int32_t* __restrict__ consts, int32_t* __restrict__ out,
-                                   uint4* scratch, int64_t B, int64_t K, int64_t steps) {
+    fr_epoch_program_global_kernel(const int32_t* __restrict__ v, const int32_t* __restrict__ ps,
+                                   const uint4* __restrict__ cw, int32_t* __restrict__ out,
+                                   uint4* scratch, uint32_t B, uint32_t K, int64_t steps) {
     cg::grid_group grid = cg::this_grid();
-    const int64_t n = B * K;
-    const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    const uint32_t n = B * K;
+    const uint32_t first = blockIdx.x * blockDim.x + threadIdx.x;
+    const uint32_t stride = gridDim.x * blockDim.x;
     if (steps == 0) {
-        for (int64_t e = first; e < n; e += stride) {
+        for (uint32_t e = first; e < n; e += stride) {
             uint32_t x[FN];
             load<Fr>(x, v, n, e);
             store<Fr>(out, x, n, e);
         }
         return;
     }
-    for (int64_t e = first; e < n; e += stride) {
+    for (uint32_t e = first; e < n; e += stride) {  // the leaves into buffer 0
+        const uint32_t b = e / K, k = e - b * K;
         uint32_t x[FN];
         load<Fr>(x, v, n, e);
-        pack(scratch + 2 * e, x);
+        pack(scratch + 2 * (static_cast<int64_t>(k) * B + b), x);
     }
     grid.sync();
     for (int64_t s = 0; s < steps; ++s) {
-        const uint4* cur = scratch + (s & 1) * 2 * n;
-        uint4* nxt = scratch + ((s + 1) & 1) * 2 * n;
-        const bool last = s + 1 == steps;
-        for (int64_t e = first; e < n; e += stride) {
-            const int64_t b = e / K;
-            const int64_t k = e - b * K;
-            const int64_t j = perms[s * K + k];
-            const int sl = sels[s * K + k];
-            uint32_t x[FN], u[FN], cc[FN], r[FN];
-            unpack_cg(x, cur + 2 * e);
-            unpack_cg(u, cur + 2 * (b * K + j));
-            load<Fr>(cc, consts + s * 16 * K, K, k);
-            epoch_lane(r, x, u, cc, sl);
+        const uint4* cur = scratch + (s & 1) * 2 * static_cast<int64_t>(n);
+        uint4* nxt = scratch + ((s + 1) & 1) * 2 * static_cast<int64_t>(n);
+        const bool last = s + 1 == steps;  // writes the output's limbs: nonce-major
+        const int32_t* ps_s = ps + s * K;
+        const uint4* cw_s = cw + 2 * s * K;
+        for (uint32_t e = first; e < n; e += stride) {
+            uint32_t b, k;
             if (last) {
-                store<Fr>(out, r, n, e);
+                b = e / K;
+                k = e - b * K;
             } else {
-                pack(nxt + 2 * e, r);
+                k = e / B;
+                b = e - k * B;
+            }
+            const uint32_t word = static_cast<uint32_t>(__ldg(ps_s + k));
+            const uint32_t j = word & EPOCH_PERM_MASK;
+            uint32_t x[FN], u[FN], cc[FN], y[FN];
+            unpack_cg(x, cur + 2 * (static_cast<int64_t>(k) * B + b));
+            unpack_cg(u, cur + 2 * (static_cast<int64_t>(j) * B + b));
+            unpack_ldg(cc, cw_s + 2 * static_cast<int64_t>(k));
+            epoch_lane(y, x, u, cc, static_cast<int>(word >> 30));
+            if (last) {
+                store<Fr>(out, y, n, static_cast<int64_t>(b) * K + k);
+            } else {
+                pack(nxt + 2 * (static_cast<int64_t>(k) * B + b), y);
             }
         }
         if (!last) grid.sync();
     }
 }
 
-// Any B, K >= 1; scratch holds 64 B K bytes (a (16, B, K) int32 tensor).
-extern "C" int fr_epoch_program_global(const int32_t* v, const int32_t* perms,
-                                       const int32_t* sels, const int32_t* consts, int32_t* out,
-                                       int32_t* scratch, int64_t B, int64_t K, int64_t steps,
-                                       void* stream) {
-    if (B < 1 || K < 1 || steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+// Any B, K >= 1 with K < 2^30 (the wiring word) and B K < 2^31 (the leaves
+// alone would then pass the card's memory); ps (steps, K) and cw (steps,
+// K, 8) int32 as ops/puzzle.py: side_tables builds them; scratch holds 64 B
+// K bytes (a (16, B, K) int32 tensor).
+extern "C" int fr_epoch_program_global(const int32_t* v, const int32_t* ps, const int32_t* cw,
+                                       int32_t* out, int32_t* scratch, int64_t B, int64_t K,
+                                       int64_t steps, void* stream) {
+    if (B < 1 || K < 1 || K > 0x3FFFFFFF || B * K > 0x7FFFFFFF || steps < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     constexpr int threads = EPOCH_GLOBAL_THREADS;
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -680,8 +910,10 @@ extern "C" int fr_epoch_program_global(const int32_t* v, const int32_t* perms,
     const int64_t resident = static_cast<int64_t>(per_sm) * sms;
     if (blocks > resident) blocks = resident;
     if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    const uint4* words = reinterpret_cast<const uint4*>(cw);
     uint4* buf = reinterpret_cast<uint4*>(scratch);
-    void* args[] = {&v, &perms, &sels, &consts, &out, &buf, &B, &K, &steps};
+    uint32_t b32 = static_cast<uint32_t>(B), k32 = static_cast<uint32_t>(K);
+    void* args[] = {&v, &ps, &words, &out, &buf, &b32, &k32, &steps};
     err = cudaLaunchCooperativeKernel((const void*)fr_epoch_program_global_kernel,
                                       dim3(static_cast<unsigned>(blocks)), dim3(threads), args, 0,
                                       static_cast<cudaStream_t>(stream));

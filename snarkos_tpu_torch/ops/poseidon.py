@@ -2,11 +2,15 @@
 
 Bit-exact against crypto/ref/poseidon.py. The batch axis is data-parallel.
 On a CUDA tensor ``hash_fixed`` is one launch of ``fr_poseidon_permute``
-(``csrc/fr_passes.cu``, kernel B1's Fr pass): the kernel seeds the capacity
-slot, absorbs the inputs, runs every permutation and writes only the
-squeezed slots. ``permute`` is the same launch on a given state. On a CPU
-tensor both run the plain version, one field op at a time: the x^17 s-box
-is four squarings and a multiply, the MDS mix t^2 constant multiplies.
+(``csrc/fr_passes.cu``, kernel B1's Fr pass) at any rate >= 1: the kernel
+seeds the capacity slot, absorbs the inputs, runs every permutation and
+writes only the squeezed slots. ``permute`` is the same launch on a given
+state. Rates 1-8 run a kernel built for their width with the state in
+registers; wider states run one kernel of runtime width with the state in
+a global scratch (``REGISTER_RATES``). On a CPU tensor both run the plain
+version, the dense rounds with a round's slots in each field op together:
+the x^17 s-box is four squarings and a multiply, the MDS mix t^2 constant
+multiplies in one call and t - 1 adds.
 
 The kernel runs the permutation in the optimized form of the Poseidon paper
 (Grassi et al., USENIX Security 2021, appendix B), exact algebra over Fr
@@ -39,11 +43,14 @@ FULL_ROUNDS = ref.FULL_ROUNDS
 PARTIAL_ROUNDS = ref.PARTIAL_ROUNDS
 ROUNDS = FULL_ROUNDS + PARTIAL_ROUNDS
 HALF_FULL = FULL_ROUNDS // 2
-# the rates whose state widths the permute kernel is built for: 1 - 8, the
-# widths t = 2 .. 9 (snarkVM defines Poseidon2, 4 and 8; the callers of
-# either package use 2 and 4). An MDS row's unreduced sum bounds t at 13
-# (fr_passes.cu: dot_row).
-KERNEL_RATES = tuple(range(1, 9))
+# the rates of the register template (fr_passes.cu: fr_poseidon_kernel<T>),
+# one kernel a width t = 2 .. 9 (snarkVM defines Poseidon2, 4 and 8; the
+# callers of either package use 2 and 4); every wider state runs the
+# runtime-width kernel (fr_poseidon_wide_kernel), its MDS rows reduced in
+# chunks of at most ROW_CHUNK products (dot_row's bound: an unreduced sum
+# of 13 stays below p R)
+REGISTER_RATES = tuple(range(1, 9))
+ROW_CHUNK = 13
 P = FR.p
 
 
@@ -170,8 +177,20 @@ def kernel_consts(rate: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def kernel_words(rate: int) -> torch.Tensor:
+    """``kernel_consts`` as 32-bit Montgomery words, (size, 8) int32 (word w
+    = limb 2w | limb 2w + 1 << 16): the runtime-width kernel reads a constant
+    as two 16-byte loads."""
+    limbs = kernel_consts(rate).numpy().astype(np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(
+        (limbs[:, 0::2] | (limbs[:, 1::2] << 16)).view(np.int32)))
+
+
+@functools.lru_cache(maxsize=None)
 def _device_kernel_consts(rate: int, device: torch.device) -> torch.Tensor:
-    return kernel_consts(rate).to(device)
+    """The constants in the form the rate's kernel reads."""
+    table = kernel_consts(rate) if rate in REGISTER_RATES else kernel_words(rate)
+    return table.to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,12 +206,12 @@ def _domain_limbs(domain: str, device: torch.device) -> torch.Tensor:
 
 
 def _consts(rate: int, device: torch.device):
-    """(ark, mds) for the plain version: ark (ROUNDS, t, L, 1), mds
-    (t, t, L, 1)."""
+    """(ark, mds) for the plain version, limbs first: ark (ROUNDS, L, t, 1),
+    mds (L, t, t, 1)."""
     t = rate + 1
     packed = _device_consts(rate, device)
-    return (packed[:ROUNDS * t].reshape(ROUNDS, t, FR.nlimbs, 1),
-            packed[ROUNDS * t:].reshape(t, t, FR.nlimbs, 1))
+    return (packed[:ROUNDS * t].reshape(ROUNDS, t, FR.nlimbs, 1).permute(0, 2, 1, 3),
+            packed[ROUNDS * t:].reshape(t, t, FR.nlimbs, 1).permute(2, 0, 1, 3))
 
 
 def _sbox(x: torch.Tensor) -> torch.Tensor:
@@ -203,34 +222,32 @@ def _sbox(x: torch.Tensor) -> torch.Tensor:
     return fa.mont_mul_plain(FR, y, x)
 
 
-def _mix(state: list, mds: torch.Tensor) -> list:
-    """MDS matrix multiply: out_i = sum_j mds[i][j] * s_j."""
-    t = len(state)
-    rows = []
-    for i in range(t):
-        acc = None
-        for j in range(t):
-            term = fa.mont_mul_plain(FR, mds[i, j], state[j])
-            acc = term if acc is None else fa.add(FR, acc, term)
-        rows.append(acc)
-    return rows
+def _mix(state: torch.Tensor, mds: torch.Tensor) -> torch.Tensor:
+    """MDS matrix multiply on (L, t, B) state: out_i = sum_j mds[i][j] * s_j,
+    the t^2 products in one multiply over (L, t, t, B), then t - 1 adds."""
+    prods = fa.mont_mul_plain(FR, mds, state.unsqueeze(1))
+    acc = prods[:, :, 0]
+    for j in range(1, state.shape[1]):
+        acc = fa.add(FR, acc, prods[:, :, j])
+    return acc
 
 
 def permute_plain(state: torch.Tensor, rate: int) -> torch.Tensor:
     """Plain PyTorch version of the permutation on (t, L, B) state
-    (Montgomery form), on any device."""
+    (Montgomery form), on any device: a round's t slots in each field op
+    together, the dense rounds of ``ref.permute``."""
     ark, mds = _consts(rate, state.device)
     t = rate + 1
     assert state.shape[0] == t
-    s = list(state)
+    s = state.transpose(0, 1)  # (L, t, B)
     for rnd in range(ROUNDS):
-        s = [fa.add(FR, s[i], ark[rnd, i]) for i in range(t)]
+        s = fa.add(FR, s, ark[rnd])
         if rnd < HALF_FULL or rnd >= HALF_FULL + PARTIAL_ROUNDS:
-            s = [_sbox(v) for v in s]
+            s = _sbox(s)
         else:
-            s[0] = _sbox(s[0])
+            s = torch.cat([_sbox(s[:, :1]), s[:, 1:]], dim=1)
         s = _mix(s, mds)
-    return torch.stack(s)
+    return s.transpose(0, 1).contiguous()
 
 
 def hash_plain(inputs: torch.Tensor, rate: int, domain: str = "",
@@ -265,10 +282,11 @@ def sponge_kernel(rate: int, state=None, inputs=None, domain: str = "",
     modes. With ``state`` (rate + 1, L, B): one permutation of it, all t
     slots written. Else the sponge over ``inputs`` (n, L, B): the capacity
     slot seeded from ``domain``, the inputs absorbed and ``num_outputs``
-    slots squeezed, (num_outputs, L, B) written. Rates other than
-    ``KERNEL_RATES`` raise."""
-    if rate not in KERNEL_RATES:
-        raise ValueError(f"sponge_kernel: no kernel for rate {rate} (built for {KERNEL_RATES})")
+    slots squeezed, (num_outputs, L, B) written. Any rate >= 1: a rate < 1
+    has no slot to absorb into and raises. Above ``REGISTER_RATES`` the
+    state lives in a scratch tensor of (2 t, 8, B) words, its two copies."""
+    if rate < 1:
+        raise ValueError(f"sponge_kernel: rate {rate} < 1")
     t = rate + 1
     if (state is None) == (inputs is None):
         raise ValueError("sponge_kernel: give exactly one of state and inputs")
@@ -285,8 +303,11 @@ def sponge_kernel(rate: int, state=None, inputs=None, domain: str = "",
         dom = _domain_limbs(domain, device)
     out = torch.empty((n_out, FR.nlimbs, B), dtype=torch.int32, device=device)
     if B:
-        fn = _build.entry("fr_passes", "fr_poseidon_permute", 5, 4)
-        _build.launch(fn, (state, inputs, dom, _device_kernel_consts(rate, device), out),
+        scratch = None
+        if rate not in REGISTER_RATES:
+            scratch = torch.empty((2 * t, FR.nlimbs // 2, B), dtype=torch.int32, device=device)
+        fn = _build.entry("fr_passes", "fr_poseidon_permute", 6, 4)
+        _build.launch(fn, (state, inputs, dom, _device_kernel_consts(rate, device), out, scratch),
                       (B, t, n_in, n_out), device)
         sponge_kernel.launches += 1
     return out

@@ -5,9 +5,9 @@
     2. leaves  = Poseidon(seed_i, j) for j < K        counter-mode sponge (B1's
                                                        fr_poseidon_permute, 1 launch)
     3. coeffs  = EpochProgram(epoch_hash)(leaves)     the per-epoch relation (B1's
-                                                       fr_epoch_program up to
-                                                       58,112 lanes, else
-                                                       fr_epoch_program_global;
+                                                       fr_epoch_program or
+                                                       fr_epoch_program_global
+                                                       by epoch_plan(B, K);
                                                        1 launch)
     4. C_i     = KZG commit = multi-MSM over the SRS  (B2, B3, and B4 up to
                                                        8 nonces at 2^12, B5 above)
@@ -62,6 +62,10 @@ EPOCH_CLUSTER = 16
 # the shared memory a block of the cluster variant may hold: its lanes' two
 # buffers, 64 bytes a lane
 EPOCH_SMEM_MAX = 227 * 1024
+# the B x K lanes from which the global variant runs the program faster than
+# the cluster variant (chip_smoke.py phase 2 times both at every shape a
+# path launches; PERF.md, the epoch rule)
+EPOCH_GLOBAL_MIN_LANES = 1 << 15
 # the dev SRS's secret, known by construction (as in the JAX package)
 DEV_TAU = pow(params.FR_GENERATOR, 0xDEADBEEF, R)
 
@@ -174,44 +178,74 @@ def epoch_step_plain(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,
         sb == 1, cand1, torch.where(sb == 2, cand2, cand3)))
 
 
-def epoch_plan(k: int) -> tuple:
-    """The epoch program's kernel at K lanes a nonce, a function of K alone:
-    ``("cluster", C, kb)``, a cluster of C = min(EPOCH_CLUSTER, the largest
-    power of two <= K) blocks a nonce, block rank q holding lanes [q kb,
-    min(K, (q + 1) kb)), kb = ceil(K / C), when a block's two buffers (64 kb
-    bytes) fit EPOCH_SMEM_MAX, which holds for K <= 58,112; else
-    ``("global", None, None)``, the lanes in global memory."""
-    if k < 1:
-        raise ValueError(f"epoch program: K = {k} lanes")
-    c = min(EPOCH_CLUSTER, 1 << (k.bit_length() - 1))
-    kb = -(-k // c)
-    if 64 * kb <= EPOCH_SMEM_MAX:
-        return ("cluster", c, kb)
+def epoch_plan(b: int, k: int) -> tuple:
+    """The epoch program's kernel for B nonces of K lanes: ``("cluster", C,
+    kb)``, a cluster of C = min(EPOCH_CLUSTER, the largest power of two <=
+    K) blocks a nonce, block rank q holding lanes [q kb, min(K, (q + 1)
+    kb)), kb = ceil(K / C), when B K < EPOCH_GLOBAL_MIN_LANES (so K is far
+    below the cluster's limit, ``epoch_cluster``); else ``("global", None,
+    None)``, the lanes in global memory."""
+    if b < 1 or k < 1:
+        raise ValueError(f"epoch program: B = {b} nonces, K = {k} lanes")
+    if b * k < EPOCH_GLOBAL_MIN_LANES:
+        return ("cluster", *epoch_cluster(k))
     return ("global", None, None)
 
 
-def _check_program(leaves, perms, sels, consts):
+def epoch_cluster(k: int):
+    """The cluster variant's (C, kb) at K >= 1 lanes a nonce, as
+    ``epoch_plan`` describes it; None when a block's two buffers would pass
+    EPOCH_SMEM_MAX (K > 58,112), the most ``fr_epoch_program`` takes."""
+    c = min(EPOCH_CLUSTER, 1 << (k.bit_length() - 1))
+    kb = -(-k // c)
+    return (c, kb) if 64 * kb <= EPOCH_SMEM_MAX else None
+
+
+def side_tables(perms: torch.Tensor, sels: torch.Tensor, consts: torch.Tensor,
+                device=None) -> tuple:
+    """The epoch program as both kernels read it, built with torch ops on
+    ``device`` (default: where ``consts`` lies) a step at a time: ``ps`` (S,
+    K) int32, perm | sel << 30 (K < 2^30), and ``cw`` (S, K, 8) int32, each
+    constant's 16 limbs as 8 Montgomery words (word w = limb 2w | limb 2w +
+    1 << 16), 32 contiguous bytes a lane."""
+    S, K = perms.shape
+    if K >= 1 << 30:
+        raise ValueError(f"epoch program: K = {K} lanes does not fit the wiring word")
+    device = consts.device if device is None else device
+
+    def to_int32(w):  # the low 32 bits, as int32
+        return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+    ps = to_int32(perms.to(device).long() | (sels.reshape(S, K).to(device).long() << 30))
+    cw = torch.empty((S, K, FR.nlimbs // 2), dtype=torch.int32, device=device)
+    for s in range(S):  # int64 temporaries of one step
+        limbs = consts[s].to(device).long()
+        cw[s] = to_int32(limbs[0::2] | (limbs[1::2] << 16)).T
+    return ps.contiguous(), cw
+
+
+def _check_program(leaves, ps, cw):
     L, B, K = leaves.shape if leaves.dim() == 3 else (None, None, None)
-    S = perms.shape[0] if perms.dim() == 2 else None
+    S = ps.shape[0] if ps.dim() == 2 else None
     _build.check(leaves, (FR.nlimbs, B, K), "epoch program leaves")
-    _build.check(perms, (S, K), "epoch program perms")
-    _build.check(sels, (S, K), "epoch program sels")
-    _build.check(consts, (S, FR.nlimbs, K), "epoch program consts")
+    _build.check(ps, (S, K), "epoch program wiring words")
+    _build.check(cw, (S, K, FR.nlimbs // 2), "epoch program constant words")
     return B, K, S
 
 
-def program_kernel_cluster(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
-                           consts: torch.Tensor, cluster: int) -> torch.Tensor:
+def program_kernel_cluster(leaves: torch.Tensor, ps: torch.Tensor, cw: torch.Tensor,
+                           cluster: int) -> torch.Tensor:
     """Launch ``fr_epoch_program`` (``csrc/fr_passes.cu``, kernel B1's Fr
     pass) on int32 CUDA tensors: every step of the program in one launch,
-    leaves (L, B, K), perms and sels (S, K), consts (S, L, K); writes a new
-    (L, B, K) tensor. A nonce is one cluster of ``cluster`` blocks, each
-    holding its ceil(K / cluster) lanes' two buffers in shared memory."""
-    B, K, S = _check_program(leaves, perms, sels, consts)
+    leaves (L, B, K) and the program's ``side_tables`` ps (S, K) and cw (S,
+    K, 8); writes a new (L, B, K) tensor. A nonce is one cluster of
+    ``cluster`` blocks, each holding its ceil(K / cluster) lanes' two
+    buffers in shared memory."""
+    B, K, S = _check_program(leaves, ps, cw)
     out = torch.empty_like(leaves)
     if B and K:
-        fn = _build.entry("fr_passes", "fr_epoch_program", 5, 4)
-        _build.launch(fn, (leaves, perms, sels, consts, out), (B, K, S, cluster), leaves.device)
+        fn = _build.entry("fr_passes", "fr_epoch_program", 4, 4)
+        _build.launch(fn, (leaves, ps, cw, out), (B, K, S, cluster), leaves.device)
         program_kernel_cluster.launches += 1
     return out
 
@@ -219,18 +253,19 @@ def program_kernel_cluster(leaves: torch.Tensor, perms: torch.Tensor, sels: torc
 program_kernel_cluster.launches = 0
 
 
-def program_kernel_global(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
-                          consts: torch.Tensor) -> torch.Tensor:
-    """Launch ``fr_epoch_program_global`` on int32 CUDA tensors shaped as
-    for ``program_kernel_cluster``: one cooperative launch, the lanes in two
-    global buffers (a scratch tensor the size of the output), a grid barrier
-    a step."""
-    B, K, S = _check_program(leaves, perms, sels, consts)
+def program_kernel_global(leaves: torch.Tensor, ps: torch.Tensor,
+                          cw: torch.Tensor) -> torch.Tensor:
+    """Launch ``fr_epoch_program_global`` on int32 CUDA tensors: leaves (L,
+    B, K) and the program's ``side_tables`` ps (S, K) and cw (S, K, 8); one
+    cooperative launch, the lanes in two global buffers (a scratch tensor
+    the size of the output) with a lane's B nonces side by side, a grid
+    barrier a step; writes a new (L, B, K) tensor."""
+    B, K, S = _check_program(leaves, ps, cw)
     out = torch.empty_like(leaves)
     if B and K:
         scratch = torch.empty_like(leaves)
-        fn = _build.entry("fr_passes", "fr_epoch_program_global", 6, 3)
-        _build.launch(fn, (leaves, perms, sels, consts, out, scratch), (B, K, S), leaves.device)
+        fn = _build.entry("fr_passes", "fr_epoch_program_global", 5, 3)
+        _build.launch(fn, (leaves, ps, cw, out, scratch), (B, K, S), leaves.device)
         program_kernel_global.launches += 1
     return out
 
@@ -238,21 +273,23 @@ def program_kernel_global(leaves: torch.Tensor, perms: torch.Tensor, sels: torch
 program_kernel_global.launches = 0
 
 
-def program_kernel(leaves: torch.Tensor, perms: torch.Tensor, sels: torch.Tensor,
-                   consts: torch.Tensor) -> torch.Tensor:
-    """The epoch program on int32 CUDA tensors: one launch of the kernel that
-    ``epoch_plan(K)`` names."""
-    kind, cluster, _ = epoch_plan(leaves.shape[-1])
+def program_kernel(leaves: torch.Tensor, prog: "EpochProgram") -> torch.Tensor:
+    """The epoch program ``prog`` on (L, B, K) int32 CUDA leaves: one launch
+    of the kernel that ``epoch_plan(B, K)`` names, on the program's side
+    tables."""
+    kind, cluster, _ = epoch_plan(*leaves.shape[1:]) if leaves.dim() == 3 else (None,) * 3
     if kind == "cluster":
-        return program_kernel_cluster(leaves, perms, sels, consts, cluster)
-    return program_kernel_global(leaves, perms, sels, consts)
+        return program_kernel_cluster(leaves, *prog.side_tables(), cluster)
+    return program_kernel_global(leaves, *prog.side_tables())
 
 
 class EpochProgram:
     """Per-epoch tensors derived from the epoch hash: wiring permutations
     (EPOCH_STEPS, K), op selectors (EPOCH_STEPS, 1, K) and Montgomery
-    constants (EPOCH_STEPS, L, K), all int32, from the same numpy stream as
-    the JAX package."""
+    constants (EPOCH_STEPS, L, K), all int32 on the host, from the same
+    numpy stream as the JAX package (the plain and host versions read
+    them); and the kernels' ``side_tables``, built on ``device`` on first
+    use."""
 
     def __init__(self, epoch_hash: bytes, k: int, device=None):
         seed = hashlib.sha256(b"snarkos_tpu.epoch.prog" + epoch_hash).digest()
@@ -261,17 +298,28 @@ class EpochProgram:
         sels = rng.integers(0, 4, size=(EPOCH_STEPS, 1, k), dtype=np.int32)
         consts = FR.random(EPOCH_STEPS * k, rng)  # uniform limbs = uniform
         consts = np.ascontiguousarray(consts.reshape(FR.nlimbs, EPOCH_STEPS, k).transpose(1, 0, 2))
-        self._set(epoch_hash, *(torch.from_numpy(a).to(device) for a in (perms, sels, consts)))
+        self._set(epoch_hash, *(torch.from_numpy(a) for a in (perms, sels, consts)),
+                  torch.device("cpu") if device is None else torch.device(device))
 
     @classmethod
-    def from_tensors(cls, epoch_hash: bytes, perms, sels, consts) -> "EpochProgram":
+    def from_tensors(cls, epoch_hash: bytes, perms, sels, consts, device=None) -> "EpochProgram":
+        """The program of the given tensors, its side tables built on
+        ``device`` (default: where ``perms`` lies)."""
         prog = cls.__new__(cls)
-        prog._set(epoch_hash, perms, sels, consts)
+        prog._set(epoch_hash, perms, sels, consts,
+                  perms.device if device is None else torch.device(device))
         return prog
 
-    def _set(self, epoch_hash, perms, sels, consts):
-        self.epoch_hash = epoch_hash
-        self.perms, self.sels, self.consts = perms, sels, consts
+    def _set(self, epoch_hash, perms, sels, consts, device):
+        self.epoch_hash, self.device = epoch_hash, device
+        self.perms, self.sels, self.consts = (t.cpu() for t in (perms, sels, consts))
+        self._tables = None
+
+    def side_tables(self) -> tuple:
+        """(ps, cw) of ``side_tables`` on the program's device, built once."""
+        if self._tables is None:
+            self._tables = side_tables(self.perms, self.sels, self.consts, self.device)
+        return self._tables
 
     def apply(self, leaves: torch.Tensor) -> torch.Tensor:
         """(L, B, K) Montgomery leaves -> (L, B, K) coefficients: per step a
@@ -281,25 +329,23 @@ class EpochProgram:
         tensor."""
         if leaves.device.type == "cpu":
             return self.apply_plain(leaves)
-        k = self.perms.shape[-1]
-        return program_kernel(leaves.to(torch.int32).contiguous(),
-                              *(t.to(torch.int32).contiguous() for t in (
-                                  self.perms, self.sels.reshape(EPOCH_STEPS, k), self.consts)))
+        return program_kernel(leaves.to(torch.int32).contiguous(), self)
 
     def apply_plain(self, leaves: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch version of ``apply``: ``epoch_step_plain`` once a
         step, on any device."""
         v = leaves
         for s in range(EPOCH_STEPS):
-            v = epoch_step_plain(v, self.perms[s], self.sels[s].reshape(-1), self.consts[s])
+            v = epoch_step_plain(v, *(t[s].to(v.device) for t in (
+                self.perms, self.sels.reshape(self.perms.shape), self.consts)))
         return v
 
     def apply_host(self, leaves: list[int]) -> list[int]:
         """Host reference of ``apply`` over canonical ints (Montgomery form
         is transparent to the +/-/* mix)."""
-        perms = self.perms.cpu().numpy()
-        sels = self.sels.cpu().numpy()[:, 0, :]
-        consts_c = [FR.decode_fast(self.consts[s].cpu().numpy(), mont=True)
+        perms = self.perms.numpy()
+        sels = self.sels.numpy()[:, 0, :]
+        consts_c = [FR.decode_fast(self.consts[s].numpy(), mont=True)
                     for s in range(EPOCH_STEPS)]
         v = list(leaves)
         k = len(v)

@@ -41,7 +41,7 @@ def test_epoch_steps_match_jax_apply_host():
         assert FR.decode_fast(v[:, b].numpy(), mont=True) == jprog.apply_host(leaves[b])
 
 
-@pytest.mark.parametrize("rate", poseidon.KERNEL_RATES)
+@pytest.mark.parametrize("rate", poseidon.REGISTER_RATES)
 def test_packed_poseidon_consts_match_jax(rate):
     """The permute kernel's constants: ark then the MDS matrix, Montgomery
     limbs, one row an element."""

@@ -156,11 +156,12 @@ def test_kernel_wrappers_reject_cpu_tensors():
         poseidon.sponge_kernel(2, inputs=state[:2], num_outputs=1)
     v = torch.zeros((16, 2, 4), dtype=torch.int32)
     perm = torch.arange(4, dtype=torch.int32)
+    prog = puzzle.EpochProgram.from_tensors(b"", perm.reshape(1, 4), perm.reshape(1, 1, 4),
+                                            a.reshape(1, 16, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        puzzle.program_kernel(v, perm.reshape(1, 4), perm.reshape(1, 4), a.reshape(1, 16, 4))
+        puzzle.program_kernel(v, prog)
     with pytest.raises(ValueError, match="CUDA"):
-        puzzle.program_kernel_global(v, perm.reshape(1, 4), perm.reshape(1, 4),
-                                     a.reshape(1, 16, 4))
+        puzzle.program_kernel_global(v, perm.reshape(1, 4), a.reshape(1, 4, 16)[..., :8])
     p = g1.infinity((4,))
     with pytest.raises(ValueError, match="CUDA"):
         g1_kernels.add_kernel(p, p)
