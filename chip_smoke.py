@@ -179,7 +179,28 @@ result line:
      of 3 after a warm-up, from the worker) beside phase 3's; not gated.
      Then global_puzzle(16) through the seam (its own dev SRS) proves
      tests/fixtures/torch_puzzle_k16_b8.json byte for byte, launches exact.
- 12. one JSON line with every kernel's numbers, then the result line.
+ 12. the node's ledger on the card (snarkos_tpu_torch/node/ledger.py,
+     ``ledger_phase``) against tests/fixtures/torch_ledger_dev4.json, the
+     chain the JAX ledger made (dev committee of 4, puzzle log degree 12):
+     the puzzle SRS and the execution SRSs of degree 512, 16,384 and
+     32,768 built on the card, their powers' sha256 equal to the fixture's;
+     make_genesis (the credits.aleo deploy, every commitment a device MSM)
+     byte for byte the fixture's genesis, and the genesis state root; each
+     tampered block 1 (a solution's eval_y + 1, forged exec_outs, a garbage
+     execution proof) raising the JAX ledger's ValueError; check_next_block
+     on blocks 1 (4 solutions, a transfer_public, a same-block deploy and
+     execute) and 2 (a transfer_public_to_private): accepted, the batch's
+     openings and the state roots equal to the fixture's, every kernel
+     launched exactly as predicted (B1's sponge and epoch program once a
+     solution, one g1_horner_chain a MSM, one g1_bucket_fixup a window,
+     nothing of the generic engine) but mont_mul, B4 and B3, which must
+     launch; create_transaction of block 1's transfer_public from its
+     signed payload and key equal to the fixture's transaction byte for
+     byte and accepted by verify_transaction; no jax in sys.modules. Host
+     seconds: each SRS build, make_genesis, each block check split into
+     solution openings, transaction openings, the batch's MSMs and its
+     host pairing, create_transaction.
+ 13. one JSON line with every kernel's numbers, then the result line.
 Each phase's start is logged (seconds since the start, phase_s in the
 report). Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
@@ -605,6 +626,183 @@ def _dist_rank(mesh, tmp, counters, reps):
 
 T_START = time.perf_counter()
 PHASE_S = {}
+LEDGER_FIXTURE = os.path.join("tests", "fixtures", "torch_ledger_dev4.json")
+
+
+def ledger_phase(run_path, kernels, smi) -> dict:
+    """Phase 12: the node's ledger (snarkos_tpu_torch/node/ledger.py) on the
+    card against the golden chain the JAX ledger made (LEDGER_FIXTURE)."""
+    import hashlib
+
+    import torch
+
+    from snarkos_tpu_torch import convert
+    from snarkos_tpu_torch.crypto import params
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, pairing
+    from snarkos_tpu_torch.node import ledger as ledger_mod, types as node_types
+    from snarkos_tpu_torch.ops import kzg, msm
+    from snarkos_tpu_torch.ops import puzzle as puzzle_mod
+
+    dev = torch.device("cuda")
+    r = params.FR_MODULUS
+    with open(os.path.join(HERE, LEDGER_FIXTURE)) as fh:
+        lfx = json.load(fh)
+    out = {"card": smi}
+    # a solution's binding launches what phase 7's check_binding did
+    per_binding = ("mont_mul", "fr_poseidon_permute", "fr_epoch_program",
+                   "fr_epoch_program_global")
+    comm = convert.committee(bytes.fromhex(lfx["committee"]))
+    blocks = [convert.block(bytes.fromhex(b)) for b in lfx["blocks"]]
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[label] = time.perf_counter() - t0
+        return res
+
+    # the puzzle at log degree 12 and the execution SRSs, built on the card
+    puzzle_mod._PUZZLE = None
+    timed("puzzle_srs_s", lambda: puzzle_mod.global_puzzle(lfx["log_degree"], dev))
+    for need, want in sorted(lfx["srs_digest"].items(), key=lambda kv: int(kv[0])):
+        srs = timed(f"execution_srs_{need}_s", lambda: ledger_mod.execution_srs(int(need), dev))
+        h = hashlib.sha256()
+        for x, y, z in srs.srs_ref.powers_g1:
+            if z != 1:
+                raise AssertionError(f"execution_srs({need}): a power is not affine")
+            h.update(x.to_bytes(48, "little") + y.to_bytes(48, "little"))
+        if h.hexdigest() != want or srs.points.x.device.type != "cuda":
+            raise AssertionError(f"execution_srs({need}) on the card differs from the fixture")
+        log(f"execution_srs({need}) built on the card in {out[f'execution_srs_{need}_s']:.2f} s "
+            f"(host s), its sha256 equal to the fixture's")
+
+    # the genesis: the credits.aleo deploy proved with the genesis key, every
+    # commitment on the card; byte for byte the JAX ledger's
+    commits_only = ["g1_add", "bucket_scan", "bucket_scan_fast", "jadd_bucket_total",
+                    "g1_lane_buckets", "g1_lane_bucket_carry", "fr_ntt_pass", *per_binding[1:]]
+    genesis = timed("make_genesis_s", lambda: run_path(
+        "make_genesis(dev4)", lambda: ledger_mod.make_genesis(comm, dev),
+        ["bucket_scan_serial", "seg_prefix", "g1_bucket_fixup", "g1_horner_chain"],
+        absent=commits_only))
+    if genesis.to_bytes() != bytes.fromhex(lfx["genesis"]):
+        raise AssertionError("make_genesis on the card differs from the fixture's genesis")
+    log(f"make_genesis on the card in {out['make_genesis_s']:.2f} s (host s): byte for byte "
+        "the fixture's genesis")
+    led = ledger_mod.Ledger(comm, device=dev)
+    if led.latest_state_root.hex() != lfx["state_roots"][0]:
+        raise AssertionError("the genesis state root differs from the fixture's")
+
+    # tampered variants of block 1: the JAX ledger's ValueError each
+    for name, case in lfx["tampered"].items():
+        try:
+            led.check_next_block(convert.block(bytes.fromhex(case["block"])))
+        except ValueError as exc:
+            if str(exc) != case["error"]:
+                raise AssertionError(f"tampered {name}: {exc!r}, the JAX ledger: "
+                                     f"{case['error']!r}") from None
+        else:
+            raise AssertionError(f"the ledger accepted the tampered block {name}")
+    log(f"the {len(lfx['tampered'])} tampered blocks raise the JAX ledger's errors: "
+        + "; ".join(f"{k}: {v['error']}" for k, v in lfx["tampered"].items()))
+
+    # blocks 1 and 2, each split into its solution openings, transaction
+    # openings, the batch's two MSMs and its host pairing
+    split = {}
+
+    def clocked(key, fn, sync=False):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return res
+        return run
+
+    def affine(p):
+        a = ref_g1.affine(p)
+        return None if a is None else [str(a[0]), str(a[1])]
+
+    saved = (kzg.batch_verify, ledger_mod.transaction_opening, msm.msm, pairing.pairing_check)
+    for b, blk in enumerate(blocks):
+        n_sol = sum(1 for t in blk.transmissions if t.kind == node_types.TX_SOLUTION)
+        n_ops = len(lfx["openings"][b])
+        m1 = 1 << max(3, (2 * n_ops).bit_length())  # the batch's MSMs, padded
+        m2 = 1 << max(3, (n_ops - 1).bit_length())
+        # the left MSM's bases hold every C: a transaction's two C are
+        # combined on the host (varuna.verify_prepare) in Jacobian form, z !=
+        # 1, so with a transaction it runs on the generic engine; every W
+        # comes from bytes (affine), so the W MSM runs on the fused engine
+        # (serial chains: a B4 scan, three B3 prefixes and a fixup a window)
+        wl = -(-msm.SCALAR_BITS // msm.default_window_bits(m1)) if n_ops > n_sol else 0
+        wf = sum(-(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(m))
+                 for m in ((m2,) if wl else (m1, m2)))
+        exact = {k["name"]: 0 for k in kernels}
+        exact.update({k["name"]: n_sol * k["launches_per_path"]["check_binding"]
+                      for k in kernels if k["name"] in per_binding})
+        exact.update(g1_horner_chain=2, g1_bucket_fixup=wf, bucket_scan_serial=wf,
+                     seg_prefix=3 * wf + wl, g1_lane_buckets=wl, g1_lane_bucket_carry=wl,
+                     jadd_bucket_total=wl)
+        seen, split = [], {}
+
+        def spy(srs, openings, gamma=None, device=None):
+            seen.append(list(openings))
+            return saved[0](srs, openings, gamma, device)
+
+        kzg.batch_verify = spy
+        ledger_mod.transaction_opening = clocked("transaction_openings_s", saved[1])
+        msm.msm = clocked("batch_msms_s", saved[2], sync=True)
+        pairing.pairing_check = clocked("batch_pairing_s", saved[3])
+        led._solution_opening_for = clocked("solution_openings_s", led._solution_opening_for,
+                                            sync=True)
+        try:
+            t0 = time.perf_counter()
+            run_path(f"check_next_block(block {b + 1})", lambda: led.check_next_block(blk),
+                     ["bucket_scan_serial", "seg_prefix", "g1_bucket_fixup", "g1_horner_chain"]
+                     + (["fr_poseidon_permute", "fr_epoch_program", "mont_mul"] if n_sol else []),
+                     exact=exact)
+            log(f"block {b + 1}'s batch: the left MSM ({m1} points) on the "
+                f"{'generic' if wl else 'fused'} engine, the W MSM ({m2}) on the fused one")
+            split["check_next_block_s"] = time.perf_counter() - t0
+        finally:
+            kzg.batch_verify, ledger_mod.transaction_opening, msm.msm, pairing.pairing_check = saved
+            del led._solution_opening_for
+        got = [{"C": affine(c), "z": str(z % r), "y": str(y % r), "W": affine(w)}
+               for c, z, y, w in seen[0]] if len(seen) == 1 else None
+        if got != lfx["openings"][b]:
+            raise AssertionError(f"block {b + 1}: the batch's openings differ from the fixture")
+        led.advance_to_next_block(blk)
+        if led.latest_state_root.hex() != lfx["state_roots"][b + 1]:
+            raise AssertionError(f"block {b + 1}: the state root differs from the fixture's")
+        out[f"block{b + 1}"] = dict(split, openings=n_ops, solutions=n_sol, msm_points=[m1, m2])
+        log(f"check_next_block(block {b + 1}) accepted: {n_sol} solutions, {n_ops} openings "
+            f"equal to the fixture's, the state root after it too; host s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; on {smi}")
+
+    # a transfer_public created on the card: the fixture's transaction byte
+    # for byte (its signed payload and key), verified by the port
+    tx = next(t.deserialize() for t in blocks[0].transmissions
+              if t.kind == node_types.TX_TRANSACTION)
+    key = int(lfx["keys"]["transfer"], 16)
+    new = timed("create_transaction_s", lambda: run_path(
+        "create_transaction(transfer_public)",
+        lambda: ledger_mod.create_transaction(tx.payload, fee=tx.fee, key=key, device=dev),
+        ["bucket_scan_serial", "seg_prefix", "g1_bucket_fixup", "g1_horner_chain"],
+        absent=commits_only))
+    if new.to_bytes() != tx.to_bytes():
+        raise AssertionError("create_transaction on the card differs from the fixture's")
+    if not timed("verify_transaction_s", lambda: ledger_mod.verify_transaction(
+            new, led.parsed_programs, dev)):
+        raise AssertionError("the port's ledger rejected the transaction it created")
+    log(f"create_transaction(transfer_public) on the card in {out['create_transaction_s']:.2f} s "
+        f"(host s): the fixture's transaction byte for byte; verify_transaction accepts it in "
+        f"{out['verify_transaction_s']:.2f} s")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    if loaded:
+        raise AssertionError(f"JAX was imported: {loaded[:5]}")
+    log("jax is not in sys.modules")
+    puzzle_mod._PUZZLE = None
+    return out
 
 
 def phase(label: str) -> None:
@@ -2885,8 +3083,12 @@ def main() -> int:
     log("uninstall() removed both facades")
     report["seam"] = seam_report
 
-    # -- 12. output -----------------------------------------------------------------
+    # -- 12. the ledger on the card ----------------------------------------------------
     phase("12")
+    report["ledger"] = ledger_phase(run_path, kernels, smi)
+
+    # -- 13. output -----------------------------------------------------------------
+    phase("13")
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:

@@ -1,11 +1,15 @@
-"""Carry state across from the JAX package, given as numpy arrays.
+"""Carry state across from the JAX package, given as numpy arrays or bytes.
 
 The JAX package's ``PuzzleSRS.points`` coordinates, its ``EpochProgram``
 tensors and its Fr arrays (the NTT's inputs and outputs) are already in the
 port's layout (int32 16-bit limbs, Montgomery form with the same R), so
 conversion is a checked copy onto the device.
+The node's objects (``Block``, ``Transaction``, ``Solution``, ``Committee``,
+a ``VarunaProof``) cross through their wire bytes, which both packages
+encode alike; ``ledger`` replays a chain's blocks into a port ``Ledger``.
 Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
-its arrays, and host values (``srs_ref.tau_h``) as Python ints.
+its arrays, host values (``srs_ref.tau_h``) as Python ints, and an object's
+``to_bytes()`` / ``serialize()``.
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snarkos_tpu_torch.crypto.ref import kzg as ref_kzg, pairing
+from snarkos_tpu_torch.crypto.ref import kzg as ref_kzg, pairing, varuna
+from snarkos_tpu_torch.node import codec, ledger as ledger_mod, types
 from snarkos_tpu_torch.ops import _build, g1
 from snarkos_tpu_torch.ops.fieldspec import FQ, FR
 from snarkos_tpu_torch.ops.puzzle import DEV_TAU, EPOCH_STEPS, EpochProgram, PuzzleSRS
@@ -90,3 +95,55 @@ def epoch_program(epoch_hash: bytes, perms, sels, consts, device=None) -> EpochP
         raise ValueError(f"consts: expected {(EPOCH_STEPS, FR.nlimbs, k)}, got {consts.shape}")
     return EpochProgram.from_tensors(
         epoch_hash, *(torch.from_numpy(np.array(a)) for a in (perms, sels, consts)), device=device)
+
+
+def _decode(cls, data: bytes):
+    r = codec.Reader(bytes(data))
+    out = cls.from_reader(r)
+    r.expect_done()
+    return out
+
+
+def block(data: bytes) -> types.Block:
+    """A block's bytes (the JAX ``Block.to_bytes()``) -> Block."""
+    return types.Block.from_bytes(bytes(data))
+
+
+def transaction(data: bytes) -> types.Transaction:
+    """A transaction's bytes -> Transaction."""
+    return _decode(types.Transaction, data)
+
+
+def solution(data: bytes) -> types.Solution:
+    """A solution's bytes -> Solution."""
+    return _decode(types.Solution, data)
+
+
+def committee(data: bytes) -> types.Committee:
+    """A committee's bytes -> Committee."""
+    return _decode(types.Committee, data)
+
+
+def varuna_proof(data: bytes) -> varuna.VarunaProof:
+    """A proof's bytes (the JAX ``VarunaProof.serialize()``) -> VarunaProof."""
+    return varuna.VarunaProof.deserialize(bytes(data))
+
+
+def ledger(committee_bytes: bytes, blocks, device=None) -> ledger_mod.Ledger:
+    """A chain -> a port ``Ledger`` on ``device``: the committee's bytes and
+    every block's bytes from the genesis on. The genesis seeds
+    ``ledger._GENESIS_CACHE`` (so nothing is proved), and the later blocks
+    are indexed as a stored chain is on load (``advance_to_next_block``,
+    no checks)."""
+    device = _build.resolve_device(device)
+    comm = committee(committee_bytes)
+    chain = [block(b) for b in blocks]
+    if not chain or chain[0].height != 0:
+        raise ValueError("the chain must start at the genesis block")
+    cached = ledger_mod._GENESIS_CACHE.setdefault(comm.id, chain[0])
+    if cached.to_bytes() != chain[0].to_bytes():
+        raise ValueError("another genesis block is cached for this committee")
+    out = ledger_mod.Ledger(comm, device=device)
+    for blk in chain[1:]:
+        out.advance_to_next_block(blk)
+    return out

@@ -3,7 +3,8 @@ of the parts of ``snarkos_tpu/crypto/ref/g1.py`` it needs).
 
 Points are (X, Y, Z) tuples of Python ints with affine (X/Z^2, Y/Z^3); the
 identity is Z == 0 with (X, Y) = (1, 1). Used to encode results as bytes and
-as an independent check of the device MSMs (``chip_smoke.py``).
+as an independent check of the device MSMs (``chip_smoke.py``); ``msm`` is
+the plain host MSM behind ``kzg.commit``.
 """
 
 from __future__ import annotations
@@ -98,6 +99,36 @@ def scalar_mul(k: int, p):
         acc = double(acc)
         if bit == "1":
             acc = add(acc, p)
+    return acc
+
+
+def msm(scalars, points):
+    """Multi-scalar multiplication sum_i scalars[i] * points[i] on the host:
+    windowed Pippenger (c-bit buckets, suffix-sum bucket reduction), the same
+    group element as the naive sum."""
+    n = len(scalars)
+    if n == 0:
+        return INFINITY
+    c = max(2, min(13, n.bit_length() + 1))
+    ks = [k % params.FR_MODULUS for k in scalars]
+    num_windows = -(-253 // c)
+    mask = (1 << c) - 1
+    acc = INFINITY
+    for w in range(num_windows - 1, -1, -1):
+        for _ in range(c):
+            acc = double(acc)
+        buckets = [INFINITY] * (1 << c)
+        shift = c * w
+        for k, p in zip(ks, points):
+            d = (k >> shift) & mask
+            if d:
+                buckets[d] = add(buckets[d], p)
+        running = INFINITY
+        total = INFINITY
+        for b in range(len(buckets) - 1, 0, -1):
+            running = add(running, buckets[b])
+            total = add(total, running)
+        acc = add(acc, total)
     return acc
 
 

@@ -4,8 +4,9 @@ the verifier of ``snarkos_tpu/crypto/ref/kzg.py``).
     verify(C, z, y, W):  e(C - y G, H) == e(W, tau H - z H)
 
 Commitments and openings are computed on the device (``ops/kzg.py``); this
-module holds the SRS's host side and the pairing equations, the ground truth
-of ``ops/kzg.batch_verify``.
+module holds the SRS's host side, the pairing equations (the ground truth of
+``ops/kzg.batch_verify``) and ``commit`` / ``open_at``, the plain host
+references of the device commitment.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from snarkos_tpu_torch.crypto import params
-from snarkos_tpu_torch.crypto.ref import g1, pairing
+from snarkos_tpu_torch.crypto.ref import g1, ntt, pairing
 
 R = params.FR_MODULUS
 
@@ -39,6 +40,27 @@ class SRS:
             acc = acc * tau % R
         h = pairing.G2_GENERATOR
         return cls(powers_g1=powers, h=h, tau_h=pairing.g2_scalar_mul(tau, h))
+
+
+def commit(srs: SRS, coeffs: list[int]):
+    """sum_i coeffs[i] tau^i G on the host (``g1.msm``): the plain
+    reference of the device commitment (``ops/kzg.commit``), which every
+    path with a device takes."""
+    assert len(coeffs) <= len(srs.powers_g1)
+    return g1.msm(coeffs, srs.powers_g1[: len(coeffs)])
+
+
+def open_at(srs: SRS, coeffs: list[int], z: int):
+    """(y, witness) with y = p(z) and witness = commit(q), q = (p - y) / (X -
+    z) by synthetic division."""
+    y = ntt.poly_eval(coeffs, z)
+    q = [0] * (len(coeffs) - 1)
+    carry = 0
+    for i in range(len(coeffs) - 1, 0, -1):
+        carry = (coeffs[i] + carry * z) % R
+        q[i - 1] = carry
+    witness = commit(srs, q) if q else g1.INFINITY
+    return y, witness
 
 
 def verify(srs: SRS, commitment, z: int, y: int, witness) -> bool:

@@ -7,8 +7,9 @@ Grain-LFSR procedure of the Poseidon reference implementation: alpha = 17,
 construction: state = [capacity || rate], absorb-by-addition, permute per
 full rate block.
 
-It serves the puzzle's Fiat-Shamir challenge and the constants of the
-batched device sponge (``ops/poseidon.py``).
+It serves the puzzle's Fiat-Shamir challenge, the constants of the
+batched device sponge (``ops/poseidon.py``), and the node's host hashing
+(the Varuna transcript, accounts and signatures, records, the VM).
 """
 
 from __future__ import annotations
@@ -184,3 +185,12 @@ def hash_many(inputs: list[int], rate: int, num_outputs: int = 1, domain: str = 
 
 def hash1(inputs: list[int], rate: int = 2, domain: str = "") -> int:
     return hash_many(inputs, rate, 1, domain)[0]
+
+
+def hash_to_scalar(inputs: list[int], scalar_modulus: int, rate: int = 2, domain: str = "") -> int:
+    """Hash to the Edwards scalar field by truncating the Fr digest to the
+    scalar field's bit length - 1 (the Schnorr challenges of
+    ``edwards.py``)."""
+    digest = hash1(inputs, rate, domain)
+    nbits = scalar_modulus.bit_length() - 1
+    return digest & ((1 << nbits) - 1)

@@ -133,12 +133,18 @@ class PuzzleSRS:
 
     @classmethod
     def dev(cls, log_degree: int = DEFAULT_LOG_DEGREE, device=None) -> "PuzzleSRS":
-        """The dev SRS from DEV_TAU, built on the device: one per-lane
-        double-and-add of the generator by tau^i (kernel B2 on the card),
-        then a batched conversion to affine (Fermat inversion, B1). The host
-        copy holds the decoded powers, H = the G2 generator and tau H."""
+        """The dev SRS of degree 2^log_degree (``dev_powers``)."""
+        return cls.dev_powers(1 << log_degree, device)
+
+    @classmethod
+    def dev_powers(cls, degree: int, device=None) -> "PuzzleSRS":
+        """The dev SRS [G, ..., DEV_TAU^degree G] of any degree, built on the
+        device: one per-lane double-and-add of the generator by tau^i (kernel
+        B2 on the card), then a batched conversion to affine (Fermat
+        inversion, B1). The host copy holds the decoded powers, H = the G2
+        generator and tau H. The ledger's execution SRSs above the puzzle's
+        degree are built here."""
         device = _build.resolve_device(device)
-        degree = 1 << log_degree
         taus, acc = [], 1
         for _ in range(degree + 1):
             taus.append(acc)
@@ -155,6 +161,22 @@ class PuzzleSRS:
         srs_ref = ref_kzg.SRS(powers_g1=[(px, py, 1) for px, py in zip(xs, ys)], h=h,
                               tau_h=pairing.g2_scalar_mul(DEV_TAU, h))
         return cls(degree=degree, points=g1.JacobianPoints(x, y, one), srs_ref=srs_ref)
+
+    def trim(self, degree: int) -> "PuzzleSRS":
+        """The first degree + 1 powers, on the device and the host, with the
+        same H and tau H (an artifact's host copy may hold more powers than
+        its device points: those are encoded onto the device)."""
+        p, n, ref = self.points, degree + 1, self.srs_ref
+        if len(ref.powers_g1) < n:
+            raise ValueError(f"SRS of degree {len(ref.powers_g1) - 1} < {degree}")
+        if degree > self.degree:  # an artifact's host powers beyond the device's
+            pts = g1.encode_points(ref.powers_g1[:n], device=p.x.device)
+        else:
+            pts = g1.JacobianPoints(p.x[:, :n], p.y[:, :n], p.z[:, :n])
+        return PuzzleSRS(degree=degree, points=pts,
+                         srs_ref=ref_kzg.SRS(powers_g1=ref.powers_g1[:n], h=ref.h,
+                                             tau_h=ref.tau_h),
+                         is_dev=self.is_dev)
 
 
 def epoch_step_plain(v: torch.Tensor, perm: torch.Tensor, sel: torch.Tensor,

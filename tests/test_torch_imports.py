@@ -224,3 +224,40 @@ def test_lane_scan_wrappers_reject_cpu_tensors():
         g1_kernels.lane_bucket_carry_kernel(p.x, p.y, p.z, agg.x, agg.y, agg.z, ck)
     assert g1_kernels.lane_buckets_kernel.launches == 0
     assert g1_kernels.lane_bucket_carry_kernel.launches == 0
+
+def test_scan_covers_the_node_and_the_vm():
+    """The import scan above reaches the node's modules and the VM."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("node/ledger.py", "node/types.py", "node/state_tree.py", "node/codec.py",
+                 "node/messages.py", "vm/circuit.py", "vm/interpreter.py", "vm/program.py",
+                 "vm/values.py", "crypto/ref/varuna.py", "crypto/ref/edwards.py"):
+        assert os.path.join("snarkos_tpu_torch", name) in rel, name
+
+
+def test_node_entry_points_refuse_without_card():
+    """The ledger's entry points resolve the card before they touch a
+    cache, a file or a proof; the block check's batch has no host
+    fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import inspect
+
+    from snarkos_tpu_torch import convert
+    from snarkos_tpu_torch.node import ledger, types
+
+    comm = types.Committee.new(1, {"aleo1" + "11" * 32: 100})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ledger.Ledger(comm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ledger.create_transaction(b"execute credits.aleo/bond_public 5u64")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ledger.make_genesis(comm)
+    for fn, args in ((ledger.global_varuna, ()), (ledger.execution_srs, (512,)),
+                     (ledger.verify_transaction, (None,)), (ledger.MockLedgerService, (comm,))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(*args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.ledger(comm.to_bytes(), [types.genesis_block(comm).to_bytes()])
+    assert ledger._GENESIS_CACHE.get(comm.id) is None
+    src = inspect.getsource(ledger.Ledger.check_next_block)
+    assert "kzg_ops.batch_verify(" in src and "ref_kzg.batch_verify" not in src

@@ -77,3 +77,26 @@ def test_eval_and_quotient_single_and_zero_point():
     ys, q = kzg.eval_and_quotient_multi(torch.stack([_enc(coeffs)] * 2, dim=1), [0, 5])
     assert ys == [coeffs[0], jref_ntt.poly_eval(coeffs, 5)]
     np.testing.assert_array_equal(q[:, 0].numpy(), _enc(coeffs[1:] + [0]).numpy())
+
+
+def test_host_commit_and_open_match_jax():
+    """The port's plain host ``crypto/ref/kzg.commit`` / ``open_at`` (the
+    Varuna prover's default without a device) against the JAX package's, on
+    a degree-8 SRS, with the same affine points and evaluations; the opening
+    verifies on the port's host pairing."""
+    from snarkos_tpu.crypto.ref import g1 as jref_g1, kzg as jref_kzg
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg
+
+    tau = pow(params.FR_GENERATOR, 0xDEADBEEF, R)
+    srs = ref_kzg.SRS.setup(8, tau=tau)
+    jsrs = jref_kzg.SRS(powers_g1=list(srs.powers_g1), h=srs.h, tau_h=srs.tau_h)
+    rng = random.Random(18)
+    coeffs = [rng.randrange(R) for _ in range(9)]
+    z = rng.randrange(R)
+    assert ref_g1.affine(ref_kzg.commit(srs, coeffs)) == \
+        jref_g1.affine(jref_kzg.commit(jsrs, coeffs))
+    y, w = ref_kzg.open_at(srs, coeffs, z)
+    jy, jw = jref_kzg.open_at(jsrs, coeffs, z)
+    assert y == jy and ref_g1.affine(w) == jref_g1.affine(jw)
+    assert ref_kzg.open_at(srs, coeffs[:1], z) == (coeffs[0], ref_g1.INFINITY)
+    assert ref_kzg.verify(srs, ref_kzg.commit(srs, coeffs), z, y, w)
