@@ -59,13 +59,14 @@ result line:
      at some step); then the two variants' device times side by side,
      beside what epoch_plan(B, K) picks (not gated).
      Times: median of 7 runs of 20 back-to-back launches for a kernel (7 runs
-     of 3 at the 2^20 shapes, for the Poseidon permutation and the Horner
-     chain), CUDA events
+     of 3 for the sponge, the global epoch program, the Horner chain, B5, B6,
+     g1_lane_buckets and g1_lane_bucket_carry), CUDA events
      around each run, which at small widths time the host's launch rate;
      beside it the device time a launch, the same run captured in one CUDA
      graph and replayed (median of 7 replays); of one call for its plain
-     version after the call whose output is compared (the permutation at
-     2^22 once, and compared on 2 x 2^16 lanes, as the sponge there).
+     version: the call whose output is compared for the kernels timed in
+     runs of 3, the next one for the others (the permutation and the sponge
+     at 2^22 compared on 2 x 2^16 lanes).
   3. Puzzle(log_degree=12).prove_batch over 8 nonces on the card, checked
      byte for byte against tests/fixtures/torch_puzzle_k12_b8.json, against
      C = p(tau) G and W = q(tau) G computed on the host from the coefficients
@@ -200,7 +201,34 @@ result line:
      seconds: each SRS build, make_genesis, each block check split into
      solution openings, transaction openings, the batch's MSMs and its
      host pairing, create_transaction.
- 13. one JSON line with every kernel's numbers, then the result line.
+ 13. the validator's consensus core (snarkos_tpu_torch/node/consensus.py,
+     bft/, events.py; ``consensus_phase``): four validators of the dev
+     committee of 4 (the fixture's committee bytes; the accounts derived as
+     the node's CLI derives them, tests/torch_bft_support.py) in this process
+     over the in-process transport, each with its own Ledger on the card
+     under a CoreLedgerService (the full block check), its genesis the
+     fixture's, the JAX package's timers. After a warm-up (the puzzle SRS and
+     the genesis epoch's program, global_varuna, execution_srs(16384), each
+     execution verified once) every validator is fed, through
+     add_unconfirmed_solution / add_unconfirmed_transaction, the fixture's 4
+     solutions of block 1, its transfer_public, block 2's
+     transfer_public_to_private and one solution with eval_y + 1; intake
+     (each check on the card) ends before the primaries start, since the
+     solutions bind only in block 1. Then the network runs until all four
+     have committed the six transmissions (deadline CONSENSUS_DEADLINE_S
+     from the first feed), and stops: every task cancelled, the executor
+     drained. Checks: the tampered solution refused at intake by all four
+     and never committed; the chains equal block for block by hash, each
+     block's round even and anchored by its leader; each chain accepted by
+     a fresh Ledger on the card; the credits.aleo account entries of dev
+     accounts 0-3 and the record ciphertexts equal those of
+     convert.ledger's replay of the fixture's blocks 1-2; the launches of
+     the path "consensus" exact: phase 7's check_binding launches a binding
+     and check_launches' count a KZG batch, over the bindings and batches
+     the run made. Logged: seconds of intake and from the first feed to the
+     last commit, the blocks and rounds, each validator's host seconds at
+     intake, at the proposal re-checks and in block checks.
+ 14. one JSON line with every kernel's numbers, then the result line.
 Each phase's start is logged (seconds since the start, phase_s in the
 report). Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
@@ -226,6 +254,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -465,10 +494,12 @@ def sass_local(build) -> dict:
     (cuobjdump -sass), out-of-line callees included: {source: {kernel
     (its name and template argument): (LDL, STL)}}."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:  # one cuobjdump a library, at once
+        texts = pool.map(lambda name: subprocess.run(
+            [cuobjdump, "-sass", build.lib_path(name)], capture_output=True, text=True,
+            check=True).stdout, build.SOURCES)
     out = {}
-    for name in build.SOURCES:
-        text = subprocess.run([cuobjdump, "-sass", build.lib_path(name)], capture_output=True,
-                              text=True, check=True).stdout
+    for name, text in zip(build.SOURCES, texts):
         kerns, fn = {}, None
         for ln in text.splitlines():
             head = re.search(r"Function : (\S+)", ln)
@@ -627,6 +658,13 @@ def _dist_rank(mesh, tmp, counters, reps):
 T_START = time.perf_counter()
 PHASE_S = {}
 LEDGER_FIXTURE = os.path.join("tests", "fixtures", "torch_ledger_dev4.json")
+# the consensus phase (13): its deadline from the first feed to the last
+# commit (it took 112.4 and 151.6 s on two H100 hosts: its host pairings and
+# Schnorr checks share one GIL); the kernels of a solution's binding (phase
+# 7's check_binding)
+CONSENSUS_DEADLINE_S = 240.0
+BINDING_KERNELS = ("mont_mul", "fr_poseidon_permute", "fr_epoch_program",
+                   "fr_epoch_program_global")
 
 
 def ledger_phase(run_path, kernels, smi) -> dict:
@@ -648,9 +686,6 @@ def ledger_phase(run_path, kernels, smi) -> dict:
     with open(os.path.join(HERE, LEDGER_FIXTURE)) as fh:
         lfx = json.load(fh)
     out = {"card": smi}
-    # a solution's binding launches what phase 7's check_binding did
-    per_binding = ("mont_mul", "fr_poseidon_permute", "fr_epoch_program",
-                   "fr_epoch_program_global")
     comm = convert.committee(bytes.fromhex(lfx["committee"]))
     blocks = [convert.block(bytes.fromhex(b)) for b in lfx["blocks"]]
 
@@ -679,7 +714,7 @@ def ledger_phase(run_path, kernels, smi) -> dict:
     # the genesis: the credits.aleo deploy proved with the genesis key, every
     # commitment on the card; byte for byte the JAX ledger's
     commits_only = ["g1_add", "bucket_scan", "bucket_scan_fast", "jadd_bucket_total",
-                    "g1_lane_buckets", "g1_lane_bucket_carry", "fr_ntt_pass", *per_binding[1:]]
+                    "g1_lane_buckets", "g1_lane_bucket_carry", "fr_ntt_pass", *BINDING_KERNELS[1:]]
     genesis = timed("make_genesis_s", lambda: run_path(
         "make_genesis(dev4)", lambda: ledger_mod.make_genesis(comm, dev),
         ["bucket_scan_serial", "seg_prefix", "g1_bucket_fixup", "g1_horner_chain"],
@@ -727,22 +762,6 @@ def ledger_phase(run_path, kernels, smi) -> dict:
     for b, blk in enumerate(blocks):
         n_sol = sum(1 for t in blk.transmissions if t.kind == node_types.TX_SOLUTION)
         n_ops = len(lfx["openings"][b])
-        m1 = 1 << max(3, (2 * n_ops).bit_length())  # the batch's MSMs, padded
-        m2 = 1 << max(3, (n_ops - 1).bit_length())
-        # the left MSM's bases hold every C: a transaction's two C are
-        # combined on the host (varuna.verify_prepare) in Jacobian form, z !=
-        # 1, so with a transaction it runs on the generic engine; every W
-        # comes from bytes (affine), so the W MSM runs on the fused engine
-        # (serial chains: a B4 scan, three B3 prefixes and a fixup a window)
-        wl = -(-msm.SCALAR_BITS // msm.default_window_bits(m1)) if n_ops > n_sol else 0
-        wf = sum(-(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(m))
-                 for m in ((m2,) if wl else (m1, m2)))
-        exact = {k["name"]: 0 for k in kernels}
-        exact.update({k["name"]: n_sol * k["launches_per_path"]["check_binding"]
-                      for k in kernels if k["name"] in per_binding})
-        exact.update(g1_horner_chain=2, g1_bucket_fixup=wf, bucket_scan_serial=wf,
-                     seg_prefix=3 * wf + wl, g1_lane_buckets=wl, g1_lane_bucket_carry=wl,
-                     jadd_bucket_total=wl)
         seen, split = [], {}
 
         def spy(srs, openings, gamma=None, device=None):
@@ -759,14 +778,12 @@ def ledger_phase(run_path, kernels, smi) -> dict:
             t0 = time.perf_counter()
             run_path(f"check_next_block(block {b + 1})", lambda: led.check_next_block(blk),
                      ["bucket_scan_serial", "seg_prefix", "g1_bucket_fixup", "g1_horner_chain"]
-                     + (["fr_poseidon_permute", "fr_epoch_program", "mont_mul"] if n_sol else []),
-                     exact=exact)
-            log(f"block {b + 1}'s batch: the left MSM ({m1} points) on the "
-                f"{'generic' if wl else 'fused'} engine, the W MSM ({m2}) on the fused one")
+                     + (["fr_poseidon_permute", "fr_epoch_program", "mont_mul"] if n_sol else []))
             split["check_next_block_s"] = time.perf_counter() - t0
         finally:
             kzg.batch_verify, ledger_mod.transaction_opening, msm.msm, pairing.pairing_check = saved
             del led._solution_opening_for
+        check_launches(kernels, msm, f"check_next_block(block {b + 1})", n_sol, seen)
         got = [{"C": affine(c), "z": str(z % r), "y": str(y % r), "W": affine(w)}
                for c, z, y, w in seen[0]] if len(seen) == 1 else None
         if got != lfx["openings"][b]:
@@ -774,7 +791,7 @@ def ledger_phase(run_path, kernels, smi) -> dict:
         led.advance_to_next_block(blk)
         if led.latest_state_root.hex() != lfx["state_roots"][b + 1]:
             raise AssertionError(f"block {b + 1}: the state root differs from the fixture's")
-        out[f"block{b + 1}"] = dict(split, openings=n_ops, solutions=n_sol, msm_points=[m1, m2])
+        out[f"block{b + 1}"] = dict(split, openings=n_ops, solutions=n_sol)
         log(f"check_next_block(block {b + 1}) accepted: {n_sol} solutions, {n_ops} openings "
             f"equal to the fixture's, the state root after it too; host s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; on {smi}")
@@ -801,6 +818,371 @@ def ledger_phase(run_path, kernels, smi) -> dict:
     if loaded:
         raise AssertionError(f"JAX was imported: {loaded[:5]}")
     log("jax is not in sys.modules")
+    puzzle_mod._PUZZLE = None
+    return out
+
+
+def check_launches(kernels, msm, label, bindings, batches) -> None:
+    """Raise unless the path ``label`` launched each kernel exactly as often
+    as ``bindings`` solution bindings (each what phase 7's check_binding
+    launched) and one ops/kzg.batch_verify over each list of openings in
+    ``batches`` (host Jacobian tuples (C, z, y, W)) do. A batch runs its left
+    MSM over [C.., W.., G] and its W MSM, each padded to a power of two >= 8,
+    on the fused engine (serial chains: a B4 scan, three B3 prefixes and a
+    fixup a window) when every base is affine (z == 1), else on the generic
+    one (a g1_lane_buckets, a B3 prefix, a g1_lane_bucket_carry and a B7
+    total a window): msm.msm's rule; one Horner chain a MSM. A transaction's
+    two C are combined on the host (varuna.verify_prepare) in Jacobian form,
+    z != 1, so a batch with a transaction runs its left MSM on the generic
+    engine; every W comes from bytes, affine."""
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1
+
+    want = {k["name"]: bindings * k["launches_per_path"]["check_binding"]
+            if k["name"] in BINDING_KERNELS else 0 for k in kernels}
+    for openings in batches:
+        cs, ws = [o[0] for o in openings], [o[3] for o in openings]
+        for pts in (cs + ws + [ref_g1.GENERATOR], ws):
+            m = 1 << max(3, (len(pts) - 1).bit_length())
+            if all(p[2] == 1 for p in pts):
+                nw = -(-(msm.SCALAR_BITS + 1) // msm.fused_window_bits(m))
+                steps = dict(bucket_scan_serial=nw, seg_prefix=3 * nw, g1_bucket_fixup=nw)
+            else:
+                nw = -(-msm.SCALAR_BITS // msm.default_window_bits(m))
+                steps = dict(g1_lane_buckets=nw, seg_prefix=nw, g1_lane_bucket_carry=nw,
+                             jadd_bucket_total=nw)
+            for k, v in dict(steps, g1_horner_chain=1).items():
+                want[k] += v
+    got = {k["name"]: k["launches_per_path"][label] for k in kernels}
+    if got != want:
+        raise AssertionError(f"launches in {label}: {got}, want {want} ({bindings} bindings, "
+                             f"KZG batches of {[len(b) for b in batches]} openings)")
+    log(f"launches in {label} exact: {bindings} bindings, KZG batches of "
+        f"{sorted(len(b) for b in batches)} openings")
+
+
+class TimedService:
+    """A ledger service as the consensus sees it, with the host seconds of
+    its checks kept by stage ("intake" until the primaries start, then
+    "proposal"; the block check apart) and every refusal: a validator's
+    executor threads share the process (and the GIL) with the others."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.stage = "intake"
+        self.seconds = {}
+        self.refused = []
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _timed(self, key, fn, arg):
+        t0 = time.perf_counter()
+        try:
+            return fn(arg)
+        except Exception as exc:
+            with self._lock:
+                self.refused.append((self.stage, key, arg.id, str(exc)))
+            raise
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.seconds[key] = self.seconds.get(key, 0.0) + dt
+
+    def check_solution_basic(self, sol):
+        return self._timed(f"{self.stage}_s", self.inner.check_solution_basic, sol)
+
+    def check_transaction_basic(self, tx):
+        return self._timed(f"{self.stage}_s", self.inner.check_transaction_basic, tx)
+
+    def check_next_block(self, block):
+        return self._timed("block_check_s", self.inner.check_next_block, block)
+
+
+def consensus_phase(run_path, kernels, smi) -> dict:
+    """Phase 13: four validators of the port's consensus core
+    (snarkos_tpu_torch/node/consensus.py, bft/) in this process over the
+    in-process transport of tests/torch_bft_support.py, each over its own
+    ledger on the card (CoreLedgerService, the full block check), commit the
+    transmissions of LEDGER_FIXTURE's chain that do not depend on block 1's
+    deploy."""
+    import asyncio
+
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_bft_support as bft_sup
+
+    from snarkos_tpu_torch import convert
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1
+    from snarkos_tpu_torch.node import ledger as ledger_mod, types as node_types
+    from snarkos_tpu_torch.node.bft import primary as primary_mod
+    from snarkos_tpu_torch.ops import g1, kzg, msm, poseidon
+    from snarkos_tpu_torch.ops import puzzle as puzzle_mod
+
+    dev = torch.device("cuda")
+    with open(os.path.join(HERE, LEDGER_FIXTURE)) as fh:
+        lfx = json.load(fh)
+    out = {"card": smi, "timers": {k: getattr(primary_mod, k) for k in (
+        "MIN_BATCH_DELAY_S", "MAX_BATCH_DELAY_S", "MAX_LEADER_CERTIFICATE_DELAY_S",
+        "MAX_TIMESTAMP_DELTA_S", "MAX_FETCH_TIMEOUT_S")}}
+    comm = convert.committee(bytes.fromhex(lfx["committee"]))
+    accounts = [bft_sup.dev_account(i) for i in range(lfx["num_validators"])]
+    if sorted(a.address for a in accounts) != sorted(comm.addresses):
+        raise AssertionError("the derived dev accounts are not the fixture committee's members")
+    blocks = [convert.block(bytes.fromhex(b)) for b in lfx["blocks"]]
+    sols = [t.deserialize() for t in blocks[0].transmissions
+            if t.kind == node_types.TX_SOLUTION]
+    # the executions that do not need block 1's deploy: its transfer_public
+    # and block 2's transfer_public_to_private
+    txs = [next(t.deserialize() for t in blk.transmissions
+                if t.kind == node_types.TX_TRANSACTION) for blk in blocks]
+    for tx, fn in zip(txs, ("transfer_public ", "transfer_public_to_private ")):
+        if tx.is_deploy or not tx.payload.startswith(b"execute credits.aleo/" + fn.encode()):
+            raise AssertionError(f"the fixture's {fn.strip()} is not where it was")
+    tampered = dataclasses.replace(sols[0], eval_y=sols[0].eval_y + 1)
+    want = {s.id for s in sols} | {t.id for t in txs}
+
+    # warm-up before the network: the build, the puzzle SRS and the genesis
+    # epoch's program, the authorization circuit, the execution SRS of
+    # 16,384 and the executions' indexes (one verify_transaction each)
+    t0 = time.perf_counter()
+    pz = puzzle_mod.global_puzzle(lfx["log_degree"], dev)
+    genesis = ledger_mod.make_genesis(comm, dev)
+    if genesis.to_bytes() != bytes.fromhex(lfx["genesis"]):
+        raise AssertionError("the genesis differs from the fixture's")
+    pz.epoch_program(genesis.epoch_hash)
+    ledger_mod.global_varuna(dev)
+    ledger_mod.execution_srs(16384, dev)
+    warm = ledger_mod.Ledger(comm, device=dev)
+    for tx in txs:
+        if not ledger_mod.verify_transaction(tx, warm.parsed_programs, dev):
+            raise AssertionError("the port's ledger rejected a fixture transaction")
+    torch.cuda.synchronize()
+    out["warm_up_s"] = time.perf_counter() - t0
+    log(f"consensus warm-up (the puzzle SRS, the genesis epoch program, global_varuna, "
+        f"execution_srs(16384), both executions verified once) {out['warm_up_s']:.2f} s")
+
+    def factory(c):
+        svc = TimedService(ledger_mod.CoreLedgerService(ledger_mod.Ledger(c, device=dev)))
+        if svc.ledger.blocks[0].to_bytes() != bytes.fromhex(lfx["genesis"]):
+            raise AssertionError("a validator's genesis differs from the fixture's")
+        return svc
+
+    net = bft_sup.TestNetwork(accounts, factory, comm)
+    services = net.services
+    committed_at = {a: [] for a in net.nodes}
+    t_feed = [None]
+
+    def hook(addr, inner):
+        async def on_block(block):
+            committed_at[addr].append((block.height, block.round, time.perf_counter() - t_feed[0]))
+            await inner(block)
+        return on_block
+
+    for addr, node in net.nodes.items():
+        node.on_block = hook(addr, node.on_block)
+
+    # spies on the solutions' bindings and the KZG batches, for the path's
+    # exact launches (check_launches)
+    bindings, batches, lock = [0], [], threading.Lock()
+    saved = (puzzle_mod.Puzzle.check_binding, kzg.batch_verify)
+
+    def binding(self, *args):
+        with lock:
+            bindings[0] += 1
+        return saved[0](self, *args)
+
+    def batch(srs, openings, gamma=None, device=None):
+        with lock:
+            batches.append(list(openings))
+        return saved[1](srs, openings, gamma, device)
+
+    def done(addr):
+        """The validator's commit path ran to its end (its block hook) for
+        blocks that hold every transmission."""
+        return {t.id for b in net.blocks[addr] for t in b.transmissions} >= want
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+        loop.set_default_executor(ThreadPoolExecutor(max_workers=8,
+                                                     thread_name_prefix="validator"))
+        t_feed[0] = t = time.perf_counter()
+        for node in net.nodes.values():
+            await node.add_unconfirmed_solution(tampered)
+            for sol in sols:
+                await node.add_unconfirmed_solution(sol)
+            for tx in txs:
+                await node.add_unconfirmed_transaction(tx)
+        # intake ends before the first proposal: the solutions target the
+        # genesis epoch and bind only in block 1 (ledger._solution_opening_for)
+        await net.start_intake()
+        while not all(set(n.primary.worker.ready) == want for n in net.nodes.values()):
+            if time.perf_counter() - t > CONSENSUS_DEADLINE_S:
+                raise AssertionError("the validators' intake did not end before the deadline; "
+                                     f"refused: {[s.refused for s in services.values()]}")
+            await asyncio.sleep(0.05)
+        intake_s = time.perf_counter() - t
+        for svc in services.values():
+            svc.stage = "proposal"
+        net.connect_all()
+        await net.start()
+        try:
+            while not all(done(a) for a in net.nodes):
+                if time.perf_counter() - t > CONSENSUS_DEADLINE_S:
+                    raise AssertionError(
+                        f"not every validator committed the {len(want)} transmissions within "
+                        f"{CONSENSUS_DEADLINE_S:.0f} s: heights "
+                        f"{[s.inner.latest_height() for s in services.values()]}")
+                await asyncio.sleep(0.05)
+            commit_s = time.perf_counter() - t
+        finally:
+            await net.stop()
+        return intake_s, commit_s
+
+    puzzle_mod.Puzzle.check_binding, kzg.batch_verify = binding, batch
+    try:
+        intake_s, commit_s = run_path("consensus", lambda: asyncio.run(drive()),
+                                      ["fr_poseidon_permute", "fr_epoch_program", "mont_mul",
+                                       "bucket_scan_serial", "seg_prefix", "g1_bucket_fixup",
+                                       "g1_horner_chain", "g1_lane_buckets",
+                                       "g1_lane_bucket_carry", "jadd_bucket_total"])
+    finally:
+        puzzle_mod.Puzzle.check_binding, kzg.batch_verify = saved
+    check_launches(kernels, msm, "consensus", bindings[0], batches)
+
+    # the tampered solution: refused at intake by all four, never committed
+    for addr, svc in services.items():
+        if not any(r[:3] == ("intake", "intake_s", tampered.id) for r in svc.refused):
+            raise AssertionError(f"validator {addr[:16]} did not refuse the tampered solution")
+        if svc.inner.contains_transmission(tampered.id):
+            raise AssertionError("the tampered solution was committed")
+        wrong = [r for r in svc.refused if r[2] != tampered.id]
+        if wrong:
+            raise AssertionError(f"validator {addr[:16]} refused good transmissions: {wrong}")
+    log("the tampered solution (eval_y + 1) was refused at intake by all four validators "
+        "and never committed")
+
+    # the chains: equal block for block, each block's round even and its
+    # anchor that round's leader; the transmissions all committed once
+    chains = {a: svc.inner.ledger.blocks for a, svc in services.items()}
+    common = min(len(c) for c in chains.values())
+    first = next(iter(chains.values()))
+    if any([b.hash for b in c[:common]] != [b.hash for b in first[:common]]
+           for c in chains.values()):
+        raise AssertionError("the validators' chains differ")
+    last = max(b.height for b in first[:common] for t in b.transmissions
+               if t.id in want) if common > 1 else 0
+    got_ids = [t.id for b in first[1:common] for t in b.transmissions]
+    if set(got_ids) != want or len(got_ids) != len(want):
+        raise AssertionError("the common chain does not hold the transmissions once each")
+    for b in first[1:common]:
+        if b.round % 2 or b.subdag.anchor_round != b.round or \
+                b.subdag.leader_certificate.author != comm.get_leader(b.round):
+            raise AssertionError(f"block {b.height}: round {b.round} is not an even round "
+                                 "anchored by its leader")
+    out.update(intake_s=intake_s, first_feed_to_last_commit_s=commit_s,
+               heights=[len(c) - 1 for c in chains.values()], common_height=common - 1,
+               transmissions_block=last,
+               rounds=[svc.inner.latest_round() for svc in services.values()],
+               blocks=[(b.height, b.round, len(b.transmissions)) for b in first[1:common]],
+               committed_at={a[:16]: v for a, v in committed_at.items()},
+               host_s={a[:16]: dict(svc.seconds) for a, svc in services.items()})
+    log(f"consensus: {len(want)} transmissions committed by all four validators "
+        f"{commit_s:.2f} s after the first feed (intake {intake_s:.2f} s); chains equal over "
+        f"{common - 1} blocks (heights {out['heights']}), the transmissions in block {last}; "
+        f"blocks (height, round, transmissions) {out['blocks']}; on {smi}")
+    for a, svc in services.items():
+        log(f"  validator {a[:16]}: host s " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(svc.seconds.items()))
+            + f"; commits (height, round, s) {committed_at[a]}")
+
+    # a fresh ledger on the card replays each validator's chain. During the
+    # first replay the path's kernels are held against their plain versions
+    # on the path's own inputs: each binding's coefficients against the
+    # plain sponge and epoch program on the card (limb for limb) and its
+    # evaluation against the plain multiplies on a host copy; each KZG
+    # batch's MSMs against msm.msm on host copies, the plain versions
+    # (after affine normalisation)
+    real_binding, real_msm, real_hash = (puzzle_mod.Puzzle.check_binding, msm.msm,
+                                         poseidon.hash_fixed)
+    held = {"bindings": 0, "msms": 0}
+
+    def binding_held(self, epoch_hash, address, nonce, commitment, eval_y):
+        got = self.coefficients(epoch_hash, address, [nonce])
+        poseidon.hash_fixed = poseidon.hash_plain
+        try:
+            leaves = self._leaves_device([self._seed_field(epoch_hash, address, nonce)])
+        finally:
+            poseidon.hash_fixed = real_hash
+        if not torch.equal(got, self.epoch_program(epoch_hash).apply_plain(leaves)):
+            raise AssertionError("a binding's coefficients differ from the plain versions'")
+        z = self._challenge(commitment)
+        if kzg.poly_eval(got[:, 0], z) != kzg.poly_eval(got[:, 0].cpu(), z):
+            raise AssertionError("a binding's evaluation differs from the plain multiplies'")
+        held["bindings"] += 1
+        return real_binding(self, epoch_hash, address, nonce, commitment, eval_y)
+
+    def msm_held(points, scalars):
+        got = real_msm(points, scalars)
+        want = real_msm(g1.JacobianPoints(*(t.cpu() for t in (points.x, points.y, points.z))),
+                        scalars.cpu())
+        if [ref_g1.affine(p) for p in g1.decode_points(got)] != \
+                [ref_g1.affine(p) for p in g1.decode_points(want)]:
+            raise AssertionError(f"a KZG batch's MSM of {points.x.shape[-1]} points differs "
+                                 "from the plain versions'")
+        held["msms"] += 1
+        return got
+
+    def replay():
+        for i, (a, chain) in enumerate(chains.items()):
+            fresh = ledger_mod.Ledger(comm, device=dev)
+            if i == 0:
+                puzzle_mod.Puzzle.check_binding, msm.msm = binding_held, msm_held
+            try:
+                for blk in chain[1:]:
+                    fresh.check_next_block(blk)
+                    fresh.advance_to_next_block(blk)
+            finally:
+                puzzle_mod.Puzzle.check_binding, msm.msm = real_binding, real_msm
+            if fresh.latest_block.hash != chain[-1].hash:
+                raise AssertionError(f"the replay of {a[:16]}'s chain ends elsewhere")
+
+    t0 = time.perf_counter()
+    run_path("consensus chains replayed", replay,
+             ["fr_poseidon_permute", "fr_epoch_program", "bucket_scan_serial", "g1_horner_chain"])
+    out["replay_s"] = time.perf_counter() - t0
+    if held != {"bindings": len(sols), "msms": 2}:
+        raise AssertionError(f"the first replay held {held}, want {len(sols)} bindings and "
+                             "one KZG batch's two MSMs")
+    log(f"held against their plain versions on the path's inputs: {held['bindings']} "
+        f"bindings' coefficients (fr_poseidon_permute, the epoch program) limb for limb "
+        f"and their evaluations (mont_mul), one KZG batch's two MSMs (B4, B3, "
+        f"g1_bucket_fixup, g1_horner_chain, g1_lane_buckets, g1_lane_bucket_carry, B7) "
+        f"after affine normalisation")
+    ref = convert.ledger(bytes.fromhex(lfx["committee"]),
+                         [bytes.fromhex(lfx["genesis"])] + [bytes.fromhex(b) for b in lfx["blocks"]],
+                         device=dev)
+
+    def records(led):
+        return sorted(c for v in led.record_ciphertexts.values() for c in v)
+
+    for a, svc in services.items():
+        led = svc.inner.ledger
+        for acct in accounts:
+            mine = led.get_mapping_value("credits.aleo", "account", acct.address)
+            theirs = ref.get_mapping_value("credits.aleo", "account", acct.address)
+            if mine != theirs:
+                raise AssertionError(f"validator {a[:16]}: credits account of "
+                                     f"{acct.address[:16]} {mine} != {theirs}")
+        if records(led) != records(ref) or not records(ref):
+            raise AssertionError(f"validator {a[:16]}: the record ciphertexts differ")
+    log(f"a fresh ledger on the card accepts each validator's chain ({out['replay_s']:.2f} s "
+        f"for the four); the credits accounts of dev accounts 0-3 and the "
+        f"{len(records(ref))} record ciphertext equal the fixture chain's")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    if loaded:
+        raise AssertionError(f"JAX was imported: {loaded[:5]}")
     puzzle_mod._PUZZLE = None
     return out
 
@@ -939,25 +1321,24 @@ def main() -> int:
         return max_abs_err(g1.to_affine(pg), g1.to_affine(pw))
 
     def check(name, source, replaces, cases, counter, big=False, verify=None, exact=True,
-              compare=None, library=None, plain_once=()):
+              compare=None, library=None):
         """cases: [(label, kernel_fn, plain_fn, nbytes, nops[, timed_fn])],
         ``timed_fn`` timed in place of kernel_fn if given, a case with nbytes
         None compared and not timed, its plain version run once (the first
         case is timed); a timed case's plain version runs once for its output
         and once more, timed (CUDA events); ``big``: time 7 runs of 3 launches
         (else 7 runs of 20), and the device time over as many launches as a
-        run; ``verify``
+        run, and run each plain version once, timed by that call; ``verify``
         checks the kernel's output beyond the comparison with the plain one;
         ``exact=False`` compares projectively (``affine_err``), ``compare``
         with a function (got, want) -> max abs error that raises on a
         mismatch; ``library``, one PyTorch call that computes the first case's
-        function, is timed as its library_ms; the plain_fn of a case whose
-        label is in ``plain_once`` runs once, timed by that call (CUDA
-        events). Cases that share a plain_fn share its output and time."""
+        function, is timed as its library_ms. Cases that share a plain_fn
+        share its output and time."""
         shapes = []
         plain_runs = {}
         for label, kfn, pfn, nbytes, nops, *timed in cases:
-            if pfn not in plain_runs and label in plain_once:
+            if pfn not in plain_runs and big:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
                 want = pfn()
@@ -1114,9 +1495,7 @@ def main() -> int:
            *(permute_case(r, 1 << 16) for r in POSEIDON_MORE_RATES),
            *(sponge_case(r, r + 1, 4096, r + 1, "snarkos_tpu.test", timed=False)
              for r in POSEIDON_MORE_RATES), *wide_cases],
-          poseidon.sponge_kernel, big=True,
-          plain_once=tuple(wide_labels) + ("permute (5, 16, 4096)",)
-          + tuple(f"permute ({r + 1}, 16, 65536)" for r in POSEIDON_MORE_RATES))
+          poseidon.sponge_kernel, big=True)
 
     # the wide rates against the host's permute and hash_many on three lanes:
     # 0 (every slot 0), 2 (every slot p - 1) and the last (random)
@@ -1198,7 +1577,7 @@ def main() -> int:
           "snarkos_tpu/ops/modarith.py:171",
           [epoch_case(1 << 16, BATCH, "global"), epoch_case(1 << 20, 2, "global", label20),
            *(epoch_case(k, b, "global") for b, k in rule_shapes)],
-          puzzle_mod.program_kernel_global, big=True, plain_once=(label20,))
+          puzzle_mod.program_kernel_global, big=True)
     # the two variants side by side, and the code's own traffic of the
     # global one: 96 bytes a lane a step (x, its partner, the write) and 36
     # a lane's table entries a step (the constant's words, the wiring word)
@@ -3087,8 +3466,12 @@ def main() -> int:
     phase("12")
     report["ledger"] = ledger_phase(run_path, kernels, smi)
 
-    # -- 13. output -----------------------------------------------------------------
+    # -- 13. the consensus core on the card ------------------------------------------
     phase("13")
+    report["consensus"] = consensus_phase(run_path, kernels, smi)
+
+    # -- 14. output -----------------------------------------------------------------
+    phase("14")
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:

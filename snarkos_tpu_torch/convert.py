@@ -5,8 +5,9 @@ tensors and its Fr arrays (the NTT's inputs and outputs) are already in the
 port's layout (int32 16-bit limbs, Montgomery form with the same R), so
 conversion is a checked copy onto the device.
 The node's objects (``Block``, ``Transaction``, ``Solution``, ``Committee``,
-a ``VarunaProof``) cross through their wire bytes, which both packages
-encode alike; ``ledger`` replays a chain's blocks into a port ``Ledger``.
+a ``VarunaProof``, a BFT event, a ``BatchCertificate``, a ``Subdag``) cross
+through their wire bytes, which both packages encode alike; ``ledger``
+replays a chain's blocks into a port ``Ledger``.
 Nothing here imports the JAX package: callers pass ``np.asarray(...)`` of
 its arrays, host values (``srs_ref.tau_h``) as Python ints, and an object's
 ``to_bytes()`` / ``serialize()``.
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from snarkos_tpu_torch.crypto.ref import kzg as ref_kzg, pairing, varuna
-from snarkos_tpu_torch.node import codec, ledger as ledger_mod, types
+from snarkos_tpu_torch.node import codec, events, ledger as ledger_mod, types
 from snarkos_tpu_torch.ops import _build, g1
 from snarkos_tpu_torch.ops.fieldspec import FQ, FR
 from snarkos_tpu_torch.ops.puzzle import DEV_TAU, EPOCH_STEPS, EpochProgram, PuzzleSRS
@@ -122,6 +123,22 @@ def solution(data: bytes) -> types.Solution:
 def committee(data: bytes) -> types.Committee:
     """A committee's bytes -> Committee."""
     return _decode(types.Committee, data)
+
+
+def event(data: bytes):
+    """A BFT event's bytes (the JAX ``events.serialize(event)``) -> the
+    port's event of the same type."""
+    return events.deserialize(bytes(data))
+
+
+def certificate(data: bytes) -> types.BatchCertificate:
+    """A batch certificate's bytes -> BatchCertificate."""
+    return types.BatchCertificate.from_bytes(bytes(data))
+
+
+def subdag(data: bytes) -> types.Subdag:
+    """A committed subdag's bytes -> Subdag."""
+    return _decode(types.Subdag, data)
 
 
 def varuna_proof(data: bytes) -> varuna.VarunaProof:

@@ -48,6 +48,7 @@ form only, so a device MSM's Jacobian representative changes neither.
 from __future__ import annotations
 
 import hashlib
+import threading
 from dataclasses import dataclass
 
 from snarkos_tpu_torch.crypto import params
@@ -200,6 +201,7 @@ def required_srs_degree(cs: R1CS) -> int:
 
 
 _INDEX_CACHE: dict = {}
+_INDEX_LOCK = threading.RLock()
 
 
 def srs_tag(srs: kzg.SRS) -> bytes:
@@ -216,15 +218,17 @@ def srs_tag(srs: kzg.SRS) -> bytes:
 def get_index(srs: kzg.SRS, cs: R1CS, commit_fn=None) -> Index:
     """The circuit's index over ``srs``, cached by content (``srs_tag`` and
     ``R1CS.digest``), never by object identity. ``commit_fn`` (coeffs ->
-    point) makes the 9 commitments of an index not yet cached."""
+    point) makes the 9 commitments of an index not yet cached, once:
+    threads that ask for it together wait for one build."""
     key = (srs_tag(srs), cs.digest())
-    idx = _INDEX_CACHE.get(key)
-    if idx is None:
-        idx = index_circuit(srs, cs, commit_fn)
-        if len(_INDEX_CACHE) > 32:
-            _INDEX_CACHE.clear()
-        _INDEX_CACHE[key] = idx
-    return idx
+    with _INDEX_LOCK:
+        idx = _INDEX_CACHE.get(key)
+        if idx is None:
+            idx = index_circuit(srs, cs, commit_fn)
+            if len(_INDEX_CACHE) > 32:
+                _INDEX_CACHE.clear()
+            _INDEX_CACHE[key] = idx
+        return idx
 
 
 def index_circuit(srs: kzg.SRS, cs: R1CS, commit_fn=None) -> Index:

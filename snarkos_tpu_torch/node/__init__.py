@@ -1,6 +1,8 @@
-"""The node's chain layer, the port of the ledger slice of
-``snarkos_tpu/node/``: the wire codec, the chain types, the messages, the
-state tree and the ledger with its service seams. The network, BFT, roles,
-REST and CLI modules are not ported yet; a node runs them through
-``snarkos_tpu_torch/node_seam.py``.
+"""The node, the port of ``snarkos_tpu/node/``: the wire codec, the chain
+types, the messages, the state tree and the ledger with its service seams;
+the BFT events, the Narwhal storage and DAG, the primary, the BFT commit
+rule, the proposal cache, the metrics and ``Consensus`` (``bft/``,
+``events``, ``consensus``). The networking (tcp, router, gateway, block
+sync), the roles, REST and the CLI are not ported yet; a node runs them
+through ``snarkos_tpu_torch/node_seam.py``.
 """

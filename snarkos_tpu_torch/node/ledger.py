@@ -226,6 +226,10 @@ finalize unbond_public:
 """
 
 _GENESIS_CACHE: dict[bytes, Block] = {}
+# the process-wide lazy builds (the genesis, the authorization circuit's
+# context, the execution SRSs) happen once: validators that share a process
+# check from several executor threads at once
+_LAZY_LOCK = threading.RLock()
 
 
 def make_genesis(committee: Committee, device=None) -> Block:
@@ -233,18 +237,19 @@ def make_genesis(committee: Committee, device=None) -> Block:
     (vm.genesis_quorum capability; deterministic across validators: the
     same bytes on every device). Cached per committee id."""
     device = _build.resolve_device(device)
-    cached = _GENESIS_CACHE.get(committee.id)
-    if cached is None:
-        import dataclasses
+    with _LAZY_LOCK:
+        cached = _GENESIS_CACHE.get(committee.id)
+        if cached is None:
+            import dataclasses
 
-        deploy = create_transaction(CREDITS_PROGRAM.encode(), is_deploy=True,
-                                    key=_GENESIS_TX_KEY, device=device)
-        cached = dataclasses.replace(
-            genesis_block(committee),
-            transmissions=(Transmission(types.TX_TRANSACTION, deploy.to_bytes()),),
-        )
-        _GENESIS_CACHE[committee.id] = cached
-    return cached
+            deploy = create_transaction(CREDITS_PROGRAM.encode(), is_deploy=True,
+                                        key=_GENESIS_TX_KEY, device=device)
+            cached = dataclasses.replace(
+                genesis_block(committee),
+                transmissions=(Transmission(types.TX_TRANSACTION, deploy.to_bytes()),),
+            )
+            _GENESIS_CACHE[committee.id] = cached
+        return cached
 
 
 def transaction_challenge(payload: bytes, commitment: bytes) -> int:
@@ -870,18 +875,19 @@ def global_varuna(device=None):
     commitments (s_1/s_2) are only sound when the committer key has no slack
     above the enforced bound."""
     device = _build.resolve_device(device)
-    ctx = _VARUNA_CTX.get(device)
-    if ctx is None:
-        from snarkos_tpu_torch.crypto.ref import r1cs as r1cs_mod
-        from snarkos_tpu_torch.crypto.ref import varuna
+    with _LAZY_LOCK:
+        ctx = _VARUNA_CTX.get(device)
+        if ctx is None:
+            from snarkos_tpu_torch.crypto.ref import r1cs as r1cs_mod
+            from snarkos_tpu_torch.crypto.ref import varuna
 
-        cs, k_var = r1cs_mod.auth_circuit()
-        srs = _trimmed_srs(varuna.required_srs_degree(cs), device, "auth circuit")
-        # the index (verifying key: matrix-polynomial commitments) is
-        # computed once here — O(nnz) at startup, O(1) per verification
-        varuna_index(srs, cs)
-        ctx = _VARUNA_CTX[device] = (cs, k_var, srs)
-    return ctx
+            cs, k_var = r1cs_mod.auth_circuit()
+            srs = _trimmed_srs(varuna.required_srs_degree(cs), device, "auth circuit")
+            # the index (verifying key: matrix-polynomial commitments) is
+            # computed once here — O(nnz) at startup, O(1) per verification
+            varuna_index(srs, cs)
+            ctx = _VARUNA_CTX[device] = (cs, k_var, srs)
+        return ctx
 
 
 def transaction_binding(payload: bytes, fee: int) -> int:
@@ -919,11 +925,12 @@ def execution_srs(need: int, device=None) -> PuzzleSRS:
     (record/privacy circuits reach degree 2^15) are built on the device
     (``PuzzleSRS.dev_powers``); nothing is read from or written to disk."""
     device = _build.resolve_device(device)
-    srs = _EXEC_SRS_CACHE.get((need, device))
-    if srs is None:
-        srs = _EXEC_SRS_CACHE[(need, device)] = _trimmed_srs(
-            need, device, "execution circuit")
-    return srs
+    with _LAZY_LOCK:
+        srs = _EXEC_SRS_CACHE.get((need, device))
+        if srs is None:
+            srs = _EXEC_SRS_CACHE[(need, device)] = _trimmed_srs(
+                need, device, "execution circuit")
+        return srs
 
 
 def _address_field(addr: str) -> int:

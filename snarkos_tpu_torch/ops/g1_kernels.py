@@ -87,7 +87,7 @@ def add_kernel(pa: g1.JacobianPoints, pb: g1.JacobianPoints) -> g1.JacobianPoint
     if n:
         fn = _build.entry("g1_add", "g1_add", 9, 1)
         _build.launch(fn, (pa.x, pa.y, pa.z, pb.x, pb.y, pb.z, *out), (n,), pa.x.device)
-        add_kernel.launches += 1
+        _build.count(add_kernel)
     return g1.JacobianPoints(*out)
 
 
@@ -126,7 +126,7 @@ def horner_chain_kernel(ts, c: int) -> g1.JacobianPoints:
     if n:
         fn = _build.entry("window_tail", "g1_horner_chain", 6, 3)
         _build.launch(fn, (*ts, *out), (W, n, c), ts[0].device)
-        horner_chain_kernel.launches += 1
+        _build.count(horner_chain_kernel)
     return g1.JacobianPoints(*out)
 
 
@@ -195,7 +195,7 @@ def bucket_fixup_kernel(scan, keys, heads, summ, K: int, rows: int, nbatch: int,
         fn = _build.entry("window_tail", "g1_bucket_fixup", 11, 5)
         _build.launch(fn, (*scan, keys, heads, *summ, *out), (n, K, rows, nbatch, B),
                       keys.device)
-        bucket_fixup_kernel.launches += 1
+        _build.count(bucket_fixup_kernel)
     return g1.JacobianPoints(*out)
 
 
@@ -214,7 +214,7 @@ def seg_prefix_kernel(flags, x, y, z):
         scratch = [torch.empty_like(flags)] + [torch.empty_like(x) for _ in range(3)]
         fn = _build.entry("seg_prefix", "seg_prefix", 12, 2)
         _build.launch(fn, (flags, x, y, z, *out, *scratch), (n, prefix_steps(n)), x.device)
-        seg_prefix_kernel.launches += 1
+        _build.count(seg_prefix_kernel)
     return tuple(out)
 
 
@@ -288,7 +288,7 @@ def lane_buckets_kernel(keys, x, y, z, K: int, B: int, plan):
     if n:
         fn = _build.entry("lane_scan", "g1_lane_buckets", 13, 5)
         _build.launch(fn, (keys, x, y, z, *out, *agg, first, carry_key), (n, K, B, M, MB), dev)
-        lane_buckets_kernel.launches += 1
+        _build.count(lane_buckets_kernel)
     return (*out, *agg, first, carry_key)
 
 
@@ -325,7 +325,7 @@ def lane_bucket_carry_kernel(bx, by, bz, sx, sy, sz, carry_key):
     if K:
         fn = _build.entry("lane_scan", "g1_lane_bucket_carry", 7, 2)
         _build.launch(fn, (bx, by, bz, sx, sy, sz, carry_key), (K, B), bx.device)
-        lane_bucket_carry_kernel.launches += 1
+        _build.count(lane_bucket_carry_kernel)
     return bx, by, bz
 
 

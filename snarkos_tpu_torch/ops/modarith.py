@@ -252,7 +252,7 @@ def mont_mul_kernel(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.
     if n:
         fn = _build.entry("mont_mul", f"mont_mul_{spec.name}", 3, 1)
         _build.launch(fn, (a, b, out), (n,), a.device)
-        mont_mul_kernel.launches += 1
+        _build.count(mont_mul_kernel)
     return out
 
 

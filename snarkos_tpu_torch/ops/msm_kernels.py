@@ -130,7 +130,7 @@ def bucket_scan_serial_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.T
     if m and K:
         fn = _build.entry("bucket_scan_serial", "bucket_scan_serial", 6, 3)
         _build.launch(fn, (xs, ys, flags, *out), (m, K, team_size(team, m)), xs.device)
-        bucket_scan_serial_kernel.launches += 1
+        _build.count(bucket_scan_serial_kernel)
     return tuple(out)
 
 
@@ -177,7 +177,7 @@ def bucket_scan_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor, 
         fn = _build.entry("bucket_scan", "bucket_scan", 6, 4)
         _build.launch(fn, (xs, ys, flags, *out), (m, K, chunk, team_size(team, m // chunk)),
                       xs.device)
-        bucket_scan_kernel.launches += 1
+        _build.count(bucket_scan_kernel)
     return tuple(out)
 
 
@@ -231,7 +231,7 @@ def bucket_scan_fast_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Ten
         fn = _build.entry("bucket_scan_fast", "bucket_scan_fast", 8, 4)
         _build.launch(fn, (xs, ys, flags, nonzero, *out, exc),
                       (m, K, chunk, team_size(team, m // chunk)), xs.device)
-        bucket_scan_fast_kernel.launches += 1
+        _build.count(bucket_scan_fast_kernel)
     return tuple(out) + (exc,)
 
 
@@ -309,7 +309,7 @@ def bucket_total_kernel(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     scratch = torch.empty(2 * 36 * blocks, dtype=torch.int32, device=x.device)
     fn = _build.entry("jadd_scan", "jadd_bucket_total", 10, 3)
     _build.launch(fn, (x, y, z, *out, *suffix, scratch), (B, threads, per_thread), x.device)
-    bucket_total_kernel.launches += 1
+    _build.count(bucket_total_kernel)
     return (out, suffix) if scan_out else out
 
 

@@ -256,7 +256,7 @@ def pass_kernel(a: torch.Tensor, out: torch.Tensor, table: torch.Tensor, s0: int
         _build.launch(fn, (a, out, table, scale),
                       (n, B, s0, k, cols or _pass_cols(log_n, s0, k), threads or PASS_THREADS),
                       a.device)
-        pass_kernel.launches += 1
+        _build.count(pass_kernel)
     return out
 
 

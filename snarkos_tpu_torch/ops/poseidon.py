@@ -309,7 +309,7 @@ def sponge_kernel(rate: int, state=None, inputs=None, domain: str = "",
         fn = _build.entry("fr_passes", "fr_poseidon_permute", 6, 4)
         _build.launch(fn, (state, inputs, dom, _device_kernel_consts(rate, device), out, scratch),
                       (B, t, n_in, n_out), device)
-        sponge_kernel.launches += 1
+        _build.count(sponge_kernel)
     return out
 
 

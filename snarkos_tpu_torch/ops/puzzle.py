@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -268,7 +269,7 @@ def program_kernel_cluster(leaves: torch.Tensor, ps: torch.Tensor, cw: torch.Ten
     if B and K:
         fn = _build.entry("fr_passes", "fr_epoch_program", 4, 4)
         _build.launch(fn, (leaves, ps, cw, out), (B, K, S, cluster), leaves.device)
-        program_kernel_cluster.launches += 1
+        _build.count(program_kernel_cluster)
     return out
 
 
@@ -288,7 +289,7 @@ def program_kernel_global(leaves: torch.Tensor, ps: torch.Tensor,
         scratch = torch.empty_like(leaves)
         fn = _build.entry("fr_passes", "fr_epoch_program_global", 5, 3)
         _build.launch(fn, (leaves, ps, cw, out, scratch), (B, K, S), leaves.device)
-        program_kernel_global.launches += 1
+        _build.count(program_kernel_global)
     return out
 
 
@@ -427,16 +428,19 @@ class Puzzle:
         if self.srs.degree < self.k:
             raise ValueError(f"SRS of degree {self.srs.degree} < {self.k}")
         self._programs: dict[bytes, EpochProgram] = {}
+        self._programs_lock = threading.Lock()
 
     def epoch_program(self, epoch_hash: bytes) -> EpochProgram:
-        """The per-epoch relation (small cache: current + adjacent epochs)."""
-        prog = self._programs.get(epoch_hash)
-        if prog is None:
-            prog = EpochProgram(epoch_hash, self.k, self.device)
-            if len(self._programs) > 4:
-                self._programs.clear()
-            self._programs[epoch_hash] = prog
-        return prog
+        """The per-epoch relation (small cache: current + adjacent epochs),
+        built once: threads that ask for it together wait for one build."""
+        with self._programs_lock:
+            prog = self._programs.get(epoch_hash)
+            if prog is None:
+                prog = EpochProgram(epoch_hash, self.k, self.device)
+                if len(self._programs) > 4:
+                    self._programs.clear()
+                self._programs[epoch_hash] = prog
+            return prog
 
     def _leaves_device(self, seed_fields: list[int]) -> torch.Tensor:
         """(L, B, K) Montgomery Fr leaves via counter-mode Poseidon, one
@@ -571,6 +575,7 @@ class Puzzle:
 
 
 _PUZZLE: Puzzle | None = None
+_PUZZLE_LOCK = threading.Lock()
 
 
 def global_puzzle(log_degree: int | None = None, device=None) -> Puzzle:
@@ -583,9 +588,10 @@ def global_puzzle(log_degree: int | None = None, device=None) -> Puzzle:
     ``_PUZZLE`` to None."""
     global _PUZZLE
     dev = _build.resolve_device(device)
-    want = log_degree if log_degree is not None else (
-        _PUZZLE.log_degree if _PUZZLE else int(os.environ.get(
-            "SNARKOS_TPU_PUZZLE_LOG_DEGREE", DEFAULT_LOG_DEGREE)))
-    if _PUZZLE is None or (_PUZZLE.log_degree, _PUZZLE.device) != (want, dev):
-        _PUZZLE = Puzzle(want, dev)
-    return _PUZZLE
+    with _PUZZLE_LOCK:  # one build when threads ask together
+        want = log_degree if log_degree is not None else (
+            _PUZZLE.log_degree if _PUZZLE else int(os.environ.get(
+                "SNARKOS_TPU_PUZZLE_LOG_DEGREE", DEFAULT_LOG_DEGREE)))
+        if _PUZZLE is None or (_PUZZLE.log_degree, _PUZZLE.device) != (want, dev):
+            _PUZZLE = Puzzle(want, dev)
+        return _PUZZLE
