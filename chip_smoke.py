@@ -228,7 +228,28 @@ result line:
      the run made. Logged: seconds of intake and from the first feed to the
      last commit, the blocks and rounds, each validator's host seconds at
      intake, at the proposal re-checks and in block checks.
- 14. one JSON line with every kernel's numbers, then the result line.
+ 14. the node's block sync over localhost (snarkos_tpu_torch/node/
+     block_sync.py, router.py, tcp.py; ``sync_phase``): a server, the port's
+     Router on 127.0.0.1 port 0 over a Ledger on the card that holds
+     LEDGER_FIXTURE's blocks 1-2, serves BlockRequests and announces its
+     block locators with a Ping; a client, the port's Router and BlockSync
+     over a CoreLedgerService of a fresh Ledger on the card, wired as the
+     node's Client role wires them (tests/torch_net_support.py), completes
+     the signed handshake and syncs to height 2, each block through the full
+     block check on the card in the loop's executor. Checks: the client's
+     blocks 1-2 byte for byte the fixture's, its state root the fixture's;
+     the launches exact (check_launches over the bindings and KZG batches
+     the sync made: block 1's 4 bindings, batches of 14 and 4 openings) and
+     equal to phase 12's block 1 and block 2 columns added. Then block 1
+     with one byte changed (the low byte of its first solution's nonce):
+     from a server that announces the fixture's chain it is refused against
+     the announced hash, no kernel launched, the server's requests revoked,
+     the height 0; from one that announces the tampered chain it reaches the
+     block check, where the solution's binding on the card fails and the
+     ledger refuses the block with the JAX ledger's error (one binding's
+     launches, exact), the height 0 and the pool empty. Logged: the sync's
+     host seconds, the handshake, and the checks split as in phase 12.
+ 15. one JSON line with every kernel's numbers, then the result line.
 Each phase's start is logged (seconds since the start, phase_s in the
 report). Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
@@ -1180,6 +1201,246 @@ def consensus_phase(run_path, kernels, smi) -> dict:
     log(f"a fresh ledger on the card accepts each validator's chain ({out['replay_s']:.2f} s "
         f"for the four); the credits accounts of dev accounts 0-3 and the "
         f"{len(records(ref))} record ciphertext equal the fixture chain's")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    if loaded:
+        raise AssertionError(f"JAX was imported: {loaded[:5]}")
+    puzzle_mod._PUZZLE = None
+    return out
+
+
+# the block sync phase (14): the limit from the first sync step to height 2
+SYNC_DEADLINE_S = 120.0
+
+
+def sync_phase(run_path, kernels, smi) -> dict:
+    """Phase 14: the node's block sync (snarkos_tpu_torch/node/block_sync.py)
+    over localhost between two of the port's routers (router.py, tcp.py),
+    wired as the node's Client role wires them (tests/torch_net_support.py):
+    a client with a fresh ledger on the card syncs LEDGER_FIXTURE's blocks 1
+    and 2 from a server that holds them, each through the full block check
+    on the card in the loop's executor; then two tampered servers."""
+    import asyncio
+
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_bft_support as bft_sup
+    import torch_net_support as net
+
+    from snarkos_tpu_torch import convert
+    from snarkos_tpu_torch.crypto.ref import pairing
+    from snarkos_tpu_torch.node import ledger as ledger_mod, messages as msg, types as node_types
+    from snarkos_tpu_torch.node.router import Router
+    from snarkos_tpu_torch.ops import kzg, msm
+    from snarkos_tpu_torch.ops import puzzle as puzzle_mod
+
+    dev = torch.device("cuda")
+    with open(os.path.join(HERE, LEDGER_FIXTURE)) as fh:
+        lfx = json.load(fh)
+    out = {"card": smi}
+    comm = convert.committee(bytes.fromhex(lfx["committee"]))
+    blocks = [convert.block(bytes.fromhex(b)) for b in lfx["blocks"]]
+    # block 1 with one byte changed: the low byte of its first solution's
+    # nonce. The solution still decodes and meets its target on the host;
+    # its binding on the card fails, which the JAX ledger refuses with its
+    # invalid-solution error
+    first = next(i for i, t in enumerate(blocks[0].transmissions)
+                 if t.kind == node_types.TX_SOLUTION)
+    sol = blocks[0].transmissions[first].deserialize()
+    txs = list(blocks[0].transmissions)
+    txs[first] = node_types.Transmission.from_solution(dataclasses.replace(sol, nonce=sol.nonce ^ 1))
+    tampered = dataclasses.replace(blocks[0], transmissions=tuple(txs))
+    raw, bad = blocks[0].to_bytes(), tampered.to_bytes()
+    if len(raw) != len(bad) or sum(a != b for a, b in zip(raw, bad)) != 1:
+        raise AssertionError("the tampered block 1 is not block 1 with one byte changed")
+    refusal = lfx["tampered"]["solution_eval_y_plus_1"]["error"]
+    accounts = [bft_sup.dev_account(i) for i in range(2)]
+
+    # the puzzle at the fixture's log degree (phases 12-13 leave none) and the
+    # genesis epoch's program; the genesis, the execution SRS and the Varuna
+    # indexes are cached from phase 12
+    t0 = time.perf_counter()
+    pz = puzzle_mod.global_puzzle(lfx["log_degree"], dev)
+    genesis = ledger_mod.make_genesis(comm, dev)
+    if genesis.to_bytes() != bytes.fromhex(lfx["genesis"]):
+        raise AssertionError("the genesis differs from the fixture's")
+    pz.epoch_program(genesis.epoch_hash)
+    server_led = ledger_mod.Ledger(comm, device=dev)
+    for blk in blocks:
+        server_led.advance_to_next_block(blk)
+    torch.cuda.synchronize()
+    out["warm_up_s"] = time.perf_counter() - t0
+
+    class Service(ledger_mod.CoreLedgerService):
+        """The client's service; its block checks' refusals are kept."""
+
+        def __init__(self, led):
+            super().__init__(led)
+            self.refused = []
+
+        def check_next_block(self, block):
+            try:
+                super().check_next_block(block)
+            except Exception as exc:
+                self.refused.append((block.height, type(exc).__name__, str(exc)))
+                raise
+
+    def locators(chain):
+        """Block locators of ``chain`` (heights 0..), as a ledger gives them."""
+        return msg.BlockLocators(recents=tuple((b.height, b.hash) for b in chain),
+                                 checkpoints=((0, chain[0].hash),))
+
+    async def sync(chain, announced, target):
+        """A server serves ``chain`` and announces ``announced``; a client
+        with a fresh ledger on the card connects and syncs until it reaches
+        ``target`` or has handled one response. Returns the client and its
+        seconds: the handshake, the sync."""
+        server = Router(accounts[1], msg.NodeType.VALIDATOR, genesis.hash)
+        net.serve_blocks(server, lambda h: chain[h], lambda: len(chain) - 1)
+        client = net.SyncClient(accounts[0], Service(ledger_mod.Ledger(comm, device=dev)),
+                                genesis.hash)
+        addr = await server.run()
+        await client.router.run()
+        try:
+            t0 = time.perf_counter()
+            if not await client.router.connect(addr):
+                raise AssertionError("the client's handshake with the server failed")
+            if not await net.until(lambda: server.number_of_connected_peers() == 1, 10.0):
+                raise AssertionError("the server did not register the client")
+            handshake_s = time.perf_counter() - t0
+            (back,) = server.peers
+            net.announce(server, back, announced)
+            if not await net.until(lambda: client.router.peers[addr].block_locators
+                                   is not None, 10.0):
+                raise AssertionError("the server's locators did not reach the client")
+            t0 = time.perf_counter()
+            if target is not None:
+                await client.sync_to(target, SYNC_DEADLINE_S)
+            else:
+                await client.step()
+                if not await net.until(lambda: client.responses >= 1, SYNC_DEADLINE_S):
+                    raise AssertionError("the tampered server's response was not handled")
+            sync_s = time.perf_counter() - t0
+        finally:
+            await client.router.shut_down()
+            await server.shut_down()
+        if client.errors:
+            raise client.errors[0]
+        return client, handshake_s, sync_s
+
+    # spies: the bindings and KZG batches the checks make (check_launches),
+    # and the host seconds split as phase 12 splits a block check
+    split, bindings, batches = {}, [0], []
+    saved = (puzzle_mod.Puzzle.check_binding, kzg.batch_verify,
+             ledger_mod.transaction_opening, msm.msm, pairing.pairing_check,
+             ledger_mod.Ledger._solution_opening_for)
+
+    def clocked(key, fn, sync=False):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return res
+        return timed
+
+    def binding(self, *args):
+        bindings[0] += 1
+        return saved[0](self, *args)
+
+    def batch(srs, openings, gamma=None, device=None):
+        batches.append(list(openings))
+        return saved[1](srs, openings, gamma, device)
+
+    def spied(label, fn, required, absent=()):
+        split.clear()
+        bindings[0] = 0
+        batches.clear()
+        puzzle_mod.Puzzle.check_binding, kzg.batch_verify = binding, batch
+        ledger_mod.transaction_opening = clocked("transaction_openings_s", saved[2])
+        msm.msm = clocked("batch_msms_s", saved[3], sync=True)
+        pairing.pairing_check = clocked("batch_pairing_s", saved[4])
+        ledger_mod.Ledger._solution_opening_for = clocked("solution_openings_s", saved[5],
+                                                          sync=True)
+        try:
+            res = run_path(label, lambda: asyncio.run(fn()), required, absent=absent)
+        finally:
+            (puzzle_mod.Puzzle.check_binding, kzg.batch_verify, ledger_mod.transaction_opening,
+             msm.msm, pairing.pairing_check, ledger_mod.Ledger._solution_opening_for) = saved
+        check_launches(kernels, msm, label, bindings[0], batches)
+        return res
+
+    # the honest server: blocks 1-2 byte for byte, the path's launches exact
+    # and equal to phase 12's two block checks
+    chain = [genesis] + blocks
+    client, handshake_s, sync_s = spied(
+        "block sync", lambda: sync(chain, server_led.latest_block_locators(), 2),
+        ["fr_poseidon_permute", "fr_epoch_program", "mont_mul", "bucket_scan_serial",
+         "seg_prefix", "g1_bucket_fixup", "g1_horner_chain", "g1_lane_buckets",
+         "g1_lane_bucket_carry", "jadd_bucket_total"])
+    led = client.service.ledger
+    if led.latest_height != 2 or [b.to_bytes() for b in led.blocks[1:]] != \
+            [bytes.fromhex(b) for b in lfx["blocks"]]:
+        raise AssertionError("the synced blocks 1-2 differ from the fixture's")
+    if led.latest_state_root.hex() != lfx["state_roots"][2]:
+        raise AssertionError("the synced ledger's state root differs from the fixture's")
+    if bindings[0] != sum(1 for t in blocks[0].transmissions if t.kind == node_types.TX_SOLUTION) or \
+            [len(b) for b in batches] != [len(o) for o in lfx["openings"]]:
+        raise AssertionError(f"the sync made {bindings[0]} bindings and KZG batches of "
+                             f"{[len(b) for b in batches]} openings, not block 1's and 2's")
+    if client.service.refused:
+        raise AssertionError(f"the client refused honest blocks: {client.service.refused}")
+    phase12 = {k["name"]: sum(k["launches_per_path"].get(f"check_next_block(block {b})", 0)
+                              for b in (1, 2)) for k in kernels}
+    got = {k["name"]: k["launches_per_path"]["block sync"] for k in kernels}
+    if got != phase12:
+        raise AssertionError(f"the sync's launches {got} differ from phase 12's two block "
+                             f"checks {phase12}")
+    out.update(handshake_s=handshake_s, sync_s=sync_s, responses=client.responses,
+               split=dict(split), bindings=bindings[0],
+               batches=[len(b) for b in batches])
+    log(f"block sync over localhost: blocks 1-2 byte for byte from the server in "
+        f"{sync_s:.2f} s (host s; {client.responses} responses; handshake {handshake_s:.2f} s, "
+        f"warm-up {out['warm_up_s']:.2f} s), the state root the fixture's; launches exact: "
+        f"{bindings[0]} bindings, KZG batches of {out['batches']} openings, phase 12's block 1 "
+        f"and block 2 columns added; host s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items())) + f"; on {smi}")
+
+    # a server that announces the fixture's chain and serves block 1 with one
+    # byte changed: refused against the announced hash before any check,
+    # its requests revoked, nothing launched
+    names = [k["name"] for k in kernels]
+    client, _, _ = spied("block sync, tampered, by hash",
+                         lambda: sync([genesis, tampered] + blocks[1:],
+                                      server_led.latest_block_locators(), None), [], names)
+    if client.service.latest_height() != 0 or client.sync.requests or client.sync.responses \
+            or client.service.refused or bindings[0] or batches:
+        raise AssertionError("the block served with one byte changed was not refused by hash")
+    log("a server announcing the fixture's chain and serving block 1 with one byte changed: "
+        "the block refused against the announced hash, the height 0, its requests revoked, "
+        "no kernel launched")
+
+    # a server that announces its own chain (the tampered block 1): the hash
+    # matches, the block check refuses it when the solution's binding on the
+    # card fails, with the JAX ledger's error; the height stays, the pool is
+    # empty, the launches are exact (one binding, no KZG batch)
+    t0 = time.perf_counter()
+    client, _, _ = spied("block sync, tampered, checked",
+                         lambda: sync([genesis, tampered], locators([genesis, tampered]), None),
+                         BINDING_KERNELS[:2])
+    out["tampered_check_s"] = time.perf_counter() - t0
+    if client.service.refused != [(1, "ValueError", refusal)] or bindings[0] != 1 or batches or \
+            client.service.latest_height() != 0 or client.sync.requests or client.sync.responses:
+        raise AssertionError(f"the tampered block was not refused by the check: "
+                             f"{client.service.refused}, height "
+                             f"{client.service.latest_height()}")
+    out["tampered"] = dict(bindings=bindings[0], batches=[len(b) for b in batches],
+                           error=refusal)
+    log(f"a server announcing its chain with the tampered block 1: the solution's binding on "
+        f"the card failed and the block check refused the block ({refusal!r}; {bindings[0]} "
+        f"binding, no KZG batch, launches exact) in {out['tampered_check_s']:.2f} s, the "
+        f"height 0, the pool empty")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if loaded:
         raise AssertionError(f"JAX was imported: {loaded[:5]}")
@@ -3470,8 +3731,12 @@ def main() -> int:
     phase("13")
     report["consensus"] = consensus_phase(run_path, kernels, smi)
 
-    # -- 14. output -----------------------------------------------------------------
+    # -- 14. the block sync over localhost on the card --------------------------------
     phase("14")
+    report["sync"] = sync_phase(run_path, kernels, smi)
+
+    # -- 15. output -----------------------------------------------------------------
+    phase("15")
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:

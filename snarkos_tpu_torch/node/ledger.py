@@ -851,6 +851,12 @@ def varuna_index(srs: PuzzleSRS, cs):
     return varuna.get_index(srs.srs_ref, cs, device_commit(srs))
 
 
+class SRSTooSmall(RuntimeError):
+    """A circuit needs a larger SRS than the ceremony artifact: the JAX
+    ledger's RuntimeError, named so that the block sync can tell this
+    refusal of a block's content from a device fault."""
+
+
 def _trimmed_srs(need: int, device, what: str) -> PuzzleSRS:
     """The dev-tau family's SRS of degree exactly ``need`` on ``device``:
     the puzzle SRS's first powers, or, above its degree, the powers built
@@ -861,7 +867,7 @@ def _trimmed_srs(need: int, device, what: str) -> PuzzleSRS:
     if not puzzle_srs.is_dev:
         # artifact mode: minting a fresh dev-tau SRS here would
         # silently reintroduce the known tau
-        raise RuntimeError(f"SRS artifact too small: {what} needs degree {need}")
+        raise SRSTooSmall(f"SRS artifact too small: {what} needs degree {need}")
     return PuzzleSRS.dev_powers(need, device)
 
 

@@ -16,7 +16,9 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 def _port_files():
     # chip_smoke.py imports the in-process network of the port's validators
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_bft_support.py")]
+    # and the block sync's client and server halves
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_bft_support.py"),
+           os.path.join(ROOT, "tests", "torch_net_support.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "snarkos_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -228,17 +230,19 @@ def test_lane_scan_wrappers_reject_cpu_tensors():
 
 def test_scan_covers_the_node_and_the_vm():
     """The import scan above reaches the node's modules (the consensus core
-    among them), the VM and the in-process network of the tests and the
-    chip check."""
+    and the network planes among them), the VM and the in-process network
+    and the block sync's halves of the tests and the chip check."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     for name in ("node/ledger.py", "node/types.py", "node/state_tree.py", "node/codec.py",
                  "node/messages.py", "vm/circuit.py", "vm/interpreter.py", "vm/program.py",
                  "vm/values.py", "crypto/ref/varuna.py", "crypto/ref/edwards.py",
                  "node/events.py", "node/metrics.py", "node/proposal_cache.py",
                  "node/consensus.py", "node/bft/__init__.py", "node/bft/dag.py",
-                 "node/bft/storage.py", "node/bft/primary.py", "node/bft/bft.py"):
+                 "node/bft/storage.py", "node/bft/primary.py", "node/bft/bft.py",
+                 "node/tcp.py", "node/router.py", "node/gateway.py", "node/block_sync.py"):
         assert os.path.join("snarkos_tpu_torch", name) in rel, name
     assert os.path.join("tests", "torch_bft_support.py") in rel
+    assert os.path.join("tests", "torch_net_support.py") in rel
 
 
 def test_node_entry_points_refuse_without_card():
