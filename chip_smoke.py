@@ -160,26 +160,8 @@ result line:
      time-slicing one card, not a scaling figure. Then
      entry.dryrun_multichip(8) on the card, its eight ranks sharing it over
      gloo, each of its checks against the host.
- 11. the node seam (snarkos_tpu_torch/node_seam.py), through the facades
-     that install() puts in sys.modules under the JAX node's import names
-     (reached as sys.modules entries; this script imports nothing of
-     snarkos_tpu): global_puzzle(12) is the port's process instance on the
-     card; its prove_batch over phase 3's nonces, called from a worker
-     thread as the Prover's run_in_executor does, equals the fixture byte
-     for byte and launches each kernel exactly as often as phase 3's call;
-     passes_target at the Prover's default target 2^8 agrees with the host
-     filter; verify in check_solution_basic's argument order accepts the
-     first 4 solutions and rejects eval_y + 1; check_structural and
-     check_binding give their openings, which the kzg facade's batch_verify
-     accepts on the fused engine (B4, no g1_add) and rejects with one y
-     changed, as the host crypto/ref/kzg.batch_verify does. Then the
-     ceremony SRS: with SNARKOS_TPU_SRS_PATH naming the degree-2^12 dev SRS
-     saved as an artifact, global_puzzle(12) loads it (is_dev False, the
-     same points) and prove_batch(8) again equals the fixture. uninstall()
-     removes both entries. Solutions/s at batch 8 through the seam (median
-     of 3 after a warm-up, from the worker) beside phase 3's; not gated.
-     Then global_puzzle(16) through the seam (its own dev SRS) proves
-     tests/fixtures/torch_puzzle_k16_b8.json byte for byte, launches exact.
+ 11. (retired: the node seam, which a node of the JAX package used to reach
+     the card; the port's own node below reaches it.)
  12. the node's ledger on the card (snarkos_tpu_torch/node/ledger.py,
      ``ledger_phase``) against tests/fixtures/torch_ledger_dev4.json, the
      chain the JAX ledger made (dev committee of 4, puzzle log degree 12):
@@ -229,14 +211,14 @@ result line:
      last commit, the blocks and rounds, each validator's host seconds at
      intake, at the proposal re-checks and in block checks.
  14. the node's block sync over localhost (snarkos_tpu_torch/node/
-     block_sync.py, router.py, tcp.py; ``sync_phase``): a server, the port's
-     Router on 127.0.0.1 port 0 over a Ledger on the card that holds
-     LEDGER_FIXTURE's blocks 1-2, serves BlockRequests and announces its
-     block locators with a Ping; a client, the port's Router and BlockSync
-     over a CoreLedgerService of a fresh Ledger on the card, wired as the
-     node's Client role wires them (tests/torch_net_support.py), completes
-     the signed handshake and syncs to height 2, each block through the full
-     block check on the card in the loop's executor. Checks: the client's
+     block_sync.py, router.py, tcp.py, roles.py; ``sync_phase``): a server,
+     the port's Router on 127.0.0.1 port 0 over a Ledger on the card that
+     holds LEDGER_FIXTURE's blocks 1-2, serves BlockRequests and announces
+     its block locators with a Ping; a client, the port's Client role on the
+     card (its router, its block sync over a fresh Ledger, its sync loop
+     every SYNC_STEP_S), completes the signed handshake and syncs to height
+     2, each block through the full block check on the card in the loop's
+     executor; a device fault would stop the role, and the phase raises it. Checks: the client's
      blocks 1-2 byte for byte the fixture's, its state root the fixture's;
      the launches exact (check_launches over the bindings and KZG batches
      the sync made: block 1's 4 bindings, batches of 14 and 4 openings) and
@@ -249,7 +231,28 @@ result line:
      ledger refuses the block with the JAX ledger's error (one binding's
      launches, exact), the height 0 and the pool empty. Logged: the sync's
      host seconds, the handshake, and the checks split as in phase 12.
- 15. one JSON line with every kernel's numbers, then the result line.
+ 15. the devnet through the CLI (``devnet_phase``): four validators of the
+     dev committee, each a process started as a user starts one (``python
+     -m snarkos_tpu_torch.node.cli start --validator --dev i
+     --dev-num-validators 4 --storage <tmp>/dev-i/ledger.dat``: its genesis,
+     every solution check and block check on the card, REST on 3030 + i),
+     after phase 1 built every kernel; a Prover in this process, built as
+     ``cli start --prover --dev 4`` builds it (nonce batch 8 at log degree
+     12, the puzzle on the card), started once block 1 is committed (a
+     solution for the genesis epoch goes stale then), dials the validators'
+     node ports and proves, as that command runs it, until a block holds
+     one of its solutions: through validator 0's REST within
+     DEVNET_DEADLINE_S of its start, the same hash at that height on all
+     four. The Prover's launches exact: its batches times the
+     prove_batch(8) column. Then SIGTERM: each validator exits with status
+     0, no fault or traceback in its log (chiprun_out/devnet/), no process
+     left, and the launch counts it printed as it stopped are at least what
+     the committed chain asks of it (each solution's binding, phase 7's
+     check_binding column; two Horner chains a block with transmissions,
+     phase 12's block 2 column). Logged, in host seconds: each validator's
+     start-up, the time to the first passing solution and to the block that
+     holds it, the Prover's batches and solutions/s.
+ 16. one JSON line with every kernel's numbers, then the result line.
 Each phase's start is logged (seconds since the start, phase_s in the
 report). Every path runs with the launch counters set to 0 just before it and read
 just after; each must launch the kernels it is built from, and every kernel
@@ -1208,17 +1211,20 @@ def consensus_phase(run_path, kernels, smi) -> dict:
     return out
 
 
-# the block sync phase (14): the limit from the first sync step to height 2
+# the block sync phase (14): the limit from the first sync step to height 2,
+# and the Client role's sync loop interval there (the role's is 5 s)
 SYNC_DEADLINE_S = 120.0
+SYNC_STEP_S = 0.01
 
 
 def sync_phase(run_path, kernels, smi) -> dict:
     """Phase 14: the node's block sync (snarkos_tpu_torch/node/block_sync.py)
-    over localhost between two of the port's routers (router.py, tcp.py),
-    wired as the node's Client role wires them (tests/torch_net_support.py):
-    a client with a fresh ledger on the card syncs LEDGER_FIXTURE's blocks 1
-    and 2 from a server that holds them, each through the full block check
-    on the card in the loop's executor; then two tampered servers."""
+    over localhost between a server router (router.py, tcp.py) and the
+    port's Client role (roles.py: its router, block sync and sync loop,
+    its fresh ledger on the card): the client syncs LEDGER_FIXTURE's blocks
+    1 and 2 from a server that holds them, each through the full block check
+    on the card in the loop's executor; then two tampered servers. The
+    role's sync loop runs every SYNC_STEP_S in place of its 5 s."""
     import asyncio
 
     import torch
@@ -1229,7 +1235,9 @@ def sync_phase(run_path, kernels, smi) -> dict:
 
     from snarkos_tpu_torch import convert
     from snarkos_tpu_torch.crypto.ref import pairing
-    from snarkos_tpu_torch.node import ledger as ledger_mod, messages as msg, types as node_types
+    from snarkos_tpu_torch.node import ledger as ledger_mod, messages as msg, roles
+    from snarkos_tpu_torch.node import types as node_types
+    from snarkos_tpu_torch.node.cli import AccountView
     from snarkos_tpu_torch.node.router import Router
     from snarkos_tpu_torch.ops import kzg, msm
     from snarkos_tpu_torch.ops import puzzle as puzzle_mod
@@ -1271,19 +1279,35 @@ def sync_phase(run_path, kernels, smi) -> dict:
     torch.cuda.synchronize()
     out["warm_up_s"] = time.perf_counter() - t0
 
-    class Service(ledger_mod.CoreLedgerService):
-        """The client's service; its block checks' refusals are kept."""
+    def client_role(one_response):
+        """The Client role on the card, a fresh ledger; its block checks'
+        refusals kept in ``refused``, the BlockResponses it handled counted
+        in ``responses``. With ``one_response`` its sync loop ends when the
+        first response arrives (a refused block would be asked for again)."""
+        client = roles.Client(AccountView(accounts[0]), comm, device=dev)
+        svc, handle = client.ledger_service, client.router.handlers[msg.BlockResponse]
+        client.refused, client.responses = [], 0
+        real_check = svc.check_next_block
 
-        def __init__(self, led):
-            super().__init__(led)
-            self.refused = []
-
-        def check_next_block(self, block):
+        def check_next_block(block):
             try:
-                super().check_next_block(block)
+                real_check(block)
             except Exception as exc:
-                self.refused.append((block.height, type(exc).__name__, str(exc)))
+                client.refused.append((block.height, type(exc).__name__, str(exc)))
                 raise
+
+        async def on_response(*args):
+            if one_response:
+                for task in client._tasks:
+                    task.cancel()
+            try:
+                await handle(*args)
+            finally:
+                client.responses += 1
+
+        svc.check_next_block = check_next_block
+        client.router.handlers[msg.BlockResponse] = on_response
+        return client
 
     def locators(chain):
         """Block locators of ``chain`` (heights 0..), as a ledger gives them."""
@@ -1291,16 +1315,15 @@ def sync_phase(run_path, kernels, smi) -> dict:
                                  checkpoints=((0, chain[0].hash),))
 
     async def sync(chain, announced, target):
-        """A server serves ``chain`` and announces ``announced``; a client
-        with a fresh ledger on the card connects and syncs until it reaches
-        ``target`` or has handled one response. Returns the client and its
-        seconds: the handshake, the sync."""
+        """A server serves ``chain`` and announces ``announced``; the Client
+        role connects and syncs until it reaches ``target`` or has handled
+        one response. Returns the client and its seconds: the handshake, the
+        sync. A fault the role stopped on is raised."""
         server = Router(accounts[1], msg.NodeType.VALIDATOR, genesis.hash)
         net.serve_blocks(server, lambda h: chain[h], lambda: len(chain) - 1)
-        client = net.SyncClient(accounts[0], Service(ledger_mod.Ledger(comm, device=dev)),
-                                genesis.hash)
+        client = client_role(target is None)
         addr = await server.run()
-        await client.router.run()
+        await client.start()
         try:
             t0 = time.perf_counter()
             if not await client.router.connect(addr):
@@ -1314,18 +1337,17 @@ def sync_phase(run_path, kernels, smi) -> dict:
                                    is not None, 10.0):
                 raise AssertionError("the server's locators did not reach the client")
             t0 = time.perf_counter()
-            if target is not None:
-                await client.sync_to(target, SYNC_DEADLINE_S)
-            else:
-                await client.step()
-                if not await net.until(lambda: client.responses >= 1, SYNC_DEADLINE_S):
-                    raise AssertionError("the tampered server's response was not handled")
+            done = ((lambda: client.ledger.latest_height >= target) if target is not None
+                    else (lambda: client.responses >= 1))
+            if not await net.until(lambda: done() or client.halted.is_set(), SYNC_DEADLINE_S):
+                raise AssertionError(f"the sync reached height {client.ledger.latest_height} "
+                                     f"in {SYNC_DEADLINE_S} s")
             sync_s = time.perf_counter() - t0
         finally:
-            await client.router.shut_down()
+            await client.shut_down()
             await server.shut_down()
-        if client.errors:
-            raise client.errors[0]
+        if client.fault is not None:
+            raise client.fault
         return client, handshake_s, sync_s
 
     # spies: the bindings and KZG batches the checks make (check_launches),
@@ -1363,9 +1385,12 @@ def sync_phase(run_path, kernels, smi) -> dict:
         pairing.pairing_check = clocked("batch_pairing_s", saved[4])
         ledger_mod.Ledger._solution_opening_for = clocked("solution_openings_s", saved[5],
                                                           sync=True)
+        step = roles.SYNC_INTERVAL_S
+        roles.SYNC_INTERVAL_S = SYNC_STEP_S
         try:
             res = run_path(label, lambda: asyncio.run(fn()), required, absent=absent)
         finally:
+            roles.SYNC_INTERVAL_S = step
             (puzzle_mod.Puzzle.check_binding, kzg.batch_verify, ledger_mod.transaction_opening,
              msm.msm, pairing.pairing_check, ledger_mod.Ledger._solution_opening_for) = saved
         check_launches(kernels, msm, label, bindings[0], batches)
@@ -1379,7 +1404,7 @@ def sync_phase(run_path, kernels, smi) -> dict:
         ["fr_poseidon_permute", "fr_epoch_program", "mont_mul", "bucket_scan_serial",
          "seg_prefix", "g1_bucket_fixup", "g1_horner_chain", "g1_lane_buckets",
          "g1_lane_bucket_carry", "jadd_bucket_total"])
-    led = client.service.ledger
+    led = client.ledger
     if led.latest_height != 2 or [b.to_bytes() for b in led.blocks[1:]] != \
             [bytes.fromhex(b) for b in lfx["blocks"]]:
         raise AssertionError("the synced blocks 1-2 differ from the fixture's")
@@ -1389,8 +1414,8 @@ def sync_phase(run_path, kernels, smi) -> dict:
             [len(b) for b in batches] != [len(o) for o in lfx["openings"]]:
         raise AssertionError(f"the sync made {bindings[0]} bindings and KZG batches of "
                              f"{[len(b) for b in batches]} openings, not block 1's and 2's")
-    if client.service.refused:
-        raise AssertionError(f"the client refused honest blocks: {client.service.refused}")
+    if client.refused:
+        raise AssertionError(f"the client refused honest blocks: {client.refused}")
     phase12 = {k["name"]: sum(k["launches_per_path"].get(f"check_next_block(block {b})", 0)
                               for b in (1, 2)) for k in kernels}
     got = {k["name"]: k["launches_per_path"]["block sync"] for k in kernels}
@@ -1414,8 +1439,8 @@ def sync_phase(run_path, kernels, smi) -> dict:
     client, _, _ = spied("block sync, tampered, by hash",
                          lambda: sync([genesis, tampered] + blocks[1:],
                                       server_led.latest_block_locators(), None), [], names)
-    if client.service.latest_height() != 0 or client.sync.requests or client.sync.responses \
-            or client.service.refused or bindings[0] or batches:
+    if client.ledger.latest_height != 0 or client.block_sync.requests or \
+            client.block_sync.responses or client.refused or bindings[0] or batches:
         raise AssertionError("the block served with one byte changed was not refused by hash")
     log("a server announcing the fixture's chain and serving block 1 with one byte changed: "
         "the block refused against the announced hash, the height 0, its requests revoked, "
@@ -1430,17 +1455,288 @@ def sync_phase(run_path, kernels, smi) -> dict:
                          lambda: sync([genesis, tampered], locators([genesis, tampered]), None),
                          BINDING_KERNELS[:2])
     out["tampered_check_s"] = time.perf_counter() - t0
-    if client.service.refused != [(1, "ValueError", refusal)] or bindings[0] != 1 or batches or \
-            client.service.latest_height() != 0 or client.sync.requests or client.sync.responses:
+    if client.refused != [(1, "ValueError", refusal)] or bindings[0] != 1 or batches or \
+            client.ledger.latest_height != 0 or client.block_sync.requests or \
+            client.block_sync.responses:
         raise AssertionError(f"the tampered block was not refused by the check: "
-                             f"{client.service.refused}, height "
-                             f"{client.service.latest_height()}")
+                             f"{client.refused}, height {client.ledger.latest_height}")
     out["tampered"] = dict(bindings=bindings[0], batches=[len(b) for b in batches],
                            error=refusal)
     log(f"a server announcing its chain with the tampered block 1: the solution's binding on "
         f"the card failed and the block check refused the block ({refusal!r}; {bindings[0]} "
         f"binding, no KZG batch, launches exact) in {out['tampered_check_s']:.2f} s, the "
         f"height 0, the pool empty")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    if loaded:
+        raise AssertionError(f"JAX was imported: {loaded[:5]}")
+    puzzle_mod._PUZZLE = None
+    return out
+
+
+# the devnet phase (15): the limits on a validator's start-up (its genesis
+# on the card) and from the Prover's start to the block that holds its
+# solution, and on the validators' exit after SIGTERM
+DEVNET_VALIDATORS = 4
+DEVNET_STARTUP_S = 300.0
+DEVNET_DEADLINE_S = 240.0
+DEVNET_EXIT_S = 60.0
+
+
+def devnet_phase(run_path, kernels, smi) -> dict:
+    """Phase 15: four validators started as processes through the port's
+    CLI (``python -m snarkos_tpu_torch.node.cli start --validator --dev i``,
+    every check on the card) and a Prover in this process, built as ``cli
+    start --prover --dev 4`` builds it, on the card; the devnet must commit
+    a block that holds a solution the Prover found."""
+    import asyncio
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from snarkos_tpu_torch.node import cli, types as node_types
+    from snarkos_tpu_torch.node.codec import Reader
+    from snarkos_tpu_torch.ops import puzzle as puzzle_mod
+
+    dev = torch.device("cuda")
+    out = {"card": smi}
+    logs = os.path.join(HERE, "chiprun_out", "devnet")
+    os.makedirs(logs, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="devnet-")
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    procs, files = [], []
+
+    def rest(i, path):
+        """GET /testnet/{path} from validator i's REST, waiting out its rate
+        limit (10 requests a second)."""
+        for _ in range(20):
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{3030 + i}/testnet/{path}",
+                                            timeout=10) as r:
+                    return json.loads(r.read())
+            except urllib.error.HTTPError as exc:
+                if exc.code != 429:
+                    raise
+                time.sleep(1.0)
+        raise AssertionError(f"validator {i}'s REST kept refusing {path}")
+
+    def log_text(i):
+        with open(os.path.join(logs, f"dev-{i}.log"), errors="replace") as fh:
+            return fh.read()
+
+    def tails():
+        return "\n".join(f"--- dev-{i}.log\n" + "\n".join(log_text(i).splitlines()[-15:])
+                         for i in range(len(procs)))
+
+    try:
+        # the validators: the kernels were built by phase 1, so each process
+        # loads the libraries and builds nothing
+        t_spawn = []
+        for i in range(DEVNET_VALIDATORS):
+            fh = open(os.path.join(logs, f"dev-{i}.log"), "w")
+            files.append(fh)
+            cmd = [sys.executable, "-m", "snarkos_tpu_torch.node.cli", "start", "--validator",
+                   "--dev", str(i), "--dev-num-validators", str(DEVNET_VALIDATORS),
+                   "--storage", os.path.join(tmp, f"dev-{i}", "ledger.dat")]
+            t_spawn.append(time.perf_counter())
+            procs.append(subprocess.Popen(cmd, cwd=HERE, env=env, stdout=fh,
+                                          stderr=subprocess.STDOUT))
+        log(f"started {DEVNET_VALIDATORS} validators: " + " ".join(cmd[:4]) + " --validator "
+            "--dev i ...; logs in chiprun_out/devnet/")
+
+        # the Prover's node, built before the validators are up: its genesis
+        # (cached from phase 12), the puzzle at the dev log degree on the
+        # card and this epoch's program are built outside the counted run
+        args = cli.build_parser().parse_args(
+            ["start", "--prover", "--dev", str(DEVNET_VALIDATORS),
+             "--dev-num-validators", str(DEVNET_VALIDATORS)])
+        prover = cli.make_node(args)
+        pz = puzzle_mod.global_puzzle(None, dev)
+        if pz.log_degree != 12 or prover.nonce_batch != BATCH:
+            raise AssertionError(f"the Prover would prove at log degree {pz.log_degree}, "
+                                 f"batch {prover.nonce_batch}")
+
+        started = {}
+        while len(started) < DEVNET_VALIDATORS:
+            for i, p in enumerate(procs):
+                if i not in started and "validator started:" in log_text(i):
+                    started[i] = time.perf_counter() - t_spawn[i]
+                if p.poll() is not None:
+                    raise AssertionError(f"validator {i} exited with {p.returncode} at "
+                                         f"start-up\n{tails()}")
+            if time.perf_counter() - t_spawn[0] > DEVNET_STARTUP_S:
+                raise AssertionError(f"the validators did not start within "
+                                     f"{DEVNET_STARTUP_S:.0f} s\n{tails()}")
+            time.sleep(0.2)
+        out["validator_startup_s"] = [started[i] for i in range(DEVNET_VALIDATORS)]
+        log("validators started (host s from spawn, the genesis on the card): "
+            + ", ".join(f"{s:.2f}" for s in out["validator_startup_s"]))
+        # the Prover starts in the epoch of heights 1-359: a solution for the
+        # genesis epoch goes stale when block 1 commits, and the validators
+        # refuse it at intake
+        while rest(0, "block/height/latest") < 1:
+            if time.perf_counter() - t_spawn[0] > DEVNET_STARTUP_S:
+                raise AssertionError(f"the validators committed no block within "
+                                     f"{DEVNET_STARTUP_S:.0f} s\n{tails()}")
+            time.sleep(0.25)
+        out["first_block_s"] = time.perf_counter() - t_spawn[0]
+        log(f"block 1 committed {out['first_block_s']:.2f} s after the first spawn")
+        # this epoch's program and one batch, as phase 3 warms its column
+        epoch = bytes.fromhex(rest(0, "latest/epochHash"))
+        pz.prove_batch(epoch, prover.account.address, list(range(BATCH)), None)
+        torch.cuda.synchronize()
+
+        # the Prover proves until the block that holds its solution is read,
+        # as `cli start --prover` runs it; each batch is timed and nothing
+        # else changes
+        batch_s = []
+        real_prove = prover._prove_batch_indexed
+
+        def timed_prove(*a):
+            t0 = time.perf_counter()
+            res = real_prove(*a)
+            batch_s.append(time.perf_counter() - t0)
+            return res
+
+        prover._prove_batch_indexed = timed_prove
+
+        async def drive():
+            loop = asyncio.get_running_loop()
+            t0 = time.perf_counter()
+            await prover.start()
+            if prover.puzzle is not pz:
+                raise AssertionError("the Prover built another puzzle than the process's")
+            # the router's first heartbeat would dial its trusted peers, the
+            # validators' node ports, after 25 s
+            for addr in prover.router.trusted_peers:
+                if not await prover.router.connect(addr):
+                    raise AssertionError(f"the Prover could not connect to {addr}")
+            found_at = held = None
+            seen, height = {}, 0
+            try:
+                while held is None:
+                    if time.perf_counter() - t0 > DEVNET_DEADLINE_S:
+                        raise AssertionError(
+                            f"no block held the Prover's solution within {DEVNET_DEADLINE_S:.0f}"
+                            f" s: {prover.solutions_found} found in {len(batch_s)} batches, "
+                            f"height {height}\n{tails()}")
+                    if prover.fault is not None:
+                        raise prover.fault
+                    if found_at is None and prover.solutions_found:
+                        found_at = time.perf_counter() - t0
+                    height = await asyncio.to_thread(rest, 0, "block/height/latest")
+                    for h in range(1, height + 1):
+                        if h in seen or held is not None:
+                            continue
+                        blk = await asyncio.to_thread(rest, 0, f"block/{h}")
+                        seen[h] = blk["transmissions"]
+                        for t in blk["transmissions"]:
+                            if t["kind"] == node_types.TX_SOLUTION and node_types.Solution.from_reader(
+                                    Reader(bytes.fromhex(t["data"]))).address == \
+                                    prover.account.address:
+                                held = (h, blk["hash"], time.perf_counter() - t0)
+                    await asyncio.sleep(0.25)
+            finally:
+                await prover.shut_down()
+            return found_at, held, seen
+
+        epoch_entry = ("fr_epoch_program_global" if puzzle_mod.epoch_plan(BATCH, pz.k)[0]
+                       == "global" else "fr_epoch_program")
+        # asyncio.run returns once the executor's batch in flight has ended:
+        # every batch the Prover started is counted
+        found_at, (height, block_hash, held_s), chain = run_path(
+            "devnet prover", lambda: asyncio.run(drive()),
+            ["mont_mul", "fr_poseidon_permute", epoch_entry, "g1_horner_chain",
+             "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"])
+        if prover.fault is not None:
+            raise AssertionError(f"the Prover stopped on a fault: {prover.fault!r}")
+        batches = prover.iterations // prover.nonce_batch
+        # kernels first checked after phase 3 (fr_ntt_pass) launched 0 times there
+        want = {k["name"]: batches * k["launches_per_path"].get(f"prove_batch({BATCH})", 0)
+                for k in kernels}
+        got = {k["name"]: k["launches_per_path"]["devnet prover"] for k in kernels}
+        if got != want or len(batch_s) != batches:
+            raise AssertionError(f"the Prover's launches {got}, want {batches} x the "
+                                 f"prove_batch({BATCH}) column {want}")
+        log(f"the Prover's launches exact: {batches} batches x the prove_batch({BATCH}) column")
+
+        # every validator reports the same block at that height
+        hashes = []
+        t0 = time.perf_counter()
+        for i in range(DEVNET_VALIDATORS):
+            while rest(i, "block/height/latest") < height:
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError(f"validator {i} did not reach height {height}")
+                time.sleep(0.25)
+            hashes.append(rest(i, f"block/{height}")["hash"])
+        if set(hashes) != {block_hash}:
+            raise AssertionError(f"the validators disagree on block {height}: {hashes}")
+        proved = sum(batch_s)
+        out.update(height=height, block_hash=block_hash, first_solution_s=found_at,
+                   block_s=held_s, batches=batches, solutions_found=prover.solutions_found,
+                   batch_s=batch_s, solutions_per_s=batches * BATCH / proved)
+        log(f"devnet: block {height} ({block_hash[:16]}) holds a solution the Prover found on "
+            f"the card, the same hash on all four validators; from the Prover's start: first "
+            f"passing solution {found_at:.2f} s, that block {held_s:.2f} s (host s); "
+            f"{batches} batches of {BATCH}, {prover.solutions_found} passing, "
+            f"{out['solutions_per_s']:.2f} solutions/s over {proved:.2f} s of proving; on {smi}")
+    finally:
+        t0 = time.perf_counter()
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, DEVNET_EXIT_S - (time.perf_counter() - t0))))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes.append(p.wait())
+        for fh in files:
+            fh.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["exit_codes"], out["exit_s"] = codes, time.perf_counter() - t0
+    faults = [i for i in range(len(procs)) if "device fault" in log_text(i)
+              or "Traceback" in log_text(i)]
+    if codes != [0] * DEVNET_VALIDATORS or faults:
+        raise AssertionError(f"the validators exited with {codes} after SIGTERM; faults or "
+                             f"tracebacks logged by {faults}\n{tails()}")
+    left = [pid for pid in _children() if pid in {p.pid for p in procs}]
+    if left:
+        raise AssertionError(f"validator processes left: {left}")
+    log(f"SIGTERM: the four validators exited with status 0 in {out['exit_s']:.2f} s, "
+        "no fault logged, no process left")
+
+    # each validator's own launches, printed by `cli start` when it stopped,
+    # held against what the committed chain alone asks of it: every solution
+    # in blocks 1..height has its binding checked (phase 7's check_binding
+    # column) and every block that holds a transmission its KZG batch, whose
+    # two MSMs end in one Horner chain each (phase 12's block 2 column);
+    # intake and proposal checks add to both
+    names = {k["counter"].__name__: k["name"] for k in kernels}
+    n_sol = sum(t["kind"] == node_types.TX_SOLUTION for ts in chain.values() for t in ts)
+    n_batches = sum(bool(ts) for ts in chain.values())
+    floor = {k["name"]: n_sol * k["launches_per_path"]["check_binding"]
+             for k in kernels if k["name"] in BINDING_KERNELS}
+    floor["g1_horner_chain"] = n_batches * next(
+        k["launches_per_path"]["check_next_block(block 2)"] for k in kernels
+        if k["name"] == "g1_horner_chain")
+    out["validator_launches"] = []
+    for i in range(DEVNET_VALIDATORS):
+        line = [ln for ln in log_text(i).splitlines() if ln.startswith("kernel launches: ")]
+        if not line:
+            raise AssertionError(f"validator {i} printed no launch counts\n{tails()}")
+        got = {names.get(w, w): c for w, c in json.loads(line[-1][17:]).items()}
+        out["validator_launches"].append(got)
+        short = {k: got.get(k, 0) for k, v in floor.items() if got.get(k, 0) < v}
+        if short or not n_sol:
+            raise AssertionError(f"validator {i} launched {got}; blocks 1-{height} hold "
+                                 f"{n_sol} solutions in {n_batches} blocks, which ask at "
+                                 f"least {floor}")
+    log(f"the validators' own launches (blocks 1-{height}: {n_sol} solutions, {n_batches} "
+        f"blocks with transmissions; at least {floor}): "
+        + "; ".join(", ".join(f"{k} {v}" for k, v in sorted(got.items()) if v)
+                    for got in out["validator_launches"]))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if loaded:
         raise AssertionError(f"JAX was imported: {loaded[:5]}")
@@ -1464,7 +1760,7 @@ def main() -> int:
     import numpy as np
     import torch.distributed as dist
 
-    from snarkos_tpu_torch import entry as entry_mod, node_seam
+    from snarkos_tpu_torch import entry as entry_mod
     from snarkos_tpu_torch.crypto import params, srs_artifact
     from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, kzg as ref_kzg, ntt as ref_ntt, pairing
     from snarkos_tpu_torch.crypto.ref import poseidon as ref_poseidon
@@ -3552,177 +3848,6 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     report["dist"] = dist_report
 
-    # -- 11. the node seam: the JAX node's device imports answered by the port --------
-    phase("11")
-    def fixture_match(label, got_sols):
-        got = [(s.commitment.hex(), str(s.eval_y), s.witness.hex(), str(s.solution_id))
-               for s in got_sols]
-        want = [(row["commitment"], row["eval_y"], row["witness"], row["solution_id"])
-                for row in fixture["solutions"]]
-        if got != want:
-            raise AssertionError(f"{label}: the solutions differ from the fixture")
-        log(f"{label} matches tests/fixtures/torch_puzzle_k12_b8.json byte for byte")
-
-    srs_env = ("SNARKOS_TPU_SRS_PATH", "SNARKOS_TPU_SRS_DIGEST")
-    seam_names = (node_seam.PUZZLE, node_seam.KZG)
-    seam_report = {}
-    seam_before = {name: sys.modules.get(name) for name in seam_names}
-    node_seam.install()
-    try:
-        pz_facade, kzg_facade = (sys.modules[name] for name in seam_names)
-        if not all(isinstance(m, node_seam.Facade) for m in (pz_facade, kzg_facade)):
-            raise AssertionError("install() did not put the seam's facades in sys.modules")
-        t0 = time.perf_counter()
-        spz = pz_facade.global_puzzle(fixture["log_degree"])
-        torch.cuda.synchronize()
-        seam_report["global_puzzle_s"] = time.perf_counter() - t0
-        if not (isinstance(spz, Puzzle) and spz is puzzle_mod._PUZZLE
-                and spz.device.type == "cuda" and spz.srs.is_dev):
-            raise AssertionError("the seam's global_puzzle is not the port's dev-SRS instance "
-                                 "on the card")
-        # the Prover calls prove_batch through run_in_executor (node/roles.py:448-450)
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            def in_worker(fn, *args):
-                return pool.submit(fn, *args).result()
-
-            in_worker(spz.prove_batch, epoch, address, nonces, None)  # warm-up
-            # kernels first checked after phase 3 (fr_ntt_pass) launched 0 times there
-            phase3 = {k["name"]: k["launches_per_path"].get(f"prove_batch({BATCH})", 0)
-                      for k in kernels}
-            seam_sols = run_path(f"seam prove_batch({BATCH})",
-                                 lambda: in_worker(spz.prove_batch, epoch, address, nonces, None),
-                                 ["mont_mul", "fr_poseidon_permute",
-                                  epoch_kernel(BATCH, K12), "g1_horner_chain",
-                                  "g1_bucket_fixup", "seg_prefix", "bucket_scan_serial"],
-                                 absent=["g1_add", "bucket_scan", "bucket_scan_fast",
-                                         "jadd_bucket_total"],
-                                 exact=phase3)
-            fixture_match(f"seam prove_batch({BATCH}) from a worker thread", seam_sols)
-
-            target = 1 << 8  # the Prover's default (node/roles.py:394)
-            host_pass = [s for s in seam_sols if s.solution_id <= (1 << 64) // target]
-            if [s for s in seam_sols if spz.passes_target(s.solution_id, target)] != host_pass \
-                    or in_worker(spz.prove_batch, epoch, address, nonces, target) != host_pass:
-                raise AssertionError("passes_target at 2^8 disagrees with the host filter")
-            log(f"passes_target(., 2^8) == the host filter: {len(host_pass)} of {BATCH} pass")
-
-            times = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                in_worker(spz.prove_batch, epoch, address, nonces, None)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            med = statistics.median(times)
-            seam_report.update(prove_batch8_s=times, solutions_per_s=BATCH / med)
-            log(f"seam prove_batch({BATCH}) from a worker thread: median {med:.3f} s of "
-                f"{[round(t, 3) for t in times]} -> {BATCH / med:.3f} solutions/s; phase 3 in "
-                f"this run {sps8:.3f}; on {smi}")
-
-            # check_solution_basic's call (node/ledger.py:1515-1518), target 1
-            r = params.FR_MODULUS
-            seam_items = [(n, sol) for n, sol in zip(nonces[:VERIFY_BATCH],
-                                                     seam_sols[:VERIFY_BATCH])]
-            for n, sol in seam_items:
-                if not spz.verify(epoch, address, n, sol.commitment, sol.eval_y, sol.witness, 1):
-                    raise AssertionError(f"seam verify rejected the solution of nonce {n}")
-            n, sol = seam_items[0]
-            if spz.verify(epoch, address, n, sol.commitment, (sol.eval_y + 1) % r, sol.witness, 1):
-                raise AssertionError("seam verify accepted eval_y + 1")
-            log(f"seam verify accepts the first {VERIFY_BATCH} solutions, rejects eval_y + 1")
-
-            # the block check: check_structural, then check_binding
-            # (node/ledger.py:775-785), then one batch_verify of the openings
-            seam_openings = []
-            for n, sol in seam_items:
-                opening = spz.check_structural(sol.commitment, sol.eval_y, sol.witness, 1)
-                if opening is None or not spz.check_binding(epoch, address, n, sol.commitment,
-                                                            sol.eval_y):
-                    raise AssertionError(f"check_structural or check_binding rejected nonce {n}")
-                seam_openings.append(opening)
-            seam_srs = pz_facade.global_puzzle().srs.srs_ref
-            c, z, y, w = seam_openings[1]
-            bad = seam_openings[:1] + [(c, z, (y + 1) % r, w)] + seam_openings[2:]
-            ok = run_path(f"seam batch_verify({VERIFY_BATCH})",
-                          lambda: kzg_facade.batch_verify(seam_srs, seam_openings),
-                          ["bucket_scan_serial", "seg_prefix", "g1_horner_chain"],
-                          absent=["g1_add", "jadd_bucket_total"], exact=tail_counts(2, W4))
-            if not ok or kzg_facade.batch_verify(seam_srs, bad):
-                raise AssertionError("the kzg facade's batch_verify gave a wrong verdict")
-            if not ref_kzg.batch_verify(seam_srs, seam_openings) \
-                    or ref_kzg.batch_verify(seam_srs, bad):
-                raise AssertionError("the host batch_verify disagrees with the facade's")
-            if not kzg_facade.verify(seam_srs, *seam_openings[0]) \
-                    or kzg_facade.verify(seam_srs, *bad[1]):
-                raise AssertionError("the kzg facade's verify gave a wrong verdict")
-            log(f"the kzg facade's batch_verify accepts the {VERIFY_BATCH} openings on the fused "
-                "engine and rejects one y + 1, as the host batch_verify does; its verify too")
-
-            # the ceremony SRS: the dev SRS saved as an artifact and named by
-            # the environment, as node/cli.py names one
-            art_dir = os.path.join(HERE, "build", "srs")
-            os.makedirs(art_dir, exist_ok=True)
-            art = os.path.join(art_dir, "seam12.srs")
-            env_before = {k: os.environ.get(k) for k in srs_env}
-            os.environ["SNARKOS_TPU_SRS_PATH"] = art
-            os.environ["SNARKOS_TPU_SRS_DIGEST"] = srs_artifact.save_srs(art, spz.srs.srs_ref)
-            puzzle_mod._PUZZLE = None
-            try:
-                t0 = time.perf_counter()
-                cpz = pz_facade.global_puzzle(fixture["log_degree"])
-                torch.cuda.synchronize()
-                seam_report["global_puzzle_artifact_s"] = time.perf_counter() - t0
-                same = all(torch.equal(a, b) for a, b in zip(
-                    (cpz.srs.points.x, cpz.srs.points.y, cpz.srs.points.z),
-                    (spz.srs.points.x, spz.srs.points.y, spz.srs.points.z)))
-                if cpz.srs.is_dev or not same or cpz.srs.srs_ref.tau_h != spz.srs.srs_ref.tau_h \
-                        or cpz.srs.srs_ref.powers_g1 != spz.srs.srs_ref.powers_g1:
-                    raise AssertionError("with SNARKOS_TPU_SRS_PATH set, global_puzzle did not "
-                                         "load the artifact")
-                fixture_match(f"prove_batch({BATCH}) on the artifact SRS",
-                              in_worker(cpz.prove_batch, epoch, address, nonces, None))
-            finally:
-                for k, v in env_before.items():
-                    if v is None:
-                        os.environ.pop(k, None)
-                    else:
-                        os.environ[k] = v
-                puzzle_mod._PUZZLE = None
-                os.remove(art)
-            log(f"with SNARKOS_TPU_SRS_PATH set, the seam's global_puzzle(12) loads the artifact "
-                f"in {seam_report['global_puzzle_artifact_s']:.2f} s: is_dev False, the same "
-                "points and tau H")
-
-            # a Prover started with --puzzle-log-degree 16: global_puzzle(16),
-            # the first log degree the card refused before the global epoch
-            # program, builds its own dev SRS and proves the k16 fixture's nonces
-            with open(os.path.join(HERE, "tests", "fixtures", "torch_puzzle_k16_b8.json")) as fh:
-                fx16 = json.load(fh)
-            t0 = time.perf_counter()
-            spz16 = pz_facade.global_puzzle(16)
-            torch.cuda.synchronize()
-            seam_report["global_puzzle16_s"] = time.perf_counter() - t0
-            if spz16 is not puzzle_mod._PUZZLE or spz16.log_degree != 16 or not spz16.srs.is_dev:
-                raise AssertionError("the seam's global_puzzle(16) is not the port's log-16 instance")
-            got16 = run_path("seam prove_batch(8) at 2^16",
-                             lambda: in_worker(spz16.prove_batch, bytes.fromhex(fx16["epoch_hash"]),
-                                               fx16["address"], list(range(8)), None),
-                             ["fr_epoch_program_global"], exact=prove_counts(16, 8))
-            if fixture_rows(got16) != [(r["commitment"], r["eval_y"], r["witness"],
-                                        r["solution_id"]) for r in fx16["solutions"]]:
-                raise AssertionError("the seam's global_puzzle(16).prove_batch differs from "
-                                     "tests/fixtures/torch_puzzle_k16_b8.json")
-            puzzle_mod._PUZZLE = None
-            del spz16
-            log(f"the seam's global_puzzle(16) (its dev SRS built in "
-                f"{seam_report['global_puzzle16_s']:.2f} s) proves "
-                "tests/fixtures/torch_puzzle_k16_b8.json byte for byte on the global epoch program")
-    finally:
-        node_seam.uninstall()
-    if {name: sys.modules.get(name) for name in seam_names} != seam_before:
-        raise AssertionError("uninstall() did not restore sys.modules")
-    log("uninstall() removed both facades")
-    report["seam"] = seam_report
-
     # -- 12. the ledger on the card ----------------------------------------------------
     phase("12")
     report["ledger"] = ledger_phase(run_path, kernels, smi)
@@ -3735,8 +3860,12 @@ def main() -> int:
     phase("14")
     report["sync"] = sync_phase(run_path, kernels, smi)
 
-    # -- 15. output -----------------------------------------------------------------
+    # -- 15. the devnet through the CLI on the card -----------------------------------
     phase("15")
+    report["devnet"] = devnet_phase(run_path, kernels, smi)
+
+    # -- 16. output -----------------------------------------------------------------
+    phase("16")
     launched = {k["name"]: any(k["launches_per_path"].values()) for k in kernels}
     unused = [k for k, v in launched.items() if not v and k not in NO_PATH_YET]
     if unused:

@@ -4,7 +4,8 @@ the BFT events, the Narwhal storage and DAG, the primary, the BFT commit
 rule, the proposal cache, the metrics and ``Consensus`` (``bft/``,
 ``events``, ``consensus``); the network planes: the TCP stack, the public
 router, the validators' gateway and the block sync (``tcp``, ``router``,
-``gateway``, ``block_sync``). The roles, REST, the CDN, the display and the
-CLI are not ported yet; a node runs them through
-``snarkos_tpu_torch/node_seam.py``.
+``gateway``, ``block_sync``); the node's roles, its REST API, the CDN
+bootstrap, the terminal display and the CLI (``roles``, ``rest``, ``cdn``,
+``display``, ``cli``): ``python -m snarkos_tpu_torch.node.cli start``
+starts a Validator, Client or Prover on the card.
 """

@@ -15,7 +15,9 @@ The port of ``snarkos_tpu/node/bft/primary.py``: the same timers, rules and
 wire events. The ledger service the caller passes in does the checks, on
 its own device (``CoreLedgerService`` over a ``Ledger`` on the card runs the
 solutions' bindings and every KZG batch there); the mempool partition's
-sha256d is ``hashlib``'s.
+sha256d is ``hashlib``'s. One rule differs: a device fault in a proposal's
+re-checks is handed to ``on_fault`` and ends the proposer loop, where the
+reference skips the transmission.
 """
 
 from __future__ import annotations
@@ -252,6 +254,9 @@ class Primary:
         self.propose_lock = asyncio.Lock()
         self.on_certificate = on_certificate  # BFT hook: async fn(cert)
         self.on_round_advance: Optional[Callable] = None  # async fn(round)
+        # the device-fault rule (Consensus sets it): fn(exc, where) -> True
+        # when ``exc`` is a device fault, which stops the node
+        self.on_fault: Optional[Callable] = None
         self.last_proposal_time = 0.0
         self._tasks: list[asyncio.Task] = []
         self.running = False
@@ -340,6 +345,8 @@ class Primary:
                             await loop.run_in_executor(
                                 None, self.ledger.check_transaction_basic, obj)
                     except Exception as exc:
+                        if self.on_fault is not None and self.on_fault(exc, "proposal re-check"):
+                            raise
                         log.debug("proposing - skipping %s: %s", tid, exc)
                         continue
                     transmissions[tid] = t
@@ -618,6 +625,8 @@ class Primary:
             except asyncio.CancelledError:
                 return
             except Exception as exc:
+                if self.on_fault is not None and self.on_fault(exc, "batch proposer"):
+                    return
                 log.debug("proposer loop error: %s", exc)
 
     async def _worker_ping_loop(self) -> None:

@@ -42,7 +42,7 @@ import time
 from typing import Callable, Optional
 
 from snarkos_tpu_torch.node import messages as msg
-from snarkos_tpu_torch.node.ledger import SRSTooSmall
+from snarkos_tpu_torch.node.ledger import is_device_fault
 from snarkos_tpu_torch.node.types import Block
 
 log = logging.getLogger(__name__)
@@ -326,7 +326,7 @@ class BlockSync:
                     None, self._check_and_advance, block
                 )
             except Exception as exc:
-                if isinstance(exc, RuntimeError) and not isinstance(exc, SRSTooSmall):
+                if is_device_fault(exc):
                     raise  # a device fault is no verdict on the block
                 log.warning("sync: invalid block %d: %s", next_height, exc)
                 return

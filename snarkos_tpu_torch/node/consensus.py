@@ -10,6 +10,13 @@ The port of ``snarkos_tpu/node/consensus.py``. It picks no device: the
 ledger service passed in runs every check (intake, the proposal re-checks,
 ``check_next_block`` at each commit) on its own ledger's device, the card
 for a ``CoreLedgerService`` over a ``Ledger`` made with the default device.
+
+One rule differs from the reference (the roles' fault rule, ROADMAP C): a
+device fault (``ledger.is_device_fault``) in the mempool drain, the
+proposal re-checks or a commit's block advance is not logged and passed
+over. It is kept as ``fault`` and handed to ``on_fault`` (the node stops),
+or, with no ``on_fault``, logged at ERROR and consensus shut down. What
+the reference refuses on content keeps the reference's handling.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Optional
 from snarkos_tpu_torch.node.bft.bft import BFT
 from snarkos_tpu_torch.node.bft.primary import Primary
 from snarkos_tpu_torch.node.bft.storage import BFTMemoryService, NarwhalStorage, StorageService
+from snarkos_tpu_torch.node.ledger import is_device_fault
 from snarkos_tpu_torch.node.types import Block, Solution, Subdag, Transaction
 
 log = logging.getLogger(__name__)
@@ -34,7 +42,8 @@ CAPACITY_FOR_TRANSACTIONS = 1 << 12
 class Consensus:
     def __init__(self, account, ledger, transport,
                  storage_service: Optional[StorageService] = None,
-                 on_block: Optional[callable] = None):
+                 on_block: Optional[callable] = None,
+                 on_fault: Optional[callable] = None):
         self.ledger = ledger
         storage_service = storage_service or BFTMemoryService()
         self.storage = NarwhalStorage(ledger, storage_service)
@@ -46,6 +55,9 @@ class Consensus:
         self.deployments_queue: OrderedDict = OrderedDict()
         self.executions_queue: OrderedDict = OrderedDict()
         self.on_block = on_block  # async fn(block) — e.g. gossip hooks
+        self.on_fault = on_fault  # fn(exc, where): a device fault stops the node
+        self.fault: Optional[BaseException] = None
+        self.primary.on_fault = self._halt_on_fault
         # near-tip sync buffer (sync/mod.rs latest_block_responses)
         self.latest_block_responses: dict[int, Block] = {}
         self._running = False
@@ -91,6 +103,21 @@ class Consensus:
         self._running = False
         await self.primary.shut_down()
 
+    def _halt_on_fault(self, exc: BaseException, where: str) -> bool:
+        """Stop on ``exc`` if it is a device fault (True); else False, and the
+        caller keeps the reference's handling."""
+        if not is_device_fault(exc):
+            return False
+        if self.fault is None:
+            self.fault = exc
+            self._running = False
+            if self.on_fault is not None:
+                self.on_fault(exc, where)
+            else:
+                log.error("%s: device fault, stopping consensus", where, exc_info=exc)
+                asyncio.get_running_loop().create_task(self.shut_down())
+        return True
+
     # -- intake (consensus/lib.rs:288-443) -----------------------------------
     async def add_unconfirmed_solution(self, sol: Solution) -> None:
         sid = sol.id
@@ -132,22 +159,30 @@ class Consensus:
                     try:
                         await self.primary.process_unconfirmed_solution(sol)
                     except Exception as exc:
+                        if self._halt_on_fault(exc, "solution intake"):
+                            return
                         log.debug("solution rejected: %s", exc)
                 if self.deployments_queue:
                     _, tx = self.deployments_queue.popitem(last=False)
                     try:
                         await self.primary.process_unconfirmed_transaction(tx)
                     except Exception as exc:
+                        if self._halt_on_fault(exc, "deployment intake"):
+                            return
                         log.debug("deployment rejected: %s", exc)
                 for _ in range(min(len(self.executions_queue), 16)):
                     _, tx = self.executions_queue.popitem(last=False)
                     try:
                         await self.primary.process_unconfirmed_transaction(tx)
                     except Exception as exc:
+                        if self._halt_on_fault(exc, "execution intake"):
+                            return
                         log.debug("execution rejected: %s", exc)
             except asyncio.CancelledError:
                 return
             except Exception as exc:
+                if self._halt_on_fault(exc, "mempool drain"):
+                    return
                 log.debug("mempool drain error: %s", exc)
 
     # -- commit path (consensus/lib.rs:461-530) ------------------------------
@@ -158,6 +193,8 @@ class Consensus:
                 None, self._try_advance, subdag, transmissions
             )
         except Exception as exc:
+            if self._halt_on_fault(exc, "block advance"):
+                return
             log.warning("block advance failed: %s; reinserting transmissions", exc)
             self.primary.reinsert_transmissions(transmissions)
             return

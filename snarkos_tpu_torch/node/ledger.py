@@ -857,6 +857,14 @@ class SRSTooSmall(RuntimeError):
     refusal of a block's content from a device fault."""
 
 
+def is_device_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is how the port reports a device fault (a CUDA error
+    after a launch, a failed build, no card: ``ops/_build.py``), and not a
+    refusal of what a block, solution or transaction holds: a
+    ``RuntimeError`` other than ``SRSTooSmall``."""
+    return isinstance(exc, RuntimeError) and not isinstance(exc, SRSTooSmall)
+
+
 def _trimmed_srs(need: int, device, what: str) -> PuzzleSRS:
     """The dev-tau family's SRS of degree exactly ``need`` on ``device``:
     the puzzle SRS's first powers, or, above its degree, the powers built
@@ -1495,9 +1503,19 @@ class LedgerService:
 
 
 class CoreLedgerService(LedgerService):
+    """The ledger's checks for consensus. Where the JAX package verifies a
+    solution's puzzle proof at every ``check_solution_basic``, the port keeps
+    the verdict by the solution's bytes and the proof target, as it keeps a
+    transaction's: a validator re-checks each queued solution at each
+    proposal, and a host pairing there per solution stalled a devnet whose
+    Prover kept proving. The stale-epoch check still runs every time."""
+
     def __init__(self, ledger: Ledger):
         self.ledger = ledger
         self._seen_tx_cache: dict[TransmissionID, bool] = {}
+        # (solution bytes, proof target) -> the puzzle's verdict: a solution
+        # is verified once, not again at each proposal that re-checks it
+        self._solution_verdicts: dict[tuple, bool] = {}
 
     def latest_round(self): return self.ledger.latest_round
     def latest_height(self): return self.ledger.latest_height
@@ -1516,10 +1534,16 @@ class CoreLedgerService(LedgerService):
     def check_solution_basic(self, sol: Solution) -> None:
         if sol.epoch_hash != self.ledger.latest_epoch_hash:
             raise ValueError("solution targets a stale epoch")
-        ok = global_puzzle(device=self.ledger.device).verify(
-            sol.epoch_hash, sol.address, sol.nonce, sol.commitment,
-            sol.eval_y, sol.witness, self.ledger.latest_proof_target,
-        )
+        key = (sol.to_bytes(), self.ledger.latest_proof_target)
+        ok = self._solution_verdicts.get(key)
+        if ok is None:
+            ok = global_puzzle(device=self.ledger.device).verify(
+                sol.epoch_hash, sol.address, sol.nonce, sol.commitment,
+                sol.eval_y, sol.witness, self.ledger.latest_proof_target,
+            )
+            if len(self._solution_verdicts) > 10000:
+                self._solution_verdicts.clear()
+            self._solution_verdicts[key] = ok
         if not ok:
             raise ValueError("invalid puzzle solution")
 

@@ -16,6 +16,7 @@ is not 0.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -38,6 +39,7 @@ _ENTRIES: dict[tuple[str, str], object] = {}
 _LOCK = threading.Lock()
 _ENTRY_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_COUNTED: dict = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -73,29 +75,33 @@ def lib_path(name: str) -> str:
 def build(names=SOURCES) -> None:
     """Compile every library in ``names`` that is missing, one ``nvcc`` per
     source, all started together. The compiler's output (``-Xptxas -v``:
-    registers, spills) is kept beside each library as ``.log``."""
+    registers, spills) is kept beside each library as ``.log``. Processes
+    that build at once take turns on a file lock in ``BUILD_DIR``: a later
+    one finds the libraries the first built."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs = []
-    for name in names:
-        out = lib_path(name)
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        jobs.append((name, proc, tmp, out))
-    failed = []
-    for name, proc, tmp, out in jobs:
-        text, _ = proc.communicate()
-        with open(out[:-3] + ".log", "w") as fh:
-            fh.write(text)
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{text}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        jobs = []
+        for name in names:
+            out = lib_path(name)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((name, proc, tmp, out))
+        failed = []
+        for name, proc, tmp, out in jobs:
+            text, _ = proc.communicate()
+            with open(out[:-3] + ".log", "w") as fh:
+                fh.write(text)
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (exit {proc.returncode})\n{text}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def build_log(name: str) -> str:
@@ -139,6 +145,14 @@ def count(wrapper) -> None:
     several executor threads at once."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        _COUNTED.setdefault(wrapper.__name__, wrapper)
+
+
+def launch_counts() -> dict:
+    """The launches of each wrapper that has launched in this process, by
+    the wrapper's name (what a node prints when it stops)."""
+    with _COUNT_LOCK:
+        return {name: w.launches for name, w in sorted(_COUNTED.items())}
 
 
 def launch(fn, tensors, sizes, device: torch.device) -> None:

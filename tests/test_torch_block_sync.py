@@ -15,9 +15,9 @@ does, the height kept and the later responses too, and the sync goes on
 with an honest peer (over the full check of a real ``Ledger``, which
 refuses a forked chain's wrong epoch hash); a ``RuntimeError``, the port's
 device fault (``ops/_build.py``: a CUDA error from a launch), propagates out
-of ``insert_block_responses``. Last, a port ``Router`` and ``BlockSync`` over
-a real ``Ledger(device="cpu")`` fill it over localhost from the JAX
-package's router serving the same chain."""
+of ``insert_block_responses``. Last, the port's Client role over a real
+``Ledger(device="cpu")`` fills it over localhost from the JAX package's
+router serving the same chain."""
 
 import time
 
@@ -25,15 +25,16 @@ import pytest
 
 from snarkos_tpu_torch import convert
 from snarkos_tpu_torch.crypto.ref import edwards
-from snarkos_tpu_torch.node import block_sync as bs, ledger, messages as msg
+from snarkos_tpu_torch.node import block_sync as bs, ledger, messages as msg, roles
 from snarkos_tpu_torch.node.block_sync import DUMMY_SELF, BlockSync, _pair
+from snarkos_tpu_torch.node.cli import AccountView
 from snarkos_tpu_torch.node.ledger import CoreLedgerService, Ledger
 from snarkos_tpu_torch.node.types import Block
 from snarkos_tpu_torch.ops import puzzle
 
 import torch_node_support as sup
 from torch_bft_support import standin_sign, standin_verify
-from torch_net_support import SyncClient, account, announce, run, serve_blocks, until
+from torch_net_support import account, announce, run, serve_blocks, until
 
 
 @pytest.fixture(scope="module")
@@ -313,45 +314,54 @@ def test_refused_block_keeps_height_and_sync_goes_on(committee):
 def test_fills_from_jax_router(committee, monkeypatch):
     """The JAX package's router serves a 12-block chain (the port ledger's
     bytes, decoded by the JAX types) and announces its locators with a Ping;
-    a port ``Router`` and ``BlockSync`` over a real ``Ledger(device="cpu")``
-    connect to it and sync every block through the full check, byte for
-    byte. The handshakes sign with the keyed-hash stand-in on both sides."""
+    the port's Client role (``roles.Client`` on the CPU, its sync loop every
+    10 ms) connects to it and syncs every block through the full check of
+    its ``Ledger``, byte for byte. The handshakes sign with the keyed-hash
+    stand-in on both sides."""
     from snarkos_tpu.crypto.ref import edwards as jedwards
     from snarkos_tpu.node import messages as jmsg, router as jrouter, types as jtypes
 
     for mod in (edwards, jedwards):
         monkeypatch.setattr(mod, "sign_bytes", standin_sign)
         monkeypatch.setattr(mod, "verify_bytes", standin_verify)
+    monkeypatch.setattr(roles, "SYNC_INTERVAL_S", 0.01)
     src = _ledger(committee)
     _grow(src, 12)
     jblocks = [jtypes.Block.from_bytes(b.to_bytes()) for b in src.blocks]
     loc = src.latest_block_locators()
     jloc = jmsg.BlockLocators(recents=loc.recents, checkpoints=loc.checkpoints)
-    genesis = src.blocks[0].hash
+    responses = []
 
     async def go():
         server = jrouter.Router(account(1), jmsg.NodeType.VALIDATOR, jblocks[0].hash)
         serve_blocks(server, lambda h: jblocks[h], lambda: len(jblocks) - 1, jmsg)
-        client = SyncClient(account(0), CoreLedgerService(_ledger(committee)), genesis)
+        client = roles.Client(AccountView(account(0)), committee, device="cpu")
+        on_response = client.router.handlers[msg.BlockResponse]
+
+        async def counted(addr, peer, resp):
+            responses.append(len(resp.blocks))
+            await on_response(addr, peer, resp)
+
+        client.router.handlers[msg.BlockResponse] = counted
         addr = await server.run()
-        await client.router.run()
+        await client.start()
         try:
             assert await client.router.connect(addr)
             assert await until(lambda: server.number_of_connected_peers() == 1)
             (back,) = server.peers
             announce(server, back, jloc, jmsg)
-            assert await until(lambda: client.router.peers[addr].block_locators is not None)
-            await client.sync_to(12, limit=10.0)
+            assert await until(lambda: client.ledger.latest_height == 12 or client.halted.is_set(),
+                               10.0), f"the sync stopped at height {client.ledger.latest_height}"
         finally:
-            await client.router.shut_down()
+            await client.shut_down()
             await server.shut_down()
         return client
 
     client = run(go(), 15.0)
-    got = client.service.ledger.blocks
-    assert [b.to_bytes() for b in got] == [b.to_bytes() for b in jblocks]
-    assert client.responses >= 3  # 12 blocks in requests of at most 5
-    assert client.errors == [] and client.sync.is_block_synced()
+    assert client.fault is None
+    assert [b.to_bytes() for b in client.ledger.blocks] == [b.to_bytes() for b in jblocks]
+    assert len(responses) >= 3  # 12 blocks in requests of at most 5
+    assert client.block_sync.is_block_synced()
 
 
 def test_tampered_block_bytes_refused_by_hash(committee):

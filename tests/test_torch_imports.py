@@ -6,7 +6,6 @@ entry points default to the card and refuse to run without one."""
 
 import ast
 import os
-import sys
 
 import pytest
 import torch
@@ -108,14 +107,34 @@ def test_entry_points_refuse_without_card():
     # spawned without one
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.dryrun_multichip(2)
-    # the node seam resolves the card before it touches sys.modules
-    from snarkos_tpu_torch import node_seam
+    # the node's roles resolve the card before they build a ledger or bind
+    # a socket, and so does the CLI's start
+    import socket
 
-    seam_names = (node_seam.PARENT, node_seam.PUZZLE, node_seam.KZG)
-    before = {name: sys.modules.get(name) for name in seam_names}
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        node_seam.install()
-    assert {name: sys.modules.get(name) for name in seam_names} == before
+    from snarkos_tpu_torch.node import cli, roles, types
+
+    comm = types.Committee.new(1, {"aleo1" + "11" * 32: 100})
+    acct = cli.AccountView(cli.dev_account(0))
+    binds = []
+    real_bind = socket.socket.bind
+
+    def bind(self, *args):
+        binds.append(args)
+        return real_bind(self, *args)
+
+    socket.socket.bind = bind
+    try:
+        for make in (lambda: roles.Validator(acct, comm), lambda: roles.Client(acct, comm),
+                     lambda: roles.Prover(acct, b"\x00" * 32)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["start", "--dev", "0", "--norest"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["start", "--prover", "--dev", "4"])
+    finally:
+        socket.socket.bind = real_bind
+    assert binds == []
     assert _build.resolve_device("cpu").type == "cpu"
 
 
@@ -229,8 +248,8 @@ def test_lane_scan_wrappers_reject_cpu_tensors():
     assert g1_kernels.lane_bucket_carry_kernel.launches == 0
 
 def test_scan_covers_the_node_and_the_vm():
-    """The import scan above reaches the node's modules (the consensus core
-    and the network planes among them), the VM and the in-process network
+    """The import scan above reaches the node's modules (the consensus core,
+    the network planes, the roles and the CLI among them), the VM and the in-process network
     and the block sync's halves of the tests and the chip check."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     for name in ("node/ledger.py", "node/types.py", "node/state_tree.py", "node/codec.py",
@@ -239,7 +258,9 @@ def test_scan_covers_the_node_and_the_vm():
                  "node/events.py", "node/metrics.py", "node/proposal_cache.py",
                  "node/consensus.py", "node/bft/__init__.py", "node/bft/dag.py",
                  "node/bft/storage.py", "node/bft/primary.py", "node/bft/bft.py",
-                 "node/tcp.py", "node/router.py", "node/gateway.py", "node/block_sync.py"):
+                 "node/tcp.py", "node/router.py", "node/gateway.py", "node/block_sync.py",
+                 "node/roles.py", "node/rest.py", "node/cli.py", "node/cdn.py",
+                 "node/display.py"):
         assert os.path.join("snarkos_tpu_torch", name) in rel, name
     assert os.path.join("tests", "torch_bft_support.py") in rel
     assert os.path.join("tests", "torch_net_support.py") in rel

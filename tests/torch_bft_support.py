@@ -8,8 +8,8 @@ returns: ``MockLedgerService(committee, device="cpu")`` in the CPU tests,
 ``CoreLedgerService(Ledger(committee, device=cuda))`` on the card, where
 every check the consensus makes (intake, the proposal re-checks, the block
 check at each commit) runs on the card. The accounts sign; ``dev_account``
-derives the dev accounts as the node's CLI does (``snarkos_tpu/node/cli.py``
-``dev_account``), so that ``dev_committee(4)`` is the committee of
+and ``dev_committee`` are the port's node CLI's (``--dev index``), so that
+``dev_committee(4)`` is the committee of
 tests/fixtures/torch_ledger_dev4.json. ``StubLedger`` and the stand-in
 signatures serve the CPU tests that hold the core against the JAX
 package's. Nothing here imports JAX or the JAX package.
@@ -23,25 +23,11 @@ import logging
 
 from snarkos_tpu_torch.crypto.ref import edwards
 from snarkos_tpu_torch.node import events as ev
+from snarkos_tpu_torch.node.cli import dev_account, dev_committee  # noqa: F401 (the support's API)
 from snarkos_tpu_torch.node.consensus import Consensus
 from snarkos_tpu_torch.node.types import Committee, point_to_address
 
-DEV_SEED = 1234567890
-
 log = logging.getLogger("testnet")
-
-
-def dev_account(index: int) -> edwards.Account:
-    """The node CLI's dev account ``index`` (``--dev index``)."""
-    seed = hashlib.sha256(b"snarkos_tpu.dev" + DEV_SEED.to_bytes(8, "little")
-                          + index.to_bytes(4, "little")).digest()
-    return edwards.Account.new(seed=seed)
-
-
-def dev_committee(num_validators: int) -> Committee:
-    """The node CLI's dev committee: dev accounts 0..n-1, 100 stake each."""
-    members = {point_to_address(dev_account(i).pk): 100 for i in range(num_validators)}
-    return Committee.new(1, members)
 
 
 def standin_signature(pk_bytes: bytes, msg: bytes) -> tuple:

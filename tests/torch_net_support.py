@@ -1,18 +1,12 @@
-"""The port's network planes in the CPU tests and in chip_smoke.py's block
-sync phase: a time limit for a test's event loop, polls in place of fixed
-sleeps, and the two halves of a block sync over ``Router``s wired as the
-node's Client role wires them (``snarkos_tpu/node/roles.py`` ``Client``:
-``_wire_router``, ``_serve_block_request``, ``_on_block_response`` and the
-body of ``_sync_loop``), for as long as the roles are not ported.
-
-A server answers ``BlockRequest``s from a chain and announces its block
-locators with a ``Ping``; a ``SyncClient`` keeps a ``BlockSync`` over the
-ledger service it is given and feeds it each ``BlockResponse``. Over a
-``CoreLedgerService`` whose ``Ledger`` is on the card, each synced block
-goes through the full block check there. The message module is a
-parameter, so that a server may be the JAX package's router in the tests
-that hold the port against it. Nothing here imports JAX or the JAX
-package.
+"""The port's network planes in the CPU tests and in chip_smoke.py: a time
+limit for a test's event loop, polls in place of fixed sleeps, the dev
+accounts and committee cached, and the server half of a block sync: a
+``Router`` that answers ``BlockRequest``s from a chain
+(``Client._serve_block_request``) and announces its block locators with a
+``Ping``. The client half is the node's own Client role
+(``roles.Client``). The message module is a parameter, so that a server
+may be the JAX package's router in the tests that hold the port against
+it. Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -22,26 +16,21 @@ import functools
 import hashlib
 import sys
 
-from snarkos_tpu_torch.node import messages as msg
-from snarkos_tpu_torch.node.block_sync import BlockSync
-from snarkos_tpu_torch.node.router import Router
-from snarkos_tpu_torch.node.types import Committee, point_to_address
-
-from torch_bft_support import dev_account
+from snarkos_tpu_torch.node import cli, messages as msg
+from snarkos_tpu_torch.node.types import Committee
 
 
 @functools.lru_cache(maxsize=None)
 def account(index: int):
-    """``torch_bft_support.dev_account(index)``, derived once a process (a
+    """The node CLI's ``dev_account(index)``, derived once a process (a
     pure-Python scalar multiplication, ~0.03 s)."""
-    return dev_account(index)
+    return cli.dev_account(index)
 
 
 @functools.lru_cache(maxsize=None)
 def committee(num_validators: int) -> Committee:
-    """``torch_bft_support.dev_committee(num_validators)`` over ``account``."""
-    return Committee.new(1, {point_to_address(account(i).pk): 100
-                             for i in range(num_validators)})
+    """The node CLI's ``dev_committee(num_validators)``, built once a process."""
+    return cli.dev_committee(num_validators)
 
 
 def handshake_nonce(k: int) -> int:
@@ -99,62 +88,3 @@ def announce(router, addr, locators, messages=msg) -> None:
     """Send the peer at ``addr`` a ``Ping`` with ``locators`` (the role's
     heartbeat ping)."""
     router.send(addr, messages.Ping(messages.VERSION, messages.NodeType.CLIENT, locators))
-
-
-class SyncClient:
-    """A ``Router`` and a ``BlockSync`` over ``service``: the requests go out
-    through the router, each ``BlockResponse`` to ``insert_block_responses``.
-    What a response's insertion raises is kept in ``errors`` (the router's
-    handler task would only log it) and raised again by ``sync_to``."""
-
-    def __init__(self, account, service, genesis_hash: bytes,
-                 node_type: int = msg.NodeType.CLIENT):
-        self.service = service
-        self.router = Router(account, node_type, genesis_hash)
-        self.router.latest_height_fn = service.latest_height
-        self.sync = BlockSync(service, self.router.send)
-        self.errors: list = []
-        self.responses = 0
-        self.router.handlers[msg.BlockResponse] = self._on_response
-
-    async def _on_response(self, addr, peer, resp):
-        try:
-            resp.ensure_well_formed()
-        except ValueError:
-            self.sync.remove_peer(addr)
-            await self.router.tcp.disconnect(addr)
-            return
-        try:
-            await self.sync.insert_block_responses(addr, list(resp.blocks))
-        except Exception as exc:
-            self.errors.append(exc)
-            raise
-        finally:
-            self.responses += 1
-
-    def take_locators(self) -> None:
-        """Hand the sync every connected peer's announced locators."""
-        for addr, peer in list(self.router.peers.items()):
-            if peer.block_locators is not None:
-                self.sync.update_peer_locators(addr, peer.block_locators)
-
-    async def step(self) -> None:
-        """One round of the role's sync loop, without its 5 s sleep."""
-        if self.errors:
-            raise self.errors[0]
-        self.take_locators()
-        await self.sync.try_block_sync()
-
-    async def sync_to(self, height: int, limit: float, step_s: float = 0.01) -> None:
-        """Run the sync loop until the ledger reaches ``height``; raise what a
-        response raised, or TimeoutError after ``limit`` seconds."""
-        loop = asyncio.get_running_loop()
-        end = loop.time() + limit
-        while self.service.latest_height() < height:
-            await self.step()
-            if loop.time() > end:
-                raise TimeoutError(f"the sync reached height {self.service.latest_height()} "
-                                   f"of {height} in {limit} s")
-            await asyncio.sleep(step_s)
-        if self.errors:
-            raise self.errors[0]

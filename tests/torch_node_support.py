@@ -110,3 +110,24 @@ def host_sum_msm(points, scalars):
     ks = FR.decode_fast(scalars.cpu().numpy())
     return g1.encode_points([ref_g1.msm(ks, pts)], device=points.x.device)
 
+
+
+def dev4_env(mp) -> tuple:
+    """The fixture's chain for the node's CPU tests, through the monkeypatch
+    ``mp``: its genesis in ``ledger._GENESIS_CACHE`` (not proved anew), a
+    puzzle on the CPU over the known dev tau at its log degree (the block
+    check and the solution checks read its SRS), and the execution SRSs its
+    blocks' programs need, the same lazy powers. Returns (fixture, committee,
+    the blocks 1-2)."""
+    from snarkos_tpu_torch import convert
+    from snarkos_tpu_torch.node import ledger
+    from snarkos_tpu_torch.ops import puzzle
+
+    doc = fixture()
+    comm = convert.committee(bytes.fromhex(doc["committee"]))
+    mp.setitem(ledger._GENESIS_CACHE, comm.id, convert.block(bytes.fromhex(doc["genesis"])))
+    mp.setattr(puzzle, "_PUZZLE", puzzle.Puzzle(doc["log_degree"], "cpu",
+                                                 srs=tau_srs(1 << doc["log_degree"])))
+    for need in (16384, 32768):
+        mp.setitem(ledger._EXEC_SRS_CACHE, (need, torch.device("cpu")), tau_srs(need))
+    return doc, comm, [convert.block(bytes.fromhex(b)) for b in doc["blocks"]]
