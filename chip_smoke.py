@@ -4,11 +4,26 @@
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
-  1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
-     and nvcc versions; build every kernel from snarkos_tpu_torch/csrc, one
-     nvcc per source, all at once (each kernel's registers and spills from
-     ptxas, its local loads and stores counted in its SASS); the dev SRS of degree 2^20 built on the
-     card (its first 2^20 points are the bases of phase 5).
+  1. environment: the card's name and power limit (nvidia-smi), the host's
+     CPU model and core count, torch, CUDA and nvcc versions; build every
+     kernel from snarkos_tpu_torch/csrc and the three host engines from
+     csrc/host (pairing377, g1_msm, poseidon377), one nvcc or g++ per
+     source, all at once, each compiler's seconds logged (each kernel's
+     registers and spills from ptxas, its local loads and stores counted in
+     its SASS); the dev SRS of degree 2^20 built on the card (its first 2^20
+     points are the bases of phase 5).
+  1b. the host engines (snarkos_tpu_torch/utils/native.py, ``engines_phase``)
+     against their plain Python versions on this host: pairing_check accepts
+     e(a G, H) e(-G, a H) and rejects it with a + 1 as the plain version
+     does, refuses a G1 point off the curve (None), which the routed
+     pairing_check hands to the plain version; multi_pairing of one pair
+     bit for bit the plain version's; g2_scalar_mul; g1_msm at 8 and 18
+     points (the folds of Varuna's openings), g1_msm_mt against g1_msm at
+     4096 points, g1_fixed_base_gen at 4096 points (sampled against k G);
+     poseidon_hash_many at rates 1-8. The ms a call of each engine (host
+     clock, the median of its calls) beside its plain version's (one call).
+     No engine launches anything on the card; every later path logs its
+     engine calls beside its launches (``native.call_counts``).
   2. every kernel (B1 mont_mul and its Fr passes fr_poseidon_permute,
      fr_epoch_program and fr_epoch_program_global; B2 g1_add and its window-tail entry points
      g1_horner_chain and g1_bucket_fixup; B3 seg_prefix, B4 bucket_scan_serial, B5 bucket_scan,
@@ -251,7 +266,8 @@ result line:
      check_binding column; two Horner chains a block with transmissions,
      phase 12's block 2 column). Logged, in host seconds: each validator's
      start-up, the time to the first passing solution and to the block that
-     holds it, the Prover's batches and solutions/s.
+     holds it, the Prover's batches and solutions/s; each validator's
+     engine calls as it printed them.
  16. one JSON line with every kernel's numbers, then the result line.
 Each phase's start is logged (seconds since the start, phase_s in the
 report). Every path runs with the launch counters set to 0 just before it and read
@@ -682,6 +698,126 @@ def _dist_rank(mesh, tmp, counters, reps):
 T_START = time.perf_counter()
 PHASE_S = {}
 LEDGER_FIXTURE = os.path.join("tests", "fixtures", "torch_ledger_dev4.json")
+# the host engines' phase (1b): the G1 engine's MSMs at the sizes of the
+# folds of Varuna's openings (8 at beta, 18 at delta), the CPU-baseline and
+# generator size, and the engine calls timed a case
+ENGINE_MSM_POINTS = (8, 18)
+ENGINE_BASES = 4096
+ENGINE_REPS = 20
+
+
+def host_cpu() -> str:
+    """The host's CPU as /proc/cpuinfo gives it (what lscpu reads): the model
+    name and, where the machine hides that, the vendor, family, model
+    number and clock; with the core count."""
+    info = {}
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as fh:
+            for ln in fh:
+                key, _, val = ln.partition(":")
+                if not key.strip():
+                    break  # the first processor's block only
+                info.setdefault(key.strip(), val.strip())
+    ident = (f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')} model "
+             f"{info.get('model', '?')}, {info.get('cpu MHz', '?')} MHz")
+    return f"model name {info.get('model name', 'unknown')} ({ident}), {os.cpu_count()} cores"
+
+
+def engines_phase(cpu: str) -> dict:
+    """Phase 1b: each host engine against its plain Python version on this
+    host, with the ms a call of both (host clock)."""
+    from snarkos_tpu_torch.crypto import params
+    from snarkos_tpu_torch.crypto.ref import g1 as ref_g1, pairing, poseidon as ref_poseidon
+    from snarkos_tpu_torch.utils import native
+
+    r, q = params.FR_MODULUS, params.FQ_MODULUS
+    prng = random.Random(77)
+    out = {"cpu": cpu}
+
+    def calls(fn, reps):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts), res
+
+    def case(name, shape, engine_fn, plain_fn, same=lambda a, b: a == b, reps=ENGINE_REPS):
+        eng_ms, got = calls(engine_fn, reps)
+        plain_ms, want = calls(plain_fn, 1)
+        if not same(got, want):
+            raise AssertionError(f"engine {name} {shape}: differs from its plain version")
+        out[f"{name} {shape}"] = {"ms": eng_ms, "plain_ms": plain_ms}
+        log(f"engine {name} {shape}: equal to its plain version; {eng_ms:.4f} ms a call, "
+            f"plain {plain_ms:.2f} ms (host clock; {cpu})")
+
+    G, H = ref_g1.affine(ref_g1.GENERATOR), pairing.G2_GENERATOR
+    neg_g = (G[0], (-G[1]) % q)
+    a = prng.randrange(1, r)
+    a_g = ref_g1.affine(ref_g1.scalar_mul(a, ref_g1.GENERATOR))
+    case("g2_scalar_mul", "k < r", lambda: native.g2_scalar_mul(a, H),
+         lambda: pairing.g2_scalar_mul_plain(a, H))
+    good = [(a_g, H), (neg_g, pairing.g2_scalar_mul(a, H))]
+    bad = [(a_g, H), (neg_g, pairing.g2_scalar_mul(a + 1, H))]
+    case("pairing_check", "2 pairs, accepted", lambda: native.pairing_check(good),
+         lambda: pairing.multi_pairing_plain(good) == pairing.F12_ONE,
+         same=lambda got, want: got is True and want is True)
+    if native.pairing_check(bad) is not False or pairing.pairing_check(bad) is not False:
+        raise AssertionError("engine pairing_check accepted e(a G, H) e(-G, (a + 1) H)")
+    off = [((G[0], (G[1] + 1) % q), H)]
+    if native.pairing_check(off) is not None or pairing.pairing_check(off) is not False:
+        raise AssertionError("engine pairing_check: a G1 point off the curve not refused, "
+                             "or not refused by the plain version")
+    log("engine pairing_check rejects e(a G, H) e(-G, (a + 1) H); a G1 point off the curve "
+        "is refused by the engine (None) and by the plain version it goes to")
+    case("multi_pairing", "1 pair", lambda: native.multi_pairing([(a_g, H)]),
+         lambda: pairing.multi_pairing_plain([(a_g, H)]))
+
+    def affine_eq(got, want):
+        return ref_g1.affine(got) == ref_g1.affine(want)
+
+    for n in ENGINE_MSM_POINTS:
+        ks = [prng.randrange(r) for _ in range(n)]
+        pts = [ref_g1.affine(ref_g1.scalar_mul(prng.randrange(1, r), ref_g1.GENERATOR))
+               for _ in range(n)]
+        case("g1_msm", f"{n} points", lambda ks=ks, pts=pts: native.g1_msm(ks, pts),
+             lambda ks=ks, pts=pts: ref_g1.msm(ks, [ref_g1.from_affine(p) for p in pts]),
+             same=affine_eq)
+    seed, mask = 0x5EED, (1 << 64) - 1
+    bases = native.g1_fixed_base_gen(seed, ENGINE_BASES)
+
+    def splitmix(i):
+        z = (seed + i * 0x9E3779B97F4A7C15 + 0x9E3779B97F4A7C15) & mask
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+        return (z ^ (z >> 31)) | 1
+
+    def limbs_point(row):
+        v = [int(x) for x in row]
+        return (sum(x << (64 * j) for j, x in enumerate(v[:6])),
+                sum(x << (64 * j) for j, x in enumerate(v[6:])))
+
+    sample = (0, 1, ENGINE_BASES // 2, ENGINE_BASES - 1)
+    case("g1_fixed_base_gen", f"{ENGINE_BASES} points (4 sampled)",
+         lambda: [limbs_point(row) for row in native.g1_fixed_base_gen(seed, ENGINE_BASES)[
+             list(sample)]],
+         lambda: [ref_g1.affine(ref_g1.scalar_mul(splitmix(i), ref_g1.GENERATOR)) for i in sample],
+         reps=3)
+    pts = [limbs_point(row) for row in bases]
+    ks = [prng.randrange(r) for _ in range(ENGINE_BASES)]
+    case("g1_msm_mt", f"{ENGINE_BASES} points, {os.cpu_count()} threads (its plain version: "
+         "g1_msm, one thread)", lambda: native.g1_msm_mt(ks, pts),
+         lambda: native.g1_msm(ks, pts), same=affine_eq, reps=3)
+    for rate in range(1, native.POSEIDON_MAX_RATE + 1):
+        ref_poseidon.poseidon_params(rate)  # the plain version's constants, made once
+        xs = [prng.randrange(r) for _ in range(rate + 1)]
+        case("poseidon_hash_many", f"rate {rate}, {rate + 1} in, 2 out",
+             lambda xs=xs, rate=rate: native.poseidon_hash_many(
+                 xs, rate, 2, ref_poseidon._domain_to_field("chip")),
+             lambda xs=xs, rate=rate: ref_poseidon.hash_many_plain(xs, rate, 2, "chip"))
+    return out
+
+
 # the consensus phase (13): its deadline from the first feed to the last
 # commit (it took 112.4 and 151.6 s on two H100 hosts: its host pairings and
 # Schnorr checks share one GIL); the kernels of a solution's binding (phase
@@ -1737,6 +1873,14 @@ def devnet_phase(run_path, kernels, smi) -> dict:
         f"blocks with transmissions; at least {floor}): "
         + "; ".join(", ".join(f"{k} {v}" for k, v in sorted(got.items()) if v)
                     for got in out["validator_launches"]))
+    out["validator_engine_calls"] = []
+    for i in range(DEVNET_VALIDATORS):
+        line = [ln for ln in log_text(i).splitlines() if ln.startswith("engine calls: ")]
+        if not line:
+            raise AssertionError(f"validator {i} printed no engine calls\n{tails()}")
+        out["validator_engine_calls"].append(json.loads(line[-1][len("engine calls: "):]))
+    log("the validators' host engine calls: " + "; ".join(
+        ", ".join(f"{k} {v}" for k, v in got.items()) for got in out["validator_engine_calls"]))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if loaded:
         raise AssertionError(f"JAX was imported: {loaded[:5]}")
@@ -1770,6 +1914,7 @@ def main() -> int:
     from snarkos_tpu_torch.ops.fieldspec import FQ, FR
     from snarkos_tpu_torch.ops.puzzle import DEV_TAU, Puzzle, PuzzleSRS, sha64
     from snarkos_tpu_torch.parallel import mesh as pmesh, msm_dist, ntt_dist
+    from snarkos_tpu_torch.utils import native
 
     with open(os.path.join(HERE, "tests", "fixtures", "torch_puzzle_k12_b8.json")) as fh:
         fixture = json.load(fh)
@@ -1782,14 +1927,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(smi)
+    cpu = host_cpu()
+    log(f"host CPU: {cpu}")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvcc: {nvcc}")
     t0 = time.perf_counter()
-    _build.build()
+    compile_s = _build.build()
     build_s = time.perf_counter() - t0
-    log(f"built {len(_build.SOURCES)} kernels in {build_s:.1f} s")
+    log(f"built {len(_build.SOURCES)} kernels and {len(_build.HOST_SOURCES)} host engines in "
+        f"{build_s:.1f} s, all compilers at once")
+    for name in _build.HOST_SOURCES:
+        log(f"  g++ {name}.cpp: {compile_s.get(name, 0.0):.1f} s"
+            + ("" if name in compile_s else " (built before this run)"))
     regs = {}
     for name in _build.SOURCES:
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
@@ -1801,13 +1952,19 @@ def main() -> int:
     for name, kerns in local.items():
         log(f"  {name} SASS local loads / stores: "
             + "; ".join(f"{k} {ldl} / {stl}" for k, (ldl, stl) in kerns.items()))
-    report.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
-                  build_s=build_s, ptxas=regs, sass_local=local)
+    report.update(card=smi, cpu=cpu, torch=torch.__version__, cuda=torch.version.cuda,
+                  nvcc=nvcc, build_s=build_s, compile_s=compile_s, ptxas=regs,
+                  sass_local=local)
     t0 = time.perf_counter()
     srs = PuzzleSRS.dev(LOG_N)
     torch.cuda.synchronize()
     report["srs20_build_s"] = time.perf_counter() - t0
     log(f"dev SRS of degree 2^{LOG_N} built on the card in {report['srs20_build_s']:.1f} s")
+
+    # -- 1b. the host engines against their plain versions ----------------------------
+    phase("1b")
+    report["engines"] = engines_phase(cpu)
+    engine_calls = report["engine_calls"] = {}
 
     rng = np.random.default_rng(1234)
     prng = random.Random(1234)
@@ -2923,14 +3080,17 @@ def main() -> int:
         torch.cuda.synchronize()
         for kern in kernels:
             kern["counter"].launches = 0
+        native.reset_counts()
         out = fn()
         torch.cuda.synchronize()
         counts = {kern["name"]: kern["counter"].launches for kern in kernels}
         for kern in kernels:
             kern.setdefault("launches_per_path", {})[label] = counts[kern["name"]]
+        engine_calls[label] = native.call_counts()
         log(f"launches in {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items())
             + "; B2 in all "
-            + str(sum(counts[k] for k in ('g1_add', 'g1_horner_chain', 'g1_bucket_fixup'))))
+            + str(sum(counts[k] for k in ('g1_add', 'g1_horner_chain', 'g1_bucket_fixup')))
+            + f"; host engine calls: {engine_calls[label]}")
         missing = [k for k in required if counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched in {label}: {missing}")

@@ -5,8 +5,9 @@ the verifier of ``snarkos_tpu/crypto/ref/kzg.py``).
 
 Commitments and openings are computed on the device (``ops/kzg.py``); this
 module holds the SRS's host side, the pairing equations (the ground truth of
-``ops/kzg.batch_verify``) and ``commit`` / ``open_at``, the plain host
-references of the device commitment.
+``ops/kzg.batch_verify``) and ``commit`` / ``open_at``, the host commitment
+(an MSM on the host G1 engine, ``utils/native.py``) that paths without a
+device take; ``g1.msm`` is its plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 
 from snarkos_tpu_torch.crypto import params
 from snarkos_tpu_torch.crypto.ref import g1, ntt, pairing
+from snarkos_tpu_torch.utils import native
 
 R = params.FR_MODULUS
 
@@ -30,24 +32,47 @@ class SRS:
 
     @classmethod
     def setup(cls, degree: int, tau: int | None = None, seed: int = 0x5EED) -> "SRS":
-        """Test-only trusted setup on the host (double-and-add a power; fine
-        for test degrees). The default tau is the JAX package's."""
+        """Test-only trusted setup on the host: from 64 powers up each
+        power on the G1 engine, normalised to z = 1, below that by
+        double-and-add, as the JAX package does. The default tau is the JAX
+        package's."""
         if tau is None:
             tau = pow(params.FR_GENERATOR, seed + 12345, R)
-        powers, acc = [], 1
+        taus, acc = [], 1
         for _ in range(degree + 1):
-            powers.append(g1.scalar_mul(acc, g1.GENERATOR))
+            taus.append(acc)
             acc = acc * tau % R
+        if len(taus) >= 64:
+            gen = g1.affine(g1.GENERATOR)
+            powers = [g1.from_affine(g1.affine(native.g1_msm([t], [gen]))) for t in taus]
+        else:
+            powers = [g1.scalar_mul(t, g1.GENERATOR) for t in taus]
         h = pairing.G2_GENERATOR
         return cls(powers_g1=powers, h=h, tau_h=pairing.g2_scalar_mul(tau, h))
 
 
+_SRS_AFFINE_CACHE: dict = {}
+
+
+def _srs_affine(srs: SRS):
+    """The powers in affine form for the engine, cached by the SRS's
+    identity (a few SRS objects coexist: the puzzle's and the trimmed
+    Varuna committer keys)."""
+    key = id(srs)
+    cached = _SRS_AFFINE_CACHE.get(key)
+    if cached is None or len(cached) < len(srs.powers_g1):
+        cached = [g1.affine(p) for p in srs.powers_g1]
+        if len(_SRS_AFFINE_CACHE) > 4:
+            _SRS_AFFINE_CACHE.clear()
+        _SRS_AFFINE_CACHE[key] = cached
+    return cached
+
+
 def commit(srs: SRS, coeffs: list[int]):
-    """sum_i coeffs[i] tau^i G on the host (``g1.msm``): the plain
-    reference of the device commitment (``ops/kzg.commit``), which every
-    path with a device takes."""
+    """sum_i coeffs[i] tau^i G on the host G1 engine (its plain version is
+    ``g1.msm``); every path with a device takes ``ops/kzg.commit``."""
     assert len(coeffs) <= len(srs.powers_g1)
-    return g1.msm(coeffs, srs.powers_g1[: len(coeffs)])
+    return native.g1_msm([c % R for c in coeffs], _srs_affine(srs)[: len(coeffs)])
 
 
 def open_at(srs: SRS, coeffs: list[int], z: int):

@@ -1,11 +1,15 @@
 """Host BLS12-377 pairing: Fq2 / Fq12 tower, G2, ate pairing (the port's
-own copy of ``snarkos_tpu/crypto/ref/pairing.py``, pure Python: no native
-engine).
+own copy of ``snarkos_tpu/crypto/ref/pairing.py``).
 
 Used by the KZG verifier (``ops/kzg.py``, ``crypto/ref/kzg.py``) and the SRS
-artifact check. Written for auditability: the Miller loop works on the
-curve over Fq12 directly (points untwisted from E'(Fq2)), with affine
-slope arithmetic, and the final exponentiation is a plain big-int pow.
+artifact check. ``g2_scalar_mul``, ``multi_pairing`` and ``pairing_check``
+run on the host pairing engine (``utils/native.py``, ``csrc/host/
+pairing377.cpp``: a few ms a check), bit for bit their plain versions
+``g2_scalar_mul_plain`` and ``multi_pairing_plain`` (~1 s a pairing), which
+take the one case the engine refuses: a point off its curve. The plain
+versions are written for auditability: the Miller loop works on the curve
+over Fq12 directly (points untwisted from E'(Fq2)), with affine slope
+arithmetic, and the final exponentiation is a plain big-int pow.
 
 Tower:  Fq2 = Fq[u]/(u^2 + 5),  Fq12 = Fq2[w]/(w^6 - u).
 Twist:  E'(Fq2): y^2 = x^3 + 1/u  (D-type, xi = u);
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 from snarkos_tpu_torch.crypto import params
 from snarkos_tpu_torch.crypto.ref import g1 as g1ref
+from snarkos_tpu_torch.utils import native
 
 Q = params.FQ_MODULUS
 R = params.FR_MODULUS
@@ -202,6 +207,19 @@ def g2_neg(p):
 
 
 def g2_scalar_mul(k: int, p):
+    """k p on the engine (None = infinity); a p off the twist goes to the
+    plain version."""
+    k %= R
+    if k and p is not None:
+        out = native.g2_scalar_mul(k, p)
+        if out is native.G2_INF:
+            return None
+        if out is not None:
+            return out
+    return g2_scalar_mul_plain(k, p)
+
+
+def g2_scalar_mul_plain(k: int, p):
     """k p by double-and-add (None = infinity)."""
     k %= R
     acc = None
@@ -310,6 +328,16 @@ def _normalize_pairs(pairs):
 
 
 def multi_pairing(pairs) -> tuple:
+    """prod_i e(P_i, Q_i) on the engine; pairs with a point off its curve go
+    to the plain version."""
+    pairs = _normalize_pairs(pairs)
+    out = native.multi_pairing(pairs)
+    if out is not None:
+        return out
+    return multi_pairing_plain(pairs)
+
+
+def multi_pairing_plain(pairs) -> tuple:
     """prod_i e(P_i, Q_i), sharing the single final exponentiation: one
     pure-Python Miller loop a pair."""
     pairs = _normalize_pairs(pairs)
@@ -320,5 +348,13 @@ def multi_pairing(pairs) -> tuple:
 
 
 def pairing_check(pairs) -> bool:
-    """prod_i e(P_i, Q_i) == 1: the verifier's admission check."""
-    return multi_pairing(pairs) == F12_ONE
+    """prod_i e(P_i, Q_i) == 1: the verifier's admission check. The engine
+    skips the exact value's cube-root correction (the final exponentiation's
+    image has prime order r and gcd(3, r) = 1, so the cubed product is 1
+    iff the product is); pairs with a point off its curve go to the plain
+    version."""
+    pairs = _normalize_pairs(pairs)
+    out = native.pairing_check(pairs)
+    if out is not None:
+        return out
+    return multi_pairing_plain(pairs) == F12_ONE

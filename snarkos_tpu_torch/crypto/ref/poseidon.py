@@ -1,5 +1,5 @@
 """Host Poseidon sponge over BLS12-377 Fr (the port's own copy of
-``snarkos_tpu/crypto/ref/poseidon.py``, pure Python).
+``snarkos_tpu/crypto/ref/poseidon.py``).
 
 Parameters (ARK round constants + Cauchy MDS matrix) come from the
 Grain-LFSR procedure of the Poseidon reference implementation: alpha = 17,
@@ -10,6 +10,9 @@ full rate block.
 It serves the puzzle's Fiat-Shamir challenge, the constants of the
 batched device sponge (``ops/poseidon.py``), and the node's host hashing
 (the Varuna transcript, accounts and signatures, records, the VM).
+``hash_many`` runs rates 1-8 on the host sponge engine (``utils/native.py``,
+``csrc/host/poseidon377.cpp``), bit for bit its plain version
+``hash_many_plain``, which takes every other rate.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import functools
 
 from snarkos_tpu_torch.crypto import params
+from snarkos_tpu_torch.utils import native
 
 R = params.FR_MODULUS
 ALPHA = 17
@@ -156,6 +160,15 @@ def _domain_to_field(domain: str) -> int:
 
 
 def hash_many(inputs: list[int], rate: int, num_outputs: int = 1, domain: str = "") -> list[int]:
+    """Duplex sponge hash: absorb ``inputs``, squeeze ``num_outputs``; on the
+    engine at rates 1-8, else the plain version."""
+    if 1 <= rate <= native.POSEIDON_MAX_RATE:
+        return native.poseidon_hash_many(inputs, rate, num_outputs, _domain_to_field(domain))
+    return hash_many_plain(inputs, rate, num_outputs, domain)
+
+
+def hash_many_plain(inputs: list[int], rate: int, num_outputs: int = 1,
+                    domain: str = "") -> list[int]:
     """Duplex sponge hash: absorb ``inputs``, squeeze ``num_outputs``.
 
     State layout: [capacity, rate_0, ..., rate_{r-1}]. The capacity slot is

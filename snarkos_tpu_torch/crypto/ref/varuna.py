@@ -37,7 +37,9 @@ polynomial (degree-1 mask coefficients), so the single opened evaluation
 of each witness-carrying polynomial leaks nothing (Marlin bounded-
 independence zk); the masks vanish on H, leaving every identity intact.
 
-The polynomial arithmetic and the transcript run on the host. Every
+The polynomial arithmetic and the transcript run on the host (the
+transcript's sponge and the verifier's folds of the openings on the host
+engines of ``utils/native.py``). Every
 commitment goes through ``commit_fn`` where one is given (``prove``,
 ``get_index``): the node passes the device commitment over its SRS's powers
 (``node/ledger.py``, ``ops/kzg.commit``); without one it is the plain host
@@ -54,6 +56,7 @@ from dataclasses import dataclass
 from snarkos_tpu_torch.crypto import params
 from snarkos_tpu_torch.crypto.ref import g1, kzg, ntt, poseidon
 from snarkos_tpu_torch.crypto.ref.r1cs import R1CS
+from snarkos_tpu_torch.utils import native
 
 R = params.FR_MODULUS
 
@@ -653,7 +656,7 @@ def verify_prepare(cs: R1CS, public: list[int], proof: VarunaProof,
                         proof.commitments[8 + 3 * m_i + 2]]
 
     def _combine_comms(comms, ys, start_pow):
-        # 8 and 18 points: a host loop of scalar multiplications
+        # 8 and 18 points: one MSM on the host G1 engine
         coeffs = []
         y_p = 0
         coeff = pow(xi, start_pow, R)
@@ -661,10 +664,11 @@ def verify_prepare(cs: R1CS, public: list[int], proof: VarunaProof,
             coeffs.append(coeff)
             y_p = (y_p + coeff * y) % R
             coeff = coeff * xi % R
-        c_p = g1.INFINITY
-        for k, c in zip(coeffs, comms):
-            c_p = g1.add(c_p, g1.scalar_mul(k, c))
-        return c_p, y_p
+        pairs = [(k, g1.affine(c)) for k, c in zip(coeffs, comms)]
+        pairs = [(k, a) for k, a in pairs if a is not None]  # the identity adds 0
+        if not pairs:
+            return g1.INFINITY, y_p
+        return native.g1_msm([k for k, _ in pairs], [a for _, a in pairs]), y_p
 
     c_b, y_b = _combine_comms(beta_comms, proof.evals[:_N_BETA], 0)
     c_d, y_d = _combine_comms(delta_comms, d_evals, _N_BETA)

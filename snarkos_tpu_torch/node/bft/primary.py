@@ -15,15 +15,14 @@ The port of ``snarkos_tpu/node/bft/primary.py``: the same timers, rules and
 wire events. The ledger service the caller passes in does the checks, on
 its own device (``CoreLedgerService`` over a ``Ledger`` on the card runs the
 solutions' bindings and every KZG batch there); the mempool partition's
-sha256d is ``hashlib``'s. One rule differs: a device fault in a proposal's
-re-checks is handed to ``on_fault`` and ends the proposer loop, where the
-reference skips the transmission.
+sha256d is ``utils.native``'s, as the reference's (``hashlib``). One rule
+differs: a device fault in a proposal's re-checks is handed to ``on_fault``
+and ends the proposer loop, where the reference skips the transmission.
 """
 
 from __future__ import annotations
 
 import asyncio
-import hashlib
 import logging
 import time
 from dataclasses import dataclass, field
@@ -42,6 +41,7 @@ from snarkos_tpu_torch.node.types import (
     TransmissionID,
     address_to_point,
 )
+from snarkos_tpu_torch.utils import native
 
 log = logging.getLogger(__name__)
 
@@ -62,7 +62,7 @@ def assign_to_worker(tid: TransmissionID, num_workers: int) -> int:
     low 128 bits of sha256d(tid bytes) mod the worker count."""
     if num_workers == 1:
         return 0
-    h = hashlib.sha256(hashlib.sha256(tid.to_bytes()).digest()).digest()
+    h = native.sha256d(tid.to_bytes())
     return int.from_bytes(h[:16], "little") % num_workers
 
 

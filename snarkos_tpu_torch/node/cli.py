@@ -299,8 +299,10 @@ async def _run_start(args) -> int:
     print("shutting down...")
     await node.shut_down()
     from snarkos_tpu_torch.ops import _build
+    from snarkos_tpu_torch.utils import native
 
     print("kernel launches: " + json.dumps(_build.launch_counts()))
+    print("engine calls: " + json.dumps(native.call_counts()))
     if node.fault is not None:
         print(f"{role} stopped on a device fault: {node.fault}", file=sys.stderr)
         return 1

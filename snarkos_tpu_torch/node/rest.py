@@ -9,7 +9,9 @@ mirror the reference's governor/limit layers.
 
 The port of ``snarkos_tpu/node/rest.py``: the same routes, status codes and
 JSON bodies. It holds no tensor: what a route reads or checks goes through
-the node's ledger and its service, on the ledger's device.
+the node's ledger and its service, on the ledger's device. One rule
+differs: a device fault in a broadcast's check stops the node
+(``_check_basic``), where the reference only answers 500.
 """
 
 from __future__ import annotations
@@ -458,6 +460,17 @@ class Rest:
                 return 404, {"error": "not a committee member"}
         raise KeyError("no such route")
 
+    def _check_basic(self, check, item, where: str) -> None:
+        """Run a broadcast's check. A device fault (``ledger.is_device_fault``:
+        a CUDA error, an engine that cannot build) stops the node through its
+        ``_halt_on_fault`` and still answers 500; every other error keeps the
+        reference's answer (``ValueError`` 400, ``KeyError`` 404, else 500)."""
+        try:
+            check(item)
+        except RuntimeError as exc:
+            self.node._halt_on_fault(exc, where)
+            raise
+
     async def _route_post(self, parts, body, ledger):
         match parts:
             case ["transaction", "broadcast"]:
@@ -466,7 +479,8 @@ class Rest:
                 if consensus is not None:
                     await consensus.add_unconfirmed_transaction(tx)
                 else:
-                    self.node.ledger_service.check_transaction_basic(tx)
+                    self._check_basic(self.node.ledger_service.check_transaction_basic, tx,
+                                      "REST transaction broadcast")
                 self.node.router.propagate(
                     msg.UnconfirmedTransaction(tx.id, tx.to_bytes()), exclude=set()
                 )
@@ -477,7 +491,8 @@ class Rest:
                 if consensus is not None:
                     await consensus.add_unconfirmed_solution(sol)
                 else:
-                    self.node.ledger_service.check_solution_basic(sol)
+                    self._check_basic(self.node.ledger_service.check_solution_basic, sol,
+                                      "REST solution broadcast")
                 self.node.router.propagate(
                     msg.UnconfirmedSolution(sol.id, sol.to_bytes()), exclude=set()
                 )

@@ -56,6 +56,7 @@ from snarkos_tpu_torch.node.ledger import (
 from snarkos_tpu_torch.node.router import Router
 from snarkos_tpu_torch.node.types import Block, Committee, Solution
 from snarkos_tpu_torch.ops import _build
+from snarkos_tpu_torch.utils import native
 
 log = logging.getLogger(__name__)
 
@@ -70,6 +71,9 @@ class _BaseNode:
 
     def _init_node(self, device) -> None:
         self.device = _build.resolve_device(device)
+        # the host engines (pairing, G1, Poseidon) build and load before a
+        # ledger or a socket exists: a host that cannot build them stops here
+        native.load_engines()
         self._tasks: list[asyncio.Task] = []
         self.halted = asyncio.Event()
         self._closing: Optional[asyncio.Task] = None

@@ -1,12 +1,17 @@
-"""Build the CUDA sources under ``csrc/`` and bind them with ctypes.
+"""Build the CUDA sources under ``csrc/`` and the host engines under
+``csrc/host/``, and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout
 (a directory ``.gitignore`` lists). The digest covers the source, every
 header in ``csrc/`` and the compiler flags, so a library is rebuilt exactly
-when what it was built from changes. ``build()`` starts one ``nvcc`` per
-missing library, all at once, and waits for them; ``load()`` builds on
-first use. Nothing here runs when the module is imported.
+when what it was built from changes. Each host engine, ``csrc/host/<name>.cpp``
+(the pairing, the G1 engine and the Poseidon sponge of
+``utils/native.py``), becomes ``build/host/lib<name>-<digest>.so`` by the
+same rule, built with ``g++`` (else ``c++``) from ``PATH``. ``build()``
+starts one compiler per missing library, ``nvcc`` and ``g++`` all at once,
+and waits for them; ``load()`` and ``load_host()`` build on first use.
+Nothing here runs when the module is imported.
 
 Every C entry point takes device pointers, sizes and a CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; ``launch`` raises when that
@@ -23,6 +28,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from contextlib import ExitStack
 
 import torch
 
@@ -33,6 +40,11 @@ SOURCES = ("mont_mul", "g1_add", "seg_prefix", "bucket_scan_serial", "bucket_sca
            "bucket_scan_fast", "jadd_scan", "ntt", "lane_scan", "window_tail", "fr_passes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_CSRC = os.path.join(CSRC, "host")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "host")
+HOST_SOURCES = ("pairing377", "g1_msm", "poseidon377")
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+HOST_THREADED = ("g1_msm",)  # starts threads of its own: -pthread
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], object] = {}
@@ -62,51 +74,109 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [
-            os.path.join(CSRC, f"{name}.cu")]:
+def _cxx() -> str:
+    path = shutil.which("g++") or shutil.which("c++")
+    if path is None:
+        raise RuntimeError("no C++ compiler (g++ or c++) on PATH: the host engines "
+                           "build only on a machine with one")
+    return path
+
+
+def _digest(flags, files) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in files:
         h.update(os.path.basename(f).encode())
         with open(f, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
 
 
-def build(names=SOURCES) -> None:
-    """Compile every library in ``names`` that is missing, one ``nvcc`` per
-    source, all started together. The compiler's output (``-Xptxas -v``:
-    registers, spills) is kept beside each library as ``.log``. Processes
-    that build at once take turns on a file lock in ``BUILD_DIR``: a later
-    one finds the libraries the first built."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+def lib_path(name: str) -> str:
+    files = sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [os.path.join(CSRC, f"{name}.cu")]
+    return os.path.join(BUILD_DIR, f"lib{name}-{_digest(NVCC_FLAGS, files)}.so")
+
+
+def host_flags(name: str) -> tuple:
+    return HOST_FLAGS + (("-pthread",) if name in HOST_THREADED else ())
+
+
+def host_lib_path(name: str) -> str:
+    files = sorted(glob.glob(os.path.join(HOST_CSRC, "*.h"))) + [
+        os.path.join(HOST_CSRC, f"{name}.cpp")]
+    return os.path.join(HOST_BUILD_DIR, f"lib{name}-{_digest(host_flags(name), files)}.so")
+
+
+def build(names=SOURCES, host=HOST_SOURCES) -> dict:
+    """Compile every library in ``names`` (CUDA) and ``host`` (the host
+    engines) that is missing, one compiler per source, all started together;
+    return the seconds from the start to each compiler's exit, by source.
+    The compiler's output (for nvcc, ``-Xptxas -v``: registers, spills) is
+    kept beside each library as ``.log``. Processes that build at once take
+    turns on a file lock in each build directory, the kernels' first: a
+    later one finds the libraries the first built."""
+    with ExitStack() as locks:
         jobs = []
-        for name in names:
-            out = lib_path(name)
-            if os.path.exists(out):
+        for srcs, build_dir, path_of, command in (
+                (names, BUILD_DIR, lib_path,
+                 lambda n, tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]),
+                (host, HOST_BUILD_DIR, host_lib_path,
+                 lambda n, tmp: [_cxx(), *host_flags(n), "-o", tmp,
+                                 os.path.join(HOST_CSRC, f"{n}.cpp")])):
+            if not srcs:
                 continue
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                    text=True)
-            jobs.append((name, proc, tmp, out))
-        failed = []
-        for name, proc, tmp, out in jobs:
-            text, _ = proc.communicate()
-            with open(out[:-3] + ".log", "w") as fh:
-                fh.write(text)
-            if proc.returncode != 0:
-                failed.append(f"--- {name}.cu (exit {proc.returncode})\n{text}")
+            os.makedirs(build_dir, exist_ok=True)
+            lock = locks.enter_context(open(os.path.join(build_dir, ".lock"), "w"))
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            for name in srcs:
+                out = path_of(name)
+                if not os.path.exists(out):
+                    tmp = f"{out}.{os.getpid()}.tmp"
+                    jobs.append((name, command(name, tmp), tmp, out))
+        return _run(jobs)
+
+
+def _run(jobs) -> dict:
+    """Start every (name, command, output, library) job at once, its
+    compiler's output into the library's ``.log``; move each finished
+    library into place, and raise with the logs of those that failed."""
+    t0 = time.perf_counter()
+    running = []
+    for name, cmd, tmp, out in jobs:
+        with open(out[:-3] + ".log", "w") as log:
+            running.append((name, cmd[-1], tmp, out,
+                            subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    seconds, failed = {}, []
+    while running:
+        time.sleep(0.01)
+        for job in [j for j in running if j[-1].poll() is not None]:
+            running.remove(job)
+            name, src, tmp, out, proc = job
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode == 0:
+                os.replace(tmp, out)
                 continue
-            os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            with open(out[:-3] + ".log") as fh:
+                failed.append(f"--- {os.path.basename(src)} (exit {proc.returncode})\n"
+                              + fh.read())
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return seconds
 
 
 def build_log(name: str) -> str:
     with open(lib_path(name)[:-3] + ".log") as fh:
         return fh.read()
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host engine ``name``, a new handle each call (``utils/native.py``
+    keeps one). A missing engine builds with the others that are missing, so
+    the first engine a process needs brings the rest: g++ takes ~20 s for
+    the pairing engine, and the sources build side by side."""
+    path = host_lib_path(name)
+    if not os.path.exists(path):
+        build((), HOST_SOURCES)
+    return ctypes.CDLL(path)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -115,7 +185,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = lib_path(name)
             if not os.path.exists(path):
-                build([name])
+                build([name], ())
             lib = ctypes.CDLL(path)
             _LIBS[name] = lib
         return lib

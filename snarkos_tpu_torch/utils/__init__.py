@@ -1,0 +1,3 @@
+"""Host utilities, the port of the JAX package's ``utils/``: ``native``, the
+ctypes bindings of the port's own C++ host engines (``csrc/host/``).
+"""

@@ -249,8 +249,9 @@ def test_lane_scan_wrappers_reject_cpu_tensors():
 
 def test_scan_covers_the_node_and_the_vm():
     """The import scan above reaches the node's modules (the consensus core,
-    the network planes, the roles and the CLI among them), the VM and the in-process network
-    and the block sync's halves of the tests and the chip check."""
+    the network planes, the roles and the CLI among them), the VM, the host
+    engines' bindings and the in-process network and the block sync's
+    halves of the tests and the chip check."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     for name in ("node/ledger.py", "node/types.py", "node/state_tree.py", "node/codec.py",
                  "node/messages.py", "vm/circuit.py", "vm/interpreter.py", "vm/program.py",
@@ -260,7 +261,7 @@ def test_scan_covers_the_node_and_the_vm():
                  "node/bft/storage.py", "node/bft/primary.py", "node/bft/bft.py",
                  "node/tcp.py", "node/router.py", "node/gateway.py", "node/block_sync.py",
                  "node/roles.py", "node/rest.py", "node/cli.py", "node/cdn.py",
-                 "node/display.py"):
+                 "node/display.py", "utils/__init__.py", "utils/native.py"):
         assert os.path.join("snarkos_tpu_torch", name) in rel, name
     assert os.path.join("tests", "torch_bft_support.py") in rel
     assert os.path.join("tests", "torch_net_support.py") in rel
@@ -293,3 +294,51 @@ def test_node_entry_points_refuse_without_card():
     assert ledger._GENESIS_CACHE.get(comm.id) is None
     src = inspect.getsource(ledger.Ledger.check_next_block)
     assert "kzg_ops.batch_verify(" in src and "ref_kzg.batch_verify" not in src
+
+
+def _all_port_files():
+    """Every file of the port, its C++ and CUDA sources included, beside
+    the Python files the scans above walk."""
+    out = set(_port_files())
+    for d, _, files in os.walk(os.path.join(ROOT, "snarkos_tpu_torch")):
+        out |= {os.path.join(d, f) for f in files
+                if f.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))}
+    return sorted(out)
+
+
+def test_port_names_no_native_engine_of_the_jax_package():
+    """No file of the port names the JAX package's ``native/`` directory or
+    its ``utils`` module: the port's engines are its own C++ copies under
+    ``csrc/host/``, built into ``build/host/`` and loaded from there."""
+    import re
+
+    from snarkos_tpu_torch.ops import _build
+    from snarkos_tpu_torch.utils import native
+
+    pattern = re.compile(r"(?<![\w.])native/|snarkos_tpu[./]utils")
+    for path in _all_port_files():
+        with open(path) as fh:
+            for no, line in enumerate(fh, 1):
+                assert not pattern.search(line), f"{os.path.relpath(path, ROOT)}:{no}: {line}"
+    host = os.path.realpath(os.path.join(ROOT, "build", "host"))
+    assert os.path.realpath(_build.HOST_BUILD_DIR) == host
+    native.load_engines()
+    for name in _build.HOST_SOURCES:
+        lib = os.path.realpath(native._LIBS[name]._name)
+        assert os.path.dirname(lib) == host and lib == os.path.realpath(_build.host_lib_path(name))
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has one in the port, by its path or by
+    the port's renames; the port's own additions are the only others."""
+    renames = {"ops/g1_pallas.py": "ops/g1_kernels.py", "ops/msm_pallas.py": "ops/msm_kernels.py"}
+
+    def modules(pkg):
+        top = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(d, f), top) for d, _, files in os.walk(top)
+                for f in files if f.endswith(".py")}
+
+    jax_mods, port_mods = modules("snarkos_tpu"), modules("snarkos_tpu_torch")
+    assert {renames.get(m, m) for m in jax_mods} - port_mods == set()
+    assert port_mods - {renames.get(m, m) for m in jax_mods} == {
+        "convert.py", "entry.py", "ops/_build.py"}

@@ -6,7 +6,8 @@ genesis-only chain with JWT auth and the range cap; the program store and
 its routes). Then the port against the JAX package: over the same chain,
 the fixture's genesis and its golden blocks 1-2 advanced without the check
 on both sides, every route of the inventory gets the same status and the
-same JSON from the JAX ``Rest`` and the port's.
+same JSON from the JAX ``Rest`` and the port's. Last, the one rule that
+differs: a device fault in a broadcast's check stops the node.
 
 The chains are tests/fixtures/torch_ledger_dev4.json's
 (``torch_node_support.dev4_env``). Where the JAX tests create transactions
@@ -22,7 +23,7 @@ import pytest
 from snarkos_tpu.node import codec as jcodec, ledger as jledger, rest as jrest
 from snarkos_tpu.node import types as jtypes
 from snarkos_tpu_torch.crypto.ref import records
-from snarkos_tpu_torch.node import ledger, rest as rest_mod, types
+from snarkos_tpu_torch.node import ledger, rest as rest_mod, roles, types
 from snarkos_tpu_torch.node.cli import AccountView
 from snarkos_tpu_torch.node.rest import Rest
 
@@ -394,3 +395,67 @@ def test_routes_match_the_jax_rest(env, chain, jax_chain):
     assert len(port_answers) == len(REFERENCE_ROUTES) + len(extra)
     for mine, theirs in zip(port_answers, jax_answers):
         assert mine == theirs, (mine[:2], mine[3:], theirs[3:])
+
+
+class _RaisingService:
+    """A service whose broadcast checks raise ``exc``."""
+
+    def __init__(self, exc):
+        self.exc = exc
+
+    def check_transaction_basic(self, tx):
+        raise self.exc
+
+    def check_solution_basic(self, sol):
+        raise self.exc
+
+
+class FaultNode(roles._BaseNode):
+    """What Rest reads of a node that is not a validator, with the roles'
+    fault rule (``_BaseNode._halt_on_fault``); its stops are counted."""
+
+    def __init__(self, led, exc):
+        self._init_node("cpu")
+        self.account = AccountView(account(0))
+        self.router = FakeRouter()
+        self.consensus = None
+        self.ledger = led
+        self.ledger_service = _RaisingService(exc)
+        self.stops = 0
+
+    async def _shut_down(self):
+        self.stops += 1
+
+
+@pytest.mark.parametrize("kind", [types.TX_TRANSACTION, types.TX_SOLUTION],
+                         ids=["transaction", "solution"])
+@pytest.mark.parametrize("exc, status, halts", [
+    (RuntimeError("CUDA error 700"), 500, True),
+    (ValueError("invalid proof"), 400, False),
+    (ledger.SRSTooSmall("SRS artifact too small"), 500, False),
+], ids=["RuntimeError", "ValueError", "SRSTooSmall"])
+def test_broadcast_check_fault_stops_the_node(env, chain, kind, exc, status, halts):
+    """A device fault in a broadcast's check (a Client's or a Prover's
+    ``check_transaction_basic`` / ``check_solution_basic``) still answers
+    500, and stops the node as the roles' other catch-alls do; a
+    ``ValueError`` keeps the reference's 400 and ``SRSTooSmall`` its 500,
+    and neither stops the node."""
+    _doc, _comm, blocks = env
+    item = next(t for t in blocks[0].transmissions if t.kind == kind).deserialize()
+    route = "transaction" if kind == types.TX_TRANSACTION else "solution"
+    node = FaultNode(chain, exc)
+
+    async def go():
+        rest = await _serve(node)
+        try:
+            got, body = await _http(rest.port, "POST", f"/testnet/{route}/broadcast",
+                                    item.to_bytes().hex())
+            if halts:
+                await asyncio.wait_for(node.halted.wait(), 5)
+            return got, body
+        finally:
+            await rest.stop()
+
+    got, body = run(go(), 20)
+    assert (got, body) == (status, {"error": str(exc)})
+    assert (node.fault is exc, node.halted.is_set(), node.stops) == (halts, halts, int(halts))

@@ -18,6 +18,7 @@ import sys
 
 from snarkos_tpu_torch.node import cli, messages as msg
 from snarkos_tpu_torch.node.types import Committee
+from snarkos_tpu_torch.utils import native
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +45,10 @@ def handshake_nonce(k: int) -> int:
 
 
 def run(coro, limit: float = 10.0):
-    """Run ``coro`` on a new event loop under a time limit."""
+    """Run ``coro`` on a new event loop under a time limit. The host engines
+    are loaded first: in a fresh checkout the first load builds them (~20 s
+    of g++), which would otherwise block the loop inside the limit."""
+    native.load_engines()
     return asyncio.run(asyncio.wait_for(coro, limit))
 
 
