@@ -299,10 +299,13 @@ async def _run_start(args) -> int:
     print("shutting down...")
     await node.shut_down()
     from snarkos_tpu_torch.ops import _build
-    from snarkos_tpu_torch.utils import native
+    from snarkos_tpu_torch.utils import native, tracing
 
+    # the registry: launches and engine calls by name, then every other counter
     print("kernel launches: " + json.dumps(_build.launch_counts()))
     print("engine calls: " + json.dumps(native.call_counts()))
+    print("counters: " + json.dumps({k: v for k, v in tracing.counters().items()
+                                     if v and not k.startswith(("launch.", "engine."))}))
     if node.fault is not None:
         print(f"{role} stopped on a device fault: {node.fault}", file=sys.stderr)
         return 1

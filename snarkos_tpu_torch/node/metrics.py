@@ -1,9 +1,11 @@
 """Metrics registry + Prometheus text exposition (node/metrics semantics).
 
-Mirrors SURVEY.md §6.5: counters/gauges/histograms registered up front
-(BFT round/height/leader/commit latency, block composition, mempool
-depth, connection counts), updated from consensus/router hot paths, and
-served as Prometheus text format on an HTTP port (default 9000).
+Mirrors SURVEY.md §6.5: gauges and histograms (BFT round/height, block
+composition, mempool depth, commit latency, the Prover's iterations and
+solutions) updated from the node's hot paths, and the counters of the port's
+one registry (``utils/tracing.py``: kernel launches, engine calls, copies
+between host and device, reruns and builds), served as Prometheus text format
+on an HTTP port (default 9000).
 
 The port of ``snarkos_tpu/node/metrics.py``.
 """
@@ -11,51 +13,19 @@ The port of ``snarkos_tpu/node/metrics.py``.
 from __future__ import annotations
 
 import asyncio
+import re
 import threading
-import time
 from collections import defaultdict
 
+from snarkos_tpu_torch.utils import tracing
+
 _LOCK = threading.Lock()
-_COUNTERS: dict[str, float] = defaultdict(float)
 _GAUGES: dict[str, float] = {}
 _HISTOGRAMS: dict[str, list] = defaultdict(list)
 
-# names.rs equivalents
-COUNTER_NAMES = [
-    "bft_process_batch_propose_total",
-    "bft_process_batch_certified_total",
-]
-GAUGE_NAMES = [
-    "bft_current_round",
-    "bft_last_committed_round",
-    "bft_leader_elected",
-    "blocks_height",
-    "blocks_transmissions",
-    "blocks_solutions",
-    "blocks_transactions",
-    "consensus_committed_certificates",
-    "consensus_last_committed_round",
-    "mempool_solutions",
-    "mempool_transactions",
-    "mempool_ready_transmissions",
-    "router_connected_peers",
-    "router_candidate_peers",
-    "router_restricted_peers",
-    "gateway_connected_validators",
-    "tcp_open_connections",
-    "prover_solutions_found",
-    "prover_iterations",
-]
-HISTOGRAM_NAMES = [
-    "consensus_commit_latency_seconds",
-    "consensus_block_advance_seconds",
-    "bft_proposal_quorum_seconds",
-]
-
 
 def increment_counter(name: str, value: float = 1.0) -> None:
-    with _LOCK:
-        _COUNTERS[name] += value
+    tracing.count(name, value)
 
 
 def update_gauge(name: str, value: float) -> None:
@@ -71,13 +41,20 @@ def observe_histogram(name: str, value: float) -> None:
             del h[: len(h) // 2]
 
 
+def _prometheus_name(name: str) -> str:
+    """A registry name as a Prometheus metric name: ``launch.add_kernel`` ->
+    ``launch_add_kernel``."""
+    return re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+
 def snapshot() -> str:
     """Prometheus text exposition."""
     lines = []
+    for name, value in tracing.counters().items():
+        name = _prometheus_name(name)
+        lines.append(f"# TYPE {name} counter")
+        lines.append(f"{name} {value}")
     with _LOCK:
-        for name, value in sorted(_COUNTERS.items()):
-            lines.append(f"# TYPE {name} counter")
-            lines.append(f"{name} {value}")
         for name, value in sorted(_GAUGES.items()):
             lines.append(f"# TYPE {name} gauge")
             lines.append(f"{name} {value}")
@@ -119,7 +96,7 @@ async def serve(port: int = 9000) -> asyncio.AbstractServer:
 
 
 def reset() -> None:
+    tracing.reset()
     with _LOCK:
-        _COUNTERS.clear()
         _GAUGES.clear()
         _HISTOGRAMS.clear()

@@ -42,7 +42,7 @@ import logging
 import os
 from typing import Optional
 
-from snarkos_tpu_torch.node import events as ev, messages as msg
+from snarkos_tpu_torch.node import events as ev, messages as msg, metrics
 from snarkos_tpu_torch.node.block_sync import BlockSync
 from snarkos_tpu_torch.node.consensus import Consensus
 from snarkos_tpu_torch.node.gateway import Gateway
@@ -536,6 +536,7 @@ class Prover(_BaseNode):
                 nonces = [(nonce + 1 + i) & ((1 << 64) - 1) for i in range(batch)]
                 nonce = nonces[-1]
                 self.iterations += len(nonces)
+                metrics.update_gauge("prover_iterations", self.iterations)
                 # keep (nonce -> solution) so the Solution carries ITS nonce
                 found = await asyncio.get_event_loop().run_in_executor(
                     None, self._prove_batch_indexed, puzzle, epoch_hash,
@@ -543,6 +544,7 @@ class Prover(_BaseNode):
                 )
                 for n, sol_data in found:
                     self.solutions_found += 1
+                    metrics.update_gauge("prover_solutions_found", self.solutions_found)
                     sol = Solution(
                         epoch_hash=epoch_hash, address=self.account.address,
                         nonce=n, commitment=sol_data.commitment,

@@ -15,7 +15,8 @@ Nothing here runs when the module is imported.
 
 Every C entry point takes device pointers, sizes and a CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; ``launch`` raises when that
-is not 0.
+is not 0. Each launch wrapper counts its launches (``counted``, ``count``)
+in the registry of ``utils/tracing.py``, as ``launch.<wrapper>``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import time
 from contextlib import ExitStack
 
 import torch
+
+from snarkos_tpu_torch.utils import tracing
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
@@ -50,8 +53,6 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], object] = {}
 _LOCK = threading.Lock()
 _ENTRY_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
-_COUNTED: dict = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -154,6 +155,7 @@ def _run(jobs) -> dict:
             seconds[name] = time.perf_counter() - t0
             if proc.returncode == 0:
                 os.replace(tmp, out)
+                tracing.count("kernel.build")
                 continue
             with open(out[:-3] + ".log") as fh:
                 failed.append(f"--- {os.path.basename(src)} (exit {proc.returncode})\n"
@@ -209,20 +211,28 @@ def entry(lib_name: str, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+def counted(wrapper):
+    """Give a launch wrapper its counters: ``wrapper.launches`` at 0 (its
+    launches since a reader last set it to 0, as the chip check does a path)
+    and ``launch.<name>`` in the registry at 0."""
+    wrapper.launches = 0
+    tracing.declare("launch." + wrapper.__name__)
+    return wrapper
+
+
 def count(wrapper) -> None:
-    """Add one to ``wrapper.launches``, the launch counter that the chip
-    check reads, under a lock: validators that share a process launch from
-    several executor threads at once."""
-    with _COUNT_LOCK:
+    """One launch of ``wrapper``: ``wrapper.launches`` and the registry's
+    ``launch.<name>``, under the registry's lock: validators that share a
+    process launch from several executor threads at once."""
+    with tracing.LOCK:
         wrapper.launches += 1
-        _COUNTED.setdefault(wrapper.__name__, wrapper)
+        tracing.count_locked("launch." + wrapper.__name__)
 
 
 def launch_counts() -> dict:
     """The launches of each wrapper that has launched in this process, by
     the wrapper's name (what a node prints when it stops)."""
-    with _COUNT_LOCK:
-        return {name: w.launches for name, w in sorted(_COUNTED.items())}
+    return {name[len("launch."):]: n for name, n in tracing.counters("launch.").items() if n}
 
 
 def launch(fn, tensors, sizes, device: torch.device) -> None:

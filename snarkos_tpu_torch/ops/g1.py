@@ -30,6 +30,9 @@ import torch
 from snarkos_tpu_torch.crypto import params
 from snarkos_tpu_torch.ops import modarith as fa
 from snarkos_tpu_torch.ops.fieldspec import FQ
+from snarkos_tpu_torch.utils import tracing
+
+tracing.declare("copy.decode_points")
 
 
 @dataclass
@@ -307,8 +310,11 @@ def encode_points(pts, device=None) -> JacobianPoints:
 
 def decode_points(p: JacobianPoints) -> list[tuple]:
     """Batched points -> list of reference Jacobian tuples (compare through
-    ref.g1.affine: Jacobian coordinates are class representatives)."""
-    xs = FQ.decode_fast(p.x.cpu().numpy(), mont=True)
-    ys = FQ.decode_fast(p.y.cpu().numpy(), mont=True)
-    zs = FQ.decode_fast(p.z.cpu().numpy(), mont=True)
-    return list(zip(xs, ys, zs))
+    ref.g1.affine: Jacobian coordinates are class representatives). Three
+    blocking reads from a device (``copy.decode_points``), then the decode
+    on the host."""
+    with tracing.span("sync.read", "decode_points"):
+        coords = [tracing.to_host(t, "decode_points").numpy() for t in (p.x, p.y, p.z)]
+    with tracing.span("host.decode", "decode_points"):
+        xs, ys, zs = (FQ.decode_fast(c, mont=True) for c in coords)
+        return list(zip(xs, ys, zs))

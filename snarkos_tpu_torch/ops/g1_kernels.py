@@ -79,6 +79,7 @@ def seg_prefix_plain(state):
     return cur
 
 
+@_build.counted
 def add_kernel(pa: g1.JacobianPoints, pb: g1.JacobianPoints) -> g1.JacobianPoints:
     n = pa.x.shape[-1]
     for t, what in zip((pa.x, pa.y, pa.z, pb.x, pb.y, pb.z), ("ax", "ay", "az", "bx", "by", "bz")):
@@ -89,9 +90,6 @@ def add_kernel(pa: g1.JacobianPoints, pb: g1.JacobianPoints) -> g1.JacobianPoint
         _build.launch(fn, (pa.x, pa.y, pa.z, pb.x, pb.y, pb.z, *out), (n,), pa.x.device)
         _build.count(add_kernel)
     return g1.JacobianPoints(*out)
-
-
-add_kernel.launches = 0
 
 
 def horner_plain(acc: g1.JacobianPoints, t: g1.JacobianPoints, c: int) -> g1.JacobianPoints:
@@ -114,6 +112,7 @@ def horner_chain_plain(ts, c: int) -> g1.JacobianPoints:
     return acc
 
 
+@_build.counted
 def horner_chain_kernel(ts, c: int) -> g1.JacobianPoints:
     """One launch of ``csrc/window_tail.cu``'s ``g1_horner_chain`` over the
     (W, 24, N) stacks ts = (x, y, z); limb for limb the plain version."""
@@ -128,9 +127,6 @@ def horner_chain_kernel(ts, c: int) -> g1.JacobianPoints:
         _build.launch(fn, (*ts, *out), (W, n, c), ts[0].device)
         _build.count(horner_chain_kernel)
     return g1.JacobianPoints(*out)
-
-
-horner_chain_kernel.launches = 0
 
 
 def bucket_indices(keys, heads, K: int, rows: int, nbatch: int, B: int):
@@ -171,6 +167,7 @@ def bucket_fixup_plain(scan, keys, heads, summ, K: int, rows: int, nbatch: int,
     return g1.select_points(live, sums, g1.infinity(flat.shape, device=flat.device))
 
 
+@_build.counted
 def bucket_fixup_kernel(scan, keys, heads, summ, K: int, rows: int, nbatch: int,
                         B: int) -> g1.JacobianPoints:
     """One launch of ``csrc/window_tail.cu``'s ``g1_bucket_fixup``: a team of
@@ -199,9 +196,7 @@ def bucket_fixup_kernel(scan, keys, heads, summ, K: int, rows: int, nbatch: int,
     return g1.JacobianPoints(*out)
 
 
-bucket_fixup_kernel.launches = 0
-
-
+@_build.counted
 def seg_prefix_kernel(flags, x, y, z):
     """One cooperative launch of ``csrc/seg_prefix.cu`` over (1, n) flags and
     (24, n) coordinates; the rounds ping-pong between the outputs and a
@@ -216,9 +211,6 @@ def seg_prefix_kernel(flags, x, y, z):
         _build.launch(fn, (flags, x, y, z, *out, *scratch), (n, prefix_steps(n)), x.device)
         _build.count(seg_prefix_kernel)
     return tuple(out)
-
-
-seg_prefix_kernel.launches = 0
 
 
 def lane_buckets_plain(keys, x, y, z, K: int, B: int):
@@ -262,6 +254,7 @@ def lane_buckets_plain(keys, x, y, z, K: int, B: int):
     return (sums.x, sums.y, sums.z, *state, first, carry_key)
 
 
+@_build.counted
 def lane_buckets_kernel(keys, x, y, z, K: int, B: int, plan):
     """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_buckets``. plan = (M
     members a lane, a power of two; MB members a block, one thread each, a
@@ -292,9 +285,6 @@ def lane_buckets_kernel(keys, x, y, z, K: int, B: int, plan):
     return (*out, *agg, first, carry_key)
 
 
-lane_buckets_kernel.launches = 0
-
-
 def lane_bucket_carry_plain(bx, by, bz, sx, sy, sz, carry_key):
     """Plain version of ``lane_bucket_carry``: for each lane k >= 1 with
     carry_key[k] = b > 0, bucket b becomes ``g1.add(carry, bucket b)`` with
@@ -311,6 +301,7 @@ def lane_bucket_carry_plain(bx, by, bz, sx, sy, sz, carry_key):
     return tuple(out)
 
 
+@_build.counted
 def lane_bucket_carry_kernel(bx, by, bz, sx, sy, sz, carry_key):
     """One launch of ``csrc/lane_scan.cu``'s ``g1_lane_bucket_carry``,
     updating (bx, by, bz) in place (they are returned); limb for limb the
@@ -327,9 +318,6 @@ def lane_bucket_carry_kernel(bx, by, bz, sx, sy, sz, carry_key):
         _build.launch(fn, (bx, by, bz, sx, sy, sz, carry_key), (K, B), bx.device)
         _build.count(lane_bucket_carry_kernel)
     return bx, by, bz
-
-
-lane_bucket_carry_kernel.launches = 0
 
 
 def _contig(*ts):

@@ -23,6 +23,9 @@ from snarkos_tpu_torch.ops import _build, g1, msm as msm_mod
 from snarkos_tpu_torch.ops import modarith as fa
 from snarkos_tpu_torch.ops.fieldspec import FR
 from snarkos_tpu_torch.ops.ntt import geometric_powers
+from snarkos_tpu_torch.utils import tracing
+
+tracing.declare("copy.kzg_encode", "copy.kzg_y")
 
 R = params.FR_MODULUS
 
@@ -56,6 +59,7 @@ def _eval_quotient_device(coeffs_mont: torch.Tensor, z_mont: torch.Tensor,
 
 
 def _encode(vals, device) -> torch.Tensor:
+    tracing.copied("kzg_encode", device)
     return torch.from_numpy(FR.encode_fast(vals, mont=True)).to(device).contiguous()
 
 
@@ -68,14 +72,17 @@ def eval_and_quotient(coeffs_mont: torch.Tensor, z: int):
 
 def eval_and_quotient_multi(coeffs_mont: torch.Tensor, zs: list):
     """(L, B, n) Montgomery coefficients and B host points -> (ys host ints,
-    quotients (L, B, n) Montgomery), one device pass for the whole batch."""
+    quotients (L, B, n) Montgomery), one device pass for the whole batch:
+    two blocking copies of the points to the device (``copy.kzg_encode``)
+    and one read of the ys (``copy.kzg_y``)."""
     zs = [z % R for z in zs]
     if any(z == 0 for z in zs):  # ~2^-253 corner: per-item shift
         ys, qs = [], []
         for i, z in enumerate(zs):
             c = coeffs_mont[:, i]
             if z == 0:
-                ys.append(FR.decode_fast(c[:, :1].cpu().numpy(), mont=True)[0])
+                ys.append(FR.decode_fast(tracing.to_host(c[:, :1], "kzg_y").numpy(),
+                                         mont=True)[0])
                 qs.append(torch.cat([c[:, 1:], torch.zeros_like(c[:, :1])], dim=-1))
             else:
                 y, q = eval_and_quotient(c, z)
@@ -83,10 +90,14 @@ def eval_and_quotient_multi(coeffs_mont: torch.Tensor, zs: list):
                 qs.append(q)
         return ys, torch.stack(qs, dim=1)
     device = coeffs_mont.device
-    z_mont = _encode(zs, device).unsqueeze(-1)
-    zinv_mont = _encode([pow(z, -1, R) for z in zs], device).unsqueeze(-1)
-    y, q = _eval_quotient_device(coeffs_mont, z_mont, zinv_mont)
-    return FR.decode_fast(y[..., 0].cpu().numpy(), mont=True), q
+    with tracing.span("kzg.eval_quotient", "eval_and_quotient_multi"):
+        z_mont = _encode(zs, device).unsqueeze(-1)
+        zinv_mont = _encode([pow(z, -1, R) for z in zs], device).unsqueeze(-1)
+        y, q = _eval_quotient_device(coeffs_mont, z_mont, zinv_mont)
+    with tracing.span("sync.read", "kzg_y"):
+        y = tracing.to_host(y[..., 0], "kzg_y").numpy()
+    with tracing.span("host.decode", "kzg_y"):
+        return FR.decode_fast(y, mont=True), q
 
 
 def poly_eval(coeffs_mont: torch.Tensor, z: int) -> int:
@@ -99,8 +110,9 @@ def commit(points: g1.JacobianPoints, coeffs_mont: torch.Tensor) -> g1.JacobianP
     """KZG commit = MSM(coeffs, SRS powers). points: (L, >= n) affine SRS;
     coeffs: (L, n) Montgomery Fr. Returns a 1-point batch."""
     n = coeffs_mont.shape[-1]
-    pts = g1.JacobianPoints(points.x[:, :n], points.y[:, :n], points.z[:, :n])
-    return msm_mod.msm(pts, fa.from_mont(FR, coeffs_mont))
+    with tracing.span("kzg.commit", "commit"):
+        pts = g1.JacobianPoints(points.x[:, :n], points.y[:, :n], points.z[:, :n])
+        return msm_mod.msm(pts, fa.from_mont(FR, coeffs_mont))
 
 
 def open_at(points: g1.JacobianPoints, coeffs_mont: torch.Tensor, z: int):

@@ -35,6 +35,9 @@ import torch
 
 from snarkos_tpu_torch.ops import _build
 from snarkos_tpu_torch.ops.fieldspec import LIMB_BITS, LIMB_MASK, FieldSpec
+from snarkos_tpu_torch.utils import tracing
+
+tracing.declare("copy.broadcast_const")
 
 # ---------------------------------------------------------------------------
 # constants as int64 limb vectors, one copy per (spec, device)
@@ -241,6 +244,7 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 
+@_build.counted
 def mont_mul_kernel(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch ``mont_mul_fq``/``mont_mul_fr`` on (L, n) int32 CUDA tensors."""
     L, n = a.shape if a.dim() == 2 else (None, None)
@@ -254,9 +258,6 @@ def mont_mul_kernel(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.
         _build.launch(fn, (a, b, out), (n,), a.device)
         _build.count(mont_mul_kernel)
     return out
-
-
-mont_mul_kernel.launches = 0
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -322,7 +323,9 @@ def broadcast_const(spec: FieldSpec, value: int, batch_shape: tuple, mont: bool 
     """A constant field element broadcast to (L, *batch_shape) int32.
 
     With ``mont=True`` the value is canonical and converted; ``mont=False``
-    places raw limbs (e.g. R^2 itself)."""
+    places raw limbs (e.g. R^2 itself). On a device, one blocking copy of
+    the limbs from the host (``copy.broadcast_const``)."""
+    tracing.copied("broadcast_const", device)
     col = torch.tensor(_const_limbs(spec, value, mont), dtype=torch.int32, device=device)
     return col.view((spec.nlimbs,) + (1,) * len(batch_shape)).expand(
         (spec.nlimbs,) + tuple(batch_shape))

@@ -47,6 +47,9 @@ import torch
 from snarkos_tpu_torch.ops import g1, g1_kernels, msm_kernels
 from snarkos_tpu_torch.ops import modarith as fa
 from snarkos_tpu_torch.ops.fieldspec import FQ
+from snarkos_tpu_torch.utils import tracing
+
+tracing.declare("copy.msm_exception", "copy.msm_z_is_one")
 
 SCALAR_BITS = 253
 
@@ -224,14 +227,15 @@ def _horner_chain(group: GroupOps, ts, c: int):
     """sum_w 2^(c w) ts[w] by Horner: from the identity and the top window
     down, acc = 2^c acc + ts[w]. One ``group.horner_chain`` call, or for each
     window c doublings as ``group.add(acc, acc)`` and one add."""
-    if group.horner_chain is not None:
-        return group.horner_chain(ts, c)
-    acc = group.identity(ts[0][0].shape[-1])
-    for t in reversed(ts):
-        for _ in range(c):
-            acc = group.add(acc, acc)
-        acc = group.add(acc, t)
-    return acc
+    with tracing.span("msm.horner", "_horner_chain"):
+        if group.horner_chain is not None:
+            return group.horner_chain(ts, c)
+        acc = group.identity(ts[0][0].shape[-1])
+        for t in reversed(ts):
+            for _ in range(c):
+                acc = group.add(acc, acc)
+            acc = group.add(acc, t)
+        return acc
 
 
 def _bucket_sums(group: GroupOps, scan, keys, heads, summ, K: int, rows: int, nbatch: int,
@@ -332,76 +336,84 @@ def _fused_msm_body(x, ycat, packed_digits, c: int, lanes: int, chunk: int,
 
     ``group`` and ``scan_fn`` are injectable so the combinatorics can be
     tested with a cheap mock group on the CPU."""
-    L, n = x.shape
-    device = x.device
-    rows = 1 if serial else chunk
-    K = lanes
-    m = n // K
-    KV = K * rows
-    mv = n // KV
-    B = (1 << (c - 1)) + 1
-    B_total = nbatch * B
-    nper = n // nbatch
-    batch_off = (torch.arange(n, device=device) // nper) * B if nbatch > 1 else None
-    seg_flags = ((torch.arange(B_total, device=device) % B == 0)
-                 .to(torch.int32).unsqueeze(0) if nbatch > 1 else None)
-    weighted_total = group is None and B >= (1 << 11) and nbatch == 1
-    if group is None:
-        group = g1_group(device)
-    if scan_fn is None:
-        if serial:
-            scan_fn = msm_kernels.bucket_scan_serial
-        else:
-            scan_fn = msm_kernels.bucket_scan_fast if fast else msm_kernels.bucket_scan
-    seg = _default_seg_combine(group)
-    src = chain_src(n, K, chunk, serial, device)
-
-    def plain_add_scan_reverse(vals):
-        rev = tuple(t.flip(-1) for t in vals)
-        flags = (seg_flags if nbatch > 1
-                 else torch.zeros((1, B_total), dtype=torch.int32, device=device))
-        cur = _hillis_steele_prefix(seg, group, (flags,) + rev, B_total, len(vals))
-        return tuple(t.flip(-1) for t in cur[1:])
-
-    W = packed_digits.shape[0]
-    t_ws = [None] * W  # window w's T_w, for the Horner chain after the loop
-    exc_acc = torch.zeros((), dtype=torch.int32, device=device)
-    for w in range(W - 1, -1, -1):
-        keys, xs, ys, heads_lane = chain_layout(x, ycat, packed_digits[w], src, batch_off)
-        if fast:
-            nz_lane = (keys > 0).to(torch.int32)[src.reshape(-1)].reshape(m, K)
-            sx, sy, sz, exc = scan_fn(xs, ys, heads_lane.unsqueeze(0), nz_lane.unsqueeze(0),
-                                      K, chunk)
-            exc_acc = exc_acc | exc.max()
-        else:
-            sx, sy, sz = scan_fn(xs, ys, heads_lane.unsqueeze(0), K, chunk)
-
-        # cross-chain carries: inclusive segmented scan of the chain finals,
-        # which lie in the last `rows` rows (chain l = r K + k at row r)
-        chain_flag = heads_lane.reshape(mv, rows, K).max(0).values.reshape(1, KV)
-        finals = tuple(t[:, -rows:, :].reshape(L, KV) for t in (sx, sy, sz))
-        summ = _hillis_steele_prefix(seg, group, (chain_flag,) + finals, KV, 3)
-
-        # bucket sums = scan values at each bucket's last occurrence, plus
-        # the chain carry when the bucket's run extends past a chain start
-        sums = _bucket_sums(group, (sx, sy, sz), keys, heads_lane, summ[1:], K, rows, nbatch, B)
-
-        # T_w = sum_{b>=1} b S_b: B7 in one launch (~2B adds) for the single
-        # MSM's wide windows, the double Hillis-Steele (2 B log B adds, per
-        # batch) below B = 2^11 and for multi-MSMs.
-        if weighted_total:
-            t_w = _weighted_bucket_total(sums, group, seg, B)
-        else:
-            # per-batch (suffix of suffix)[1]
-            suffix = plain_add_scan_reverse(sums)
-            suffix2 = plain_add_scan_reverse(suffix)
-            if nbatch > 1:
-                slots = torch.arange(nbatch, device=device) * B + 1
-                t_w = tuple(t[..., slots] for t in suffix2)
+    with tracing.span("msm.windows", "_fused_msm_body"):
+        L, n = x.shape
+        device = x.device
+        rows = 1 if serial else chunk
+        K = lanes
+        m = n // K
+        KV = K * rows
+        mv = n // KV
+        B = (1 << (c - 1)) + 1
+        B_total = nbatch * B
+        nper = n // nbatch
+        batch_off = (torch.arange(n, device=device) // nper) * B if nbatch > 1 else None
+        seg_flags = ((torch.arange(B_total, device=device) % B == 0)
+                     .to(torch.int32).unsqueeze(0) if nbatch > 1 else None)
+        weighted_total = group is None and B >= (1 << 11) and nbatch == 1
+        if group is None:
+            group = g1_group(device)
+        if scan_fn is None:
+            if serial:
+                scan_fn = msm_kernels.bucket_scan_serial
             else:
-                t_w = tuple(t[..., 1:2] for t in suffix2)
+                scan_fn = msm_kernels.bucket_scan_fast if fast else msm_kernels.bucket_scan
+        seg = _default_seg_combine(group)
+        src = chain_src(n, K, chunk, serial, device)
 
-        t_ws[w] = t_w
+        def plain_add_scan_reverse(vals):
+            rev = tuple(t.flip(-1) for t in vals)
+            flags = (seg_flags if nbatch > 1
+                     else torch.zeros((1, B_total), dtype=torch.int32, device=device))
+            cur = _hillis_steele_prefix(seg, group, (flags,) + rev, B_total, len(vals))
+            return tuple(t.flip(-1) for t in cur[1:])
+
+        W = packed_digits.shape[0]
+        t_ws = [None] * W  # window w's T_w, for the Horner chain after the loop
+        exc_acc = torch.zeros((), dtype=torch.int32, device=device)
+        for w in range(W - 1, -1, -1):
+            with tracing.span("msm.layout", "_fused_msm_body"):
+                keys, xs, ys, heads_lane = chain_layout(x, ycat, packed_digits[w], src,
+                                                        batch_off)
+            with tracing.span("msm.scan", "_fused_msm_body"):
+                if fast:
+                    nz_lane = (keys > 0).to(torch.int32)[src.reshape(-1)].reshape(m, K)
+                    sx, sy, sz, exc = scan_fn(xs, ys, heads_lane.unsqueeze(0),
+                                              nz_lane.unsqueeze(0), K, chunk)
+                    exc_acc = exc_acc | exc.max()
+                else:
+                    sx, sy, sz = scan_fn(xs, ys, heads_lane.unsqueeze(0), K, chunk)
+
+                # cross-chain carries: inclusive segmented scan of the chain
+                # finals, which lie in the last `rows` rows (chain l = r K + k
+                # at row r)
+                chain_flag = heads_lane.reshape(mv, rows, K).max(0).values.reshape(1, KV)
+                finals = tuple(t[:, -rows:, :].reshape(L, KV) for t in (sx, sy, sz))
+                summ = _hillis_steele_prefix(seg, group, (chain_flag,) + finals, KV, 3)
+
+                # bucket sums = scan values at each bucket's last occurrence,
+                # plus the chain carry when the bucket's run extends past a
+                # chain start
+                sums = _bucket_sums(group, (sx, sy, sz), keys, heads_lane, summ[1:], K, rows,
+                                    nbatch, B)
+
+            with tracing.span("msm.total", "_fused_msm_body"):
+                # T_w = sum_{b>=1} b S_b: B7 in one launch (~2B adds) for the
+                # single MSM's wide windows, the double Hillis-Steele (2 B log B
+                # adds, per batch) below B = 2^11 and for multi-MSMs.
+                if weighted_total:
+                    t_w = _weighted_bucket_total(sums, group, seg, B)
+                else:
+                    # per-batch (suffix of suffix)[1]
+                    suffix = plain_add_scan_reverse(sums)
+                    suffix2 = plain_add_scan_reverse(suffix)
+                    if nbatch > 1:
+                        slots = torch.arange(nbatch, device=device) * B + 1
+                        t_w = tuple(t[..., slots] for t in suffix2)
+                    else:
+                        t_w = tuple(t[..., 1:2] for t in suffix2)
+
+            t_ws[w] = t_w
     acc = _horner_chain(group, t_ws, c)
     if fast:
         return acc, exc_acc
@@ -539,16 +551,17 @@ def _msm_affine(x: torch.Tensor, y: torch.Tensor, scalar_limbs: torch.Tensor, c:
         c = fused_window_bits(n)
     if lanes == 0:
         lanes = _default_lanes(n)
-    tile = lanes * chunk
-    n_pad = -(-n // tile) * tile
-    if n_pad != n:
-        reps = n_pad - n
-        x = torch.cat([x, x[:, :1].expand(-1, reps)], dim=-1)
-        y = torch.cat([y, y[:, :1].expand(-1, reps)], dim=-1)
-        scalar_limbs = torch.cat([scalar_limbs, scalar_limbs.new_zeros(
-            (scalar_limbs.shape[0], reps))], dim=-1)
-    ycat = torch.cat([y, fa.neg(FQ, y)], dim=-1)
-    packed = signed_window_digits(scalar_limbs, c)
+    with tracing.span("msm.digits", "_msm_affine"):
+        tile = lanes * chunk
+        n_pad = -(-n // tile) * tile
+        if n_pad != n:
+            reps = n_pad - n
+            x = torch.cat([x, x[:, :1].expand(-1, reps)], dim=-1)
+            y = torch.cat([y, y[:, :1].expand(-1, reps)], dim=-1)
+            scalar_limbs = torch.cat([scalar_limbs, scalar_limbs.new_zeros(
+                (scalar_limbs.shape[0], reps))], dim=-1)
+        ycat = torch.cat([y, fa.neg(FQ, y)], dim=-1)
+        packed = signed_window_digits(scalar_limbs, c)
     out = _fused_msm_body(x, ycat, packed, c, lanes, chunk, fast=fast, serial=serial)
     if fast:
         out, exc = out
@@ -570,7 +583,11 @@ def msm_affine(x: torch.Tensor, y: torch.Tensor, scalar_limbs: torch.Tensor, c: 
     live bucket, which random bases such as SRS powers never give) the
     complete engine (B5) reruns."""
     out, exc = _msm_affine(x, y, scalar_limbs, c, lanes, chunk, fast=True)
-    if int(exc) != 0:
+    with tracing.span("sync.read", "msm_exception"):
+        tracing.copied("msm_exception", exc.device)
+        rerun = int(exc) != 0
+    if rerun:
+        tracing.count("msm.rerun")
         out, _ = _msm_affine(x, y, scalar_limbs, c, lanes, chunk, fast=False)
     return out
 
@@ -596,19 +613,20 @@ def msm_affine_multi(x: torch.Tensor, y: torch.Tensor, scalar_limbs: torch.Tenso
         lanes = _default_lanes(nb * npts)
         if serial:
             lanes = min(lanes, nb * npts)
-    tile = lanes if serial else lanes * chunk
-    # per-batch padding keeps every batch segment a copy of the padded base
-    nper = npts if (nb * npts) % tile == 0 else -(-npts // tile) * tile
-    n = nb * nper
-    reps = nper - npts
-    if reps:
-        x = torch.cat([x, x[:, :1].expand(-1, reps)], dim=-1)
-        y = torch.cat([y, y[:, :1].expand(-1, reps)], dim=-1)
-        scalar_limbs = torch.cat([scalar_limbs, scalar_limbs.new_zeros(
-            (scalar_limbs.shape[0], nb, reps))], dim=-1)
-    x = x.repeat(1, nb)
-    ycat = torch.cat([y.repeat(1, nb), fa.neg(FQ, y).repeat(1, nb)], dim=-1)
-    packed = signed_window_digits(scalar_limbs.reshape(scalar_limbs.shape[0], n), c)
+    with tracing.span("msm.digits", "msm_affine_multi"):
+        tile = lanes if serial else lanes * chunk
+        # per-batch padding keeps every batch segment a copy of the padded base
+        nper = npts if (nb * npts) % tile == 0 else -(-npts // tile) * tile
+        n = nb * nper
+        reps = nper - npts
+        if reps:
+            x = torch.cat([x, x[:, :1].expand(-1, reps)], dim=-1)
+            y = torch.cat([y, y[:, :1].expand(-1, reps)], dim=-1)
+            scalar_limbs = torch.cat([scalar_limbs, scalar_limbs.new_zeros(
+                (scalar_limbs.shape[0], nb, reps))], dim=-1)
+        x = x.repeat(1, nb)
+        ycat = torch.cat([y.repeat(1, nb), fa.neg(FQ, y).repeat(1, nb)], dim=-1)
+        packed = signed_window_digits(scalar_limbs.reshape(scalar_limbs.shape[0], n), c)
     out = _fused_msm_body(x, ycat, packed, c, lanes, chunk, serial=serial, nbatch=nb)
     return g1.JacobianPoints(*out)
 
@@ -626,6 +644,9 @@ def msm(points: g1.JacobianPoints, scalar_limbs: torch.Tensor) -> g1.JacobianPoi
     engine ``msm_affine``; any other (identities, z != 1) the generic engine
     ``_msm_jacobian``."""
     one = fa.broadcast_const(FQ, 1, tuple(points.z.shape[1:]), device=points.z.device)
-    if bool((points.z == one).all()):
+    with tracing.span("sync.read", "msm_z_is_one"):
+        tracing.copied("msm_z_is_one", points.z.device)
+        affine = bool((points.z == one).all())
+    if affine:
         return msm_affine(points.x, points.y, scalar_limbs)
     return _msm_jacobian(points, scalar_limbs)

@@ -118,6 +118,7 @@ def bucket_scan_serial_plain(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Te
     return _madd_scan_plain(xs, ys, flags, 1, _madd)[0]
 
 
+@_build.counted
 def bucket_scan_serial_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
                               team: int = SERIAL_TEAM):
     """One block of ``team`` threads per chain (``csrc/bucket_scan_serial.cu``),
@@ -132,9 +133,6 @@ def bucket_scan_serial_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.T
         _build.launch(fn, (xs, ys, flags, *out), (m, K, team_size(team, m)), xs.device)
         _build.count(bucket_scan_serial_kernel)
     return tuple(out)
-
-
-bucket_scan_serial_kernel.launches = 0
 
 
 def bucket_scan_serial(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
@@ -163,6 +161,7 @@ def bucket_scan_plain(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor, c
     return _madd_scan_plain(xs, ys, flags, chunk, _madd)[0]
 
 
+@_build.counted
 def bucket_scan_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor, chunk: int,
                        team: int = SCAN_TEAM):
     """A team of ``team`` threads per chain (``csrc/bucket_scan.cu``, B6's
@@ -179,9 +178,6 @@ def bucket_scan_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor, 
                       xs.device)
         _build.count(bucket_scan_kernel)
     return tuple(out)
-
-
-bucket_scan_kernel.launches = 0
 
 
 def bucket_scan(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
@@ -215,6 +211,7 @@ def bucket_scan_fast_plain(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tens
     return out + (exc.to(torch.int32).reshape(1, chunk, K),)
 
 
+@_build.counted
 def bucket_scan_fast_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
                             nonzero: torch.Tensor, chunk: int, team: int = FAST_TEAM):
     """A team of ``team`` threads per chain (``csrc/bucket_scan_fast.cu``,
@@ -233,9 +230,6 @@ def bucket_scan_fast_kernel(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Ten
                       (m, K, chunk, team_size(team, m // chunk)), xs.device)
         _build.count(bucket_scan_fast_kernel)
     return tuple(out) + (exc,)
-
-
-bucket_scan_fast_kernel.launches = 0
 
 
 def bucket_scan_fast(xs: torch.Tensor, ys: torch.Tensor, flags: torch.Tensor,
@@ -292,6 +286,7 @@ def bucket_total_plain(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
         torch.zeros((L, n), dtype=torch.int32, device=x.device) for _ in range(3))), suffix
 
 
+@_build.counted
 def bucket_total_kernel(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                         threads: int = BUCKET_THREADS, per_thread: int = BUCKET_PER_THREAD,
                         scan_out: bool = False):
@@ -311,9 +306,6 @@ def bucket_total_kernel(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     _build.launch(fn, (x, y, z, *out, *suffix, scratch), (B, threads, per_thread), x.device)
     _build.count(bucket_total_kernel)
     return (out, suffix) if scan_out else out
-
-
-bucket_total_kernel.launches = 0
 
 
 def bucket_total(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):

@@ -230,6 +230,7 @@ def pass_plain(a: torch.Tensor, table: torch.Tensor, s0: int, k: int,
     return out
 
 
+@_build.counted
 def pass_kernel(a: torch.Tensor, out: torch.Tensor, table: torch.Tensor, s0: int, k: int,
                 scale: torch.Tensor | None = None, *, cols: int | None = None,
                 threads: int | None = None) -> torch.Tensor:
@@ -258,9 +259,6 @@ def pass_kernel(a: torch.Tensor, out: torch.Tensor, table: torch.Tensor, s0: int
                       a.device)
         _build.count(pass_kernel)
     return out
-
-
-pass_kernel.launches = 0
 
 
 def pass_(a: torch.Tensor, out: torch.Tensor | None, table: torch.Tensor, s0: int, k: int,

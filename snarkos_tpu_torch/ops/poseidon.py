@@ -276,6 +276,7 @@ def hash_plain(inputs: torch.Tensor, rate: int, domain: str = "",
     return torch.stack(outs[:num_outputs])
 
 
+@_build.counted
 def sponge_kernel(rate: int, state=None, inputs=None, domain: str = "",
                   num_outputs: int = 0) -> torch.Tensor:
     """Launch ``fr_poseidon_permute`` on int32 CUDA tensors, in one of two
@@ -311,9 +312,6 @@ def sponge_kernel(rate: int, state=None, inputs=None, domain: str = "",
                       (B, t, n_in, n_out), device)
         _build.count(sponge_kernel)
     return out
-
-
-sponge_kernel.launches = 0
 
 
 def permute_kernel(state: torch.Tensor, rate: int) -> torch.Tensor:

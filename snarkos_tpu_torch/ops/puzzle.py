@@ -48,6 +48,7 @@ from snarkos_tpu_torch.crypto.ref import poseidon as ref_poseidon
 from snarkos_tpu_torch.ops import _build, g1, kzg, msm as msm_mod, poseidon
 from snarkos_tpu_torch.ops import modarith as fa
 from snarkos_tpu_torch.ops.fieldspec import FQ, FR
+from snarkos_tpu_torch.utils import tracing
 
 R = params.FR_MODULUS
 COEFF_DOMAIN = "snarkos_tpu.puzzle.coeff"
@@ -256,6 +257,7 @@ def _check_program(leaves, ps, cw):
     return B, K, S
 
 
+@_build.counted
 def program_kernel_cluster(leaves: torch.Tensor, ps: torch.Tensor, cw: torch.Tensor,
                            cluster: int) -> torch.Tensor:
     """Launch ``fr_epoch_program`` (``csrc/fr_passes.cu``, kernel B1's Fr
@@ -273,9 +275,7 @@ def program_kernel_cluster(leaves: torch.Tensor, ps: torch.Tensor, cw: torch.Ten
     return out
 
 
-program_kernel_cluster.launches = 0
-
-
+@_build.counted
 def program_kernel_global(leaves: torch.Tensor, ps: torch.Tensor,
                           cw: torch.Tensor) -> torch.Tensor:
     """Launch ``fr_epoch_program_global`` on int32 CUDA tensors: leaves (L,
@@ -291,9 +291,6 @@ def program_kernel_global(leaves: torch.Tensor, ps: torch.Tensor,
         _build.launch(fn, (leaves, ps, cw, out, scratch), (B, K, S), leaves.device)
         _build.count(program_kernel_global)
     return out
-
-
-program_kernel_global.launches = 0
 
 
 def program_kernel(leaves: torch.Tensor, prog: "EpochProgram") -> torch.Tensor:
@@ -436,6 +433,7 @@ class Puzzle:
         with self._programs_lock:
             prog = self._programs.get(epoch_hash)
             if prog is None:
+                tracing.count("epoch_program.build")
                 prog = EpochProgram(epoch_hash, self.k, self.device)
                 if len(self._programs) > 4:
                     self._programs.clear()
@@ -462,8 +460,9 @@ class Puzzle:
 
     def coefficients(self, epoch_hash: bytes, address: str, nonces) -> torch.Tensor:
         """(L, B, K) Montgomery coefficients of the nonces' polynomials."""
-        seeds = [self._seed_field(epoch_hash, address, n) for n in nonces]
-        return self.epoch_program(epoch_hash).apply(self._leaves_device(seeds))
+        with tracing.span("prove.coefficients", "Puzzle.coefficients"):
+            seeds = [self._seed_field(epoch_hash, address, n) for n in nonces]
+            return self.epoch_program(epoch_hash).apply(self._leaves_device(seeds))
 
     def _base(self) -> g1.JacobianPoints:
         p = self.srs.points
@@ -483,21 +482,28 @@ class Puzzle:
         nonces = list(nonces)
         if not nonces:
             return []
-        all_coeffs = self.coefficients(epoch_hash, address, nonces)
-        pts = self._base()
-        commit_jacs = g1.decode_points(msm_mod.msm_multi(pts, fa.from_mont(FR, all_coeffs)))
-        c_bytes = [_g1_to_bytes(j) for j in commit_jacs]
-        zs = [self._challenge(cb) for cb in c_bytes]
-        ys, qs = kzg.eval_and_quotient_multi(all_coeffs, zs)
-        wit_jacs = g1.decode_points(msm_mod.msm_multi(pts, fa.from_mont(FR, qs)))
-        out = []
-        for y, wj, cb in zip(ys, wit_jacs, c_bytes):
-            solution_id = sha64(cb, y.to_bytes(32, "little"))
-            if proof_target is not None and not self.passes_target(solution_id, proof_target):
-                continue
-            out.append(PuzzleSolutionData(commitment=cb, eval_y=y, witness=_g1_to_bytes(wj),
-                                          solution_id=solution_id))
-        return out
+        with tracing.span("prove.batch", "Puzzle.prove_batch"):
+            all_coeffs = self.coefficients(epoch_hash, address, nonces)
+            pts = self._base()
+            commit_jacs = g1.decode_points(msm_mod.msm_multi(pts, fa.from_mont(FR, all_coeffs)))
+            with tracing.span("host.decode", "Puzzle.prove_batch"):
+                c_bytes = [_g1_to_bytes(j) for j in commit_jacs]
+            with tracing.span("host.challenge", "Puzzle.prove_batch"):
+                zs = [self._challenge(cb) for cb in c_bytes]
+            ys, qs = kzg.eval_and_quotient_multi(all_coeffs, zs)
+            wit_jacs = g1.decode_points(msm_mod.msm_multi(pts, fa.from_mont(FR, qs)))
+            with tracing.span("host.decode", "Puzzle.prove_batch"):
+                w_bytes = [_g1_to_bytes(wj) for wj in wit_jacs]
+            with tracing.span("host.ids", "Puzzle.prove_batch"):
+                out = []
+                for y, wb, cb in zip(ys, w_bytes, c_bytes):
+                    solution_id = sha64(cb, y.to_bytes(32, "little"))
+                    if proof_target is not None and not self.passes_target(solution_id,
+                                                                           proof_target):
+                        continue
+                    out.append(PuzzleSolutionData(commitment=cb, eval_y=y, witness=wb,
+                                                  solution_id=solution_id))
+                return out
 
     def _challenge(self, c_bytes: bytes) -> int:
         cx = int.from_bytes(c_bytes[:48], "little") % R

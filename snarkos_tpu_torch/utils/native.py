@@ -16,8 +16,9 @@ first use. Two rules differ from the reference's module, on purpose:
 point: the engine returns rc < 0); the callers in ``crypto/ref`` hand that
 case to their plain Python versions, which decide what it means.
 
-Each engine entry adds one to its count (``call_counts``), which a node
-prints as it stops and the chip check reads a path.
+Each engine entry adds one to its count, ``engine.<entry>`` in the registry
+of ``utils/tracing.py`` (``call_counts``), which a node prints as it stops
+and serves on ``/metrics``, and the chip check reads a path.
 
 ``sha256d``, ``sha256d_batch`` and ``assign_to_worker`` are ``hashlib``'s
 (OpenSSL's SHA-256), ``limbs_to_bytes`` / ``bytes_to_limbs`` numpy's: the
@@ -34,12 +35,11 @@ import numpy as np
 
 from snarkos_tpu_torch.crypto import params
 from snarkos_tpu_torch.ops import _build
+from snarkos_tpu_torch.utils import tracing
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 _RATES: set = set()  # (engine path, rate) pairs whose tables are registered
-_CALLS: dict = {}
-_CALL_LOCK = threading.Lock()
 
 POSEIDON_MAX_RATE = 8  # the sponge engine's widest state: rate 8 + capacity 1
 
@@ -94,20 +94,17 @@ def load_engines() -> None:
 
 
 def _count(entry: str) -> None:
-    with _CALL_LOCK:
-        _CALLS[entry] = _CALLS.get(entry, 0) + 1
+    tracing.count("engine." + entry)
 
 
 def call_counts() -> dict:
     """The calls of each engine entry in this process since the last
     ``reset_counts``, by the entry's name."""
-    with _CALL_LOCK:
-        return dict(sorted(_CALLS.items()))
+    return {name[len("engine."):]: n for name, n in tracing.counters("engine.").items()}
 
 
 def reset_counts() -> None:
-    with _CALL_LOCK:
-        _CALLS.clear()
+    tracing.reset("engine.")
 
 
 # -- hashes and limbs (the reference's own bodies) ------------------------------

@@ -261,7 +261,8 @@ def test_scan_covers_the_node_and_the_vm():
                  "node/bft/storage.py", "node/bft/primary.py", "node/bft/bft.py",
                  "node/tcp.py", "node/router.py", "node/gateway.py", "node/block_sync.py",
                  "node/roles.py", "node/rest.py", "node/cli.py", "node/cdn.py",
-                 "node/display.py", "utils/__init__.py", "utils/native.py"):
+                 "node/display.py", "utils/__init__.py", "utils/native.py",
+                 "utils/tracing.py"):
         assert os.path.join("snarkos_tpu_torch", name) in rel, name
     assert os.path.join("tests", "torch_bft_support.py") in rel
     assert os.path.join("tests", "torch_net_support.py") in rel
@@ -341,4 +342,4 @@ def test_every_jax_module_has_a_counterpart():
     jax_mods, port_mods = modules("snarkos_tpu"), modules("snarkos_tpu_torch")
     assert {renames.get(m, m) for m in jax_mods} - port_mods == set()
     assert port_mods - {renames.get(m, m) for m in jax_mods} == {
-        "convert.py", "entry.py", "ops/_build.py"}
+        "convert.py", "entry.py", "ops/_build.py", "utils/tracing.py"}

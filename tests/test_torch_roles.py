@@ -370,6 +370,53 @@ def test_prover_loop_proves_and_propagates(env, monkeypatch):
     assert [m.solution for m in sent] == [s.to_bytes() for s in want]
 
 
+def test_prover_metrics_serve_the_registry(env, monkeypatch):
+    """After the Prover's loop has proved a batch on the CPU, ``/metrics``
+    serves the Prover's iterations and solutions and the counters of the
+    port's registry: every launch wrapper's (0 on the CPU) and the copies
+    the batch's decode made (``tracing.HOST`` set so that a CPU tensor's
+    copy counts as a card's)."""
+    from snarkos_tpu_torch.node import metrics
+    from snarkos_tpu_torch.ops import g1
+    from snarkos_tpu_torch.utils import tracing
+
+    class DecodingStub(_StubPuzzle):
+        def prove_batch(self, *args, **kwargs):
+            g1.decode_points(g1.infinity((1,), device="cpu"))
+            return super().prove_batch(*args, **kwargs)
+
+    monkeypatch.setattr(tracing, "HOST", "none")
+    stub = DecodingStub([0, (1 << 62) + 1, 1 << 62, 1 << 63])
+    monkeypatch.setattr(puzzle, "_PUZZLE", stub)
+    prover = roles.Prover(_av(4), b"\x01" * 32, log_degree=12, device="cpu", nonce_batch=4,
+                          max_iterations=4)
+    copies = tracing.counters("copy.decode_points")["copy.decode_points"]
+
+    async def go():
+        await prover.start()
+        prover.router.propagate = lambda m, exclude: None
+        prover.latest_epoch_hash, prover.latest_proof_target = b"\x07" * 32, 4
+        server = await metrics.serve(0)
+        try:
+            assert await until(lambda: prover._tasks[1].done(), 10)
+            reader, writer = await asyncio.open_connection(
+                "127.0.0.1", server.sockets[0].getsockname()[1])
+            writer.write(b"GET /metrics HTTP/1.1\r\n\r\n")
+            body = (await reader.read()).decode().split("\r\n\r\n", 1)[1]
+            writer.close()
+            return body
+        finally:
+            server.close()
+            await prover.shut_down()
+
+    text = run(go(), 20)
+    values = dict(line.split() for line in text.splitlines() if not line.startswith("#"))
+    assert values["prover_iterations"] == "4" and values["prover_solutions_found"] == "2"
+    assert "# TYPE launch_sponge_kernel counter" in text
+    assert int(values["copy_decode_points"]) == copies + 3
+    assert prover.fault is None
+
+
 @pytest.mark.parametrize("answer,stops", [(FAULT, True), (ValueError("bad epoch"), False),
                                           (ledger.SRSTooSmall("artifact"), False)],
                          ids=["RuntimeError", "ValueError", "SRSTooSmall"])
